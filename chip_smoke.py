@@ -59,6 +59,11 @@ F32_FLOP_PER_S = 67e12
 K1_TOL = 1e-5  # f32 sums of 50 products in another order
 K2_TOL = 1e-5  # masked GRU tolerance of PARITY.md, f32 over 20 steps
 E2E_TOL = 1e-4  # full forward tolerance of PARITY.md, card vs CPU
+MIN_SPREAD = 1e-3  # std of the served predictions: 10x E2E_TOL, so the
+                   # card-vs-CPU check sees real, varied outputs
+# the seeded checkpoint: with seed 0 the ReLU head's input is positive on
+# this corpus, so predictions are not clamped to a constant 0
+CKPT_SEED = 0
 
 
 def write_corpus(root, seed=0, shards=3, users=12, items=12, per_user=8,
@@ -180,10 +185,13 @@ def kernel_phase(device, N=2560, L=20, E=50, H=64):
     y_lib = torch.nn.utils.rnn.pad_packed_sequence(
         library(), batch_first=True, total_length=L)[0]
     print(f"K1+K2 vs cuDNN packed GRU: max abs diff {(y - y_lib).abs().max().item():.3e}")
-    # operations: the valid steps this run's lengths need, both directions
+    # bytes and operations of the valid steps this run's lengths need, both
+    # directions: xg is read only there, y is written in full
+    valid = int(lengths.sum())
     t_bound, by = bound(
-        4 * (xg.numel() + lengths.numel() + w_hh.numel() + b_hh.numel() + y.numel()),
-        2 * int(lengths.sum()) * 2 * H * 3 * H)
+        4 * (2 * valid * 3 * H + y.numel() + w_hh.numel() + b_hh.numel()
+             + lengths.numel()),
+        2 * valid * 2 * H * 3 * H)
     rows.append({
         "name": "bigru_recurrence", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/bigru_recurrence.cu",
@@ -219,6 +227,18 @@ def _counting(fn, counter):
     return wrapped
 
 
+def pre_relu(predictor, ds):
+    """The head's output before its ReLU over ds's samples, in order."""
+    outs = []
+    hook = predictor.model.linear_fusion.register_forward_hook(
+        lambda module, args, out: outs.append(out[:, 0].cpu()))
+    try:
+        predictor.predict_dataset(ds)
+    finally:
+        hook.remove()
+    return torch.cat(outs).numpy()[:len(ds)]  # dead rows pad the last batch
+
+
 def serve_phase(device_name):
     """UMPR-R serving at the reference widths.  Returns the launch counts
     of the main path (HTTP requests + CSV mode)."""
@@ -226,13 +246,12 @@ def serve_phase(device_name):
         shutil.rmtree(WORK)
     glove, csv, shard_rows = write_corpus(WORK, seed=0)
     model_dir = WORK / "model"
-    argv = ["--review_net_only", "True", "--multi_gpu", "False",
-            "--data_dir", str(WORK), "--word2vec_file", str(glove),
+    argv = ["--review_net_only", "True", "--data_dir", str(WORK), "--word2vec_file", str(glove),
             "--model_path", str(model_dir)]
     cfg = Config(argv)  # default device: cuda
     w2v = Word2vec(str(glove))
     model = UMPR(ModelDims.from_config(cfg), w2v.embedding,
-                 torch.Generator().manual_seed(1234))
+                 torch.Generator().manual_seed(CKPT_SEED))
     ckpt.save_best(str(model_dir), model)
     predictor = serve.Predictor(cfg, w2v, str(model_dir))
     df = pd.read_csv(csv)
@@ -277,6 +296,13 @@ def serve_phase(device_name):
         raise AssertionError("the requests did not span two batches")
     if not (http[scored] >= 0).all():
         raise AssertionError("negative prediction from a ReLU head")
+    positive, spread = (http[scored] > 0).mean(), http[scored].std()
+    print(f"predictions: {positive:.1%} > 0, std {spread:.3e}, range "
+          f"[{http[scored].min():.6f}, {http[scored].max():.6f}]")
+    if positive < 0.5 or not spread > MIN_SPREAD:
+        raise AssertionError("the predictions are degenerate (mostly clamped "
+                             "to 0 or constant): the checks below would see "
+                             "nothing")
     if repeat != answers[0]:
         raise AssertionError("a repeated request scored differently")
     if not np.array_equal(np.isfinite(csv_pred), scored):
@@ -304,6 +330,13 @@ def serve_phase(device_name):
           f"(tolerance {E2E_TOL:.0e}) over {len(rows)} samples")
     if not err <= E2E_TOL:
         raise AssertionError("card and CPU predictions disagree")
+    card_pre, cpu_pre = pre_relu(predictor, ds), pre_relu(cpu, ds)
+    err = np.abs(card_pre - cpu_pre).max()
+    print(f"card vs CPU before the head's ReLU: max abs diff {err:.3e} "
+          f"(tolerance {E2E_TOL:.0e}), range [{cpu_pre.min():.6f}, "
+          f"{cpu_pre.max():.6f}], std {cpu_pre.std():.3e}")
+    if not err <= E2E_TOL:
+        raise AssertionError("card and CPU disagree before the ReLU")
 
     # throughput on the card: the full host path, then the device forward
     predictor.predict_dataset(ds)

@@ -94,3 +94,23 @@ def test_wrappers_count_no_launch_on_cpu_and_raise_elsewhere():
     with pytest.raises(ValueError):
         gru_cuda.gru_input_proj(x.to("meta"), torch.zeros(3, 12, device="meta"),
                                 torch.zeros(12, device="meta"))
+
+
+def test_kernel_operands_are_cached_without_autograd_and_follow_updates():
+    _, gru, _, _, _ = _setup(4)
+    with torch.no_grad():
+        first = gru.kernel_operands()
+        assert all(a is b for a, b in zip(first, gru.kernel_operands()))
+        gru.weight_hh_l0_reverse.mul_(2.0)  # in place: the version moves
+        again = gru.kernel_operands()
+    assert again[2] is not first[2]
+    torch.testing.assert_close(again[2][1], 2.0 * first[2][1], rtol=0, atol=0)
+    torch.testing.assert_close(again[2][0], first[2][0], rtol=0, atol=0)
+    with torch.inference_mode():
+        assert gru.kernel_operands()[0] is again[0]
+    gru.weight_ih_l0 = torch.nn.Parameter(torch.zeros_like(gru.weight_ih_l0))
+    with torch.no_grad():
+        assert (gru.kernel_operands()[0][:, :3 * H] == 0).all()
+    # with autograd the operands are packed anew and carry the graph
+    w_ih = gru.kernel_operands()[0]
+    assert w_ih.requires_grad and w_ih is not again[0]

@@ -165,10 +165,38 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     (["--review_net_only", "False"], "A3"),
     (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A4"),
     (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A2"),
+    (["--review_net_only", "True", "--steps_per_dispatch", "8"], "A4"),
+    (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A4"),
+    (["--review_net_only", "True", "--vgg_fused_pool", "True"], "A3"),
+    (["--review_net_only", "True", "--mesh_shape", "[8]"], "A6"),
+    (["--review_net_only", "True", "--learning_rate", "1e-3"], "A2"),
+    (["--review_net_only", "True", "--use_pallas", "False"], "CUDA kernels"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         Config(["--device", "cpu"] + flags)
+
+
+def test_every_flag_is_read_or_raises():
+    """A flag the port accepts at a non-default value is one it reads: the
+    flags of NOT_PORTED raise, and every other one appears in the package's
+    code as ``config.<flag>``/``cfg.<flag>``."""
+    import re
+    from pathlib import Path
+    from umpr_tpu_torch.config import NOT_PORTED
+    src = "".join(p.read_text() for p in Path(REPO, "umpr_tpu_torch").rglob("*.py")
+                  if p.name != "config.py")
+    read = set(re.findall(r"\b(?:config|cfg)\.([a-z_0-9]+)", src))
+    read |= {"device", "multi_gpu", "review_net_only", "review_level"}  # config.py
+    flags = {k for k, _ in Config._attributes()}
+    assert set(NOT_PORTED) <= flags
+    assert flags - set(NOT_PORTED) == read & flags, (
+        sorted(flags - set(NOT_PORTED) - read), sorted(read & set(NOT_PORTED)))
+    defaults = dict(Config._attributes())
+    for key in sorted(NOT_PORTED):  # the defaults themselves are taken
+        val = defaults[key]
+        Config(["--device", "cpu", "--review_net_only", "True",
+                f"--{key}", val if isinstance(val, str) else repr(val)])
 
 
 def test_port_imports_neither_jax_nor_umpr_tpu():

@@ -5,15 +5,17 @@ Every public class attribute is a hyperparameter default and becomes a
 parsed with ``ast.literal_eval`` so ``--review_net_only True`` and
 ``--views "['food']"`` work as in umpr_tpu/config.py.
 
-Two differences from the JAX package:
+Differences from the JAX package:
 
 - ``device`` defaults to ``"cuda"``.  A CUDA device that is not there
   raises; nothing carries on on the CPU.  ``--device cpu`` is the only way
   onto the CPU.
-- Flags that select a path this package has not ported yet raise
-  ``NotImplementedError`` naming the ROADMAP.md item that ports it.  The
-  remaining flags keep their names and defaults; those of later slices
-  (training, photos, parallelism) are read by nothing yet.
+- ``multi_gpu`` defaults to False (the port runs on one card) and
+  ``build_chunk_rows`` to 0 (the port always takes the full-memory build).
+- Every flag that nothing in the port reads yet keeps its name and
+  default, and raises ``NotImplementedError`` naming the ROADMAP.md item
+  that ports it when given another value (``NOT_PORTED``).  So a flag the
+  port accepts is a flag it honours.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 class Config:
     # ----- training schedule -----
     device = "cuda"  # "cuda" | "cuda:<n>" | "cpu"
-    multi_gpu = True  # use every visible device; more than one: ROADMAP A6
+    multi_gpu = False  # True over more than one card: ROADMAP A6
     train_epochs = 20
     batch_size = 64
     learning_rate = 1e-6
@@ -42,7 +44,7 @@ class Config:
 
     # ----- mode switches -----
     test_only = False
-    review_net_only = False  # False (full UMPR) is ROADMAP A3
+    review_net_only = False  # False (full UMPR) is ROADMAP A3; pass True
 
     # ----- dataset shaping -----
     review_level = "sentence"  # 'sentence' or 'review'
@@ -63,7 +65,7 @@ class Config:
 
     # ----- additions of umpr_tpu (same names and defaults) -----
     seed = 0
-    compute_dtype = "float32"  # 'bfloat16' is ROADMAP A4
+    compute_dtype = "float32"
     eval_every = 500
     max_batches = 50000
     prefetch_depth = 2  # host->device look-ahead batches while serving
@@ -78,8 +80,8 @@ class Config:
                            # requests arriving within this window into one
                            # device batch (0 = every request alone)
     photo_cache_mb = 2048
-    use_pallas = True  # read by nothing: the port's bi-GRU always runs the
-                       # kernels of ops/gru_cuda.py (plain versions on CPU)
+    use_pallas = True  # the port's bi-GRU always runs the kernels of
+                       # ops/gru_cuda.py (plain versions on CPU)
     mesh_shape = []
     shard_embedding = False
     resume_path = ""
@@ -94,13 +96,12 @@ class Config:
     profile_dir = ""
     metrics_jsonl = ""
     cache_dataset = True
-    checkpoint_backend = "npz"  # 'orbax' is a JAX library: ROADMAP A2
+    checkpoint_backend = "npz"  # 'orbax' is a JAX library
     async_checkpoint = True
     coordinator_address = ""
     num_processes = 0
     process_id = -1
-    build_chunk_rows = 1000000  # the port always takes the full-memory
-                                # build; the streaming build is ROADMAP A4
+    build_chunk_rows = 0  # 0 = the full-memory build; streaming is ROADMAP A4
 
     def __init__(self, argv=None):
         parser = argparse.ArgumentParser()
@@ -112,22 +113,18 @@ class Config:
         for key, val in vars(parser.parse_args(argv)).items():
             setattr(self, key, val)
 
-        if self.test_only and self.model_path == "":
-            raise ValueError("You must give model_path on testing!")
         if self.review_level not in ("sentence", "review"):
             raise ValueError('"review_level" must be equal to "sentence" or "review"!')
         if not self.review_net_only:
             raise NotImplementedError(
                 "full UMPR (--review_net_only False) is not ported yet "
                 "(ROADMAP A3); pass --review_net_only True")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"--compute_dtype {self.compute_dtype} is not ported yet "
-                "(ROADMAP A4)")
-        if self.checkpoint_backend != "npz":
-            raise NotImplementedError(
-                f"--checkpoint_backend {self.checkpoint_backend} is not "
-                "ported (ROADMAP A2); the port reads and writes npz")
+        defaults = dict(self._attributes())
+        for key, item in NOT_PORTED.items():
+            if getattr(self, key) != defaults[key]:
+                raise NotImplementedError(
+                    f"--{key} {getattr(self, key)!r} is not ported yet "
+                    f"({item}); only its default {defaults[key]!r} is taken")
         self.torch_device = resolve_device(self.device, self.multi_gpu)
 
     @classmethod
@@ -140,6 +137,36 @@ class Config:
                     continue
                 items[key] = val
         return sorted(items.items())
+
+
+# flag -> the ROADMAP.md item that ports what it selects.  Every other flag
+# is read by the port.
+NOT_PORTED = {
+    **dict.fromkeys((
+        "train_epochs", "learning_rate", "l2_regularization", "lr_decay",
+        "log_path", "test_only", "eval_every", "max_batches",
+        "save_every_batches", "save_last_every_epochs", "resume_path",
+        "rnet_pretrained", "adam_moment_dtype", "adam_factored_nu",
+        "profile_dir", "metrics_jsonl", "cache_dataset", "checkpoint_backend",
+    ), "ROADMAP A2, training"),
+    **dict.fromkeys((
+        "kernel_count", "kernel_size", "threshold", "loss_v_rate",
+        "data_workers", "photo_cache_mb", "vgg16_weights", "photo_size",
+        "vgg_fold_w", "vgg_fused_pool", "remat_vgg",
+    ), "ROADMAP A3, full UMPR"),
+    **dict.fromkeys((
+        "compute_dtype", "steps_per_dispatch", "grad_accum_steps",
+        "device_dataset", "device_dataset_mb", "async_checkpoint",
+        "build_chunk_rows",
+    ), "ROADMAP A4, runtime features"),
+    **dict.fromkeys((
+        "mesh_shape", "shard_embedding", "coordinator_address",
+        "num_processes", "process_id",
+    ), "ROADMAP A6, parallelism"),
+    # the port has no kernel-free path on the card; --device cpu runs the
+    # plain versions
+    "use_pallas": "no ROADMAP item: the card always runs the CUDA kernels",
+}
 
 
 def resolve_device(name, multi_gpu=False):

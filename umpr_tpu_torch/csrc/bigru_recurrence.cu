@@ -30,9 +30,10 @@
 // row; later positions are stored as zeros.  N=2560 rows give 320 blocks.
 //
 // What bounds it on an H100: at the UMPR-R shapes (N=2560, L=20, H=64) it
-// reads 78.6 MB of xg, writes 26.2 MB of y and does at most 2.5 GFLOP of
-// f32 FMA (fewer where rows are short), ~31 us of HBM traffic against
-// ~38 us of f32 arithmetic at 67 TFLOP/s.  In practice the 20 dependent
+// reads xg only at valid steps (at most 78.6 MB, about 41 MB for lengths
+// uniform in 1..20), writes 26.2 MB of y and does 2.5 GFLOP of f32 FMA at
+// most (about 1.3 at those lengths): ~20 us of HBM traffic and about as
+// much f32 arithmetic at 67 TFLOP/s.  In practice the 20 dependent
 // steps, each ending in a block barrier, and the shared-memory reads of
 // W_hh bound it: the design spreads the rows over all SMs (320 blocks, 256
 // threads each) so those latencies overlap across blocks.  Keeping W_hh in

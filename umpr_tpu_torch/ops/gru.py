@@ -25,7 +25,6 @@ from torch import nn
 from umpr_tpu_torch.ops import gru_cuda
 
 
-
 class BiGRU(nn.Module):
     """One bidirectional GRU layer.  Init as torch.nn.GRU: every tensor
     ~ U(-k, k), k = 1/sqrt(hidden), drawn from `generator` in the order of
@@ -42,10 +41,27 @@ class BiGRU(nn.Module):
                                 ("bias_hh_l0", (3 * hidden,))):
                 p = torch.empty(shape).uniform_(-k, k, generator=generator)
                 self.register_parameter(name + suffix, nn.Parameter(p))
+        self._packed = None  # (parameters, their versions, operands)
 
     def kernel_operands(self):
         """(w_ih (E, 6H), b_ih (6H,), w_hh (2, H, 3H), b_hh (2, 3H)), both
-        directions side by side in "x @ W" orientation."""
+        directions side by side in "x @ W" orientation.
+
+        Without autograd (serving) they are packed once and kept until a
+        parameter is replaced (.to(), assignment) or changed in place
+        (load_state_dict, an optimizer step), which bumps its version.
+        Inference tensors carry no version, so they are never cached."""
+        params = tuple(self.parameters())
+        if torch.is_grad_enabled() or any(p.is_inference() for p in params):
+            return self._pack()
+        versions = tuple(p._version for p in params)
+        cached = self._packed
+        if (cached is None or versions != cached[1]
+                or any(a is not b for a, b in zip(params, cached[0]))):
+            self._packed = cached = (params, versions, self._pack())
+        return cached[2]
+
+    def _pack(self):
         w_ih = torch.cat([self.weight_ih_l0.t(), self.weight_ih_l0_reverse.t()], 1)
         b_ih = torch.cat([self.bias_ih_l0, self.bias_ih_l0_reverse])
         w_hh = torch.stack([self.weight_hh_l0.t(), self.weight_hh_l0_reverse.t()])
