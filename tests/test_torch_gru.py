@@ -11,7 +11,7 @@ import torch
 
 from umpr_tpu.ops.gru import _direction_scan, bigru_scan, init_bigru
 from umpr_tpu.ops.gru_pallas import bigru_pallas_split_nodx
-from umpr_tpu_torch.convert import params_from_jax
+from umpr_tpu_torch.convert import params_from_jax, params_to_jax
 from umpr_tpu_torch.ops import gru_cuda
 from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
 from umpr_tpu_torch.ops.gru import bigru_scan as port_bigru_scan
@@ -82,6 +82,147 @@ def test_plain_versions_match_jax_projection_and_recurrence():
                          jparams["bwd"]["bias_hh"], H, reverse=True)
     jy = np.swapaxes(np.concatenate([np.asarray(jf), np.asarray(jb)], -1), 0, 1)
     np.testing.assert_allclose(y.numpy(), jy, **TOL)
+
+
+def _cotangents(seed, N, L, S):
+    rng = np.random.default_rng(seed + 100)
+    return (rng.standard_normal((N // S, S * L, 2 * H)).astype(np.float32),
+            rng.standard_normal((N, L, 2 * H)).astype(np.float32))
+
+
+def _port_param_grads(gru, x, lengths, S, c_pos, c_sent):
+    """{JAX key: grad} of sum(y_pos*c_pos) + sum(y_sent*c_sent) through
+    bigru_split, mapped to the JAX parameter layout."""
+    gru.zero_grad()
+    pos, sent = bigru_split(gru, torch.from_numpy(x), torch.from_numpy(lengths), S)
+    loss = 0.0
+    if c_pos is not None:
+        loss = loss + (pos * torch.from_numpy(c_pos)).sum()
+    if c_sent is not None:
+        loss = loss + (sent * torch.from_numpy(c_sent)).sum()
+    loss.backward()
+    grads = {f"gru.{n}": p.grad for n, p in gru.named_parameters()}
+    return params_to_jax(grads)["gru"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bigru_split_param_grads_match_jax_grad_of_kernel(seed):
+    jparams, gru, x, lengths, S = _setup(seed)
+    c_pos, c_sent = _cotangents(seed, *x.shape[:2], S)
+
+    def loss(p):
+        pos, sent = bigru_pallas_split_nodx(p, jnp.asarray(x), jnp.asarray(lengths), S)
+        return jnp.sum(pos * c_pos) + jnp.sum(sent * c_sent)
+
+    want = jax.grad(loss)(jparams)
+    got = _port_param_grads(gru, x, lengths, S, c_pos, c_sent)
+    for d in ("fwd", "bwd"):
+        for k in ("w_ih", "w_hh", "bias_ih", "bias_hh"):
+            np.testing.assert_allclose(got[d][k], np.asarray(want[d][k]), **TOL,
+                                       err_msg=f"{d}.{k}")
+
+
+def test_each_output_alone_reaches_every_gru_weight():
+    _, gru, x, lengths, S = _setup(5)
+    c_pos, c_sent = _cotangents(5, *x.shape[:2], S)
+    for only in ((c_pos, None), (None, c_sent)):
+        grads = _port_param_grads(gru, x, lengths, S, *only)
+        for d in ("fwd", "bwd"):
+            for k, g in grads[d].items():
+                assert np.abs(g).max() > 1e-3, (only[0] is None, d, k)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_1", "all_L"])
+def test_backward_plain_versions_match_autograd_through_bigru_scan(kind):
+    _, gru, x, lengths, S = _setup(6)
+    N, L, E = x.shape
+    if kind != "mixed":
+        lengths[:] = 1 if kind == "all_1" else L
+    lengths_t = torch.from_numpy(lengths)
+    w_ih, b_ih, w_hh, b_hh = (t.detach().requires_grad_()
+                              for t in gru.kernel_operands())
+    x2 = torch.from_numpy(x).reshape(N * L, E)
+    xg = gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih)
+    xg3 = xg.detach().view(N, L, -1).requires_grad_()
+    y = gru_cuda.bigru_recurrence_ref(xg3, lengths_t, w_hh, b_hh)
+    c_pos, c_sent = (torch.from_numpy(c) for c in _cotangents(6, N, L, S))
+    ((y.view(N // S, S * L, -1) * c_pos).sum() + (y * c_sent).sum()).backward()
+
+    dxg, dw_hh, db_hh = gru_cuda.bigru_backward_ref(
+        xg3.detach(), y.detach(), c_sent, c_pos, lengths_t, w_hh.detach(),
+        b_hh.detach())
+    torch.testing.assert_close(dxg, xg3.grad, **TOL)
+    torch.testing.assert_close(dw_hh, w_hh.grad, **TOL)
+    torch.testing.assert_close(db_hh, b_hh.grad, **TOL)
+    past = torch.arange(L)[None, :] >= lengths_t[:, None]
+    assert (dxg[past] == 0).all()
+
+    xg.backward(dxg.view(N * L, -1))
+    dw_ih, db_ih = gru_cuda.gru_input_proj_bwd_ref(x2, dxg.view(N * L, -1))
+    torch.testing.assert_close(dw_ih, w_ih.grad, **TOL)
+    torch.testing.assert_close(db_ih, b_ih.grad, **TOL)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_1", "all_L"])
+def test_y_gives_the_state_before_every_valid_step(kind):
+    """K3 reads h_prev from y: at every valid step it is the state an
+    independent nn.GRUCell trace holds before the step, including each
+    row's first step (zeros)."""
+    _, gru, x, lengths, _ = _setup(8)
+    N, L, E = x.shape
+    if kind != "mixed":
+        lengths[:] = 1 if kind == "all_1" else L
+    lengths_t = torch.from_numpy(lengths)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        y = port_bigru_scan(gru, xt, lengths_t)
+        for d, suffix, steps in ((0, "", range(L)),
+                                 (1, "_reverse", range(L - 1, -1, -1))):
+            cell = torch.nn.GRUCell(E, H)
+            cell.load_state_dict({n: getattr(gru, f"{n}_l0{suffix}") for n in
+                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh")})
+            h = torch.zeros(N, H)
+            for t in steps:
+                valid = t < lengths_t
+                torch.testing.assert_close(gru_cuda.h_prev_from_y(y, t, d)[valid],
+                                           h[valid], **TOL)
+                h = torch.where(valid[:, None], cell(xt[:, t], h), h)
+
+
+def test_bigru_split_raises_when_x_requires_grad():
+    _, gru, x, lengths, S = _setup(9)
+    with pytest.raises(NotImplementedError, match="B4-dx"):
+        bigru_split(gru, torch.from_numpy(x).requires_grad_(),
+                    torch.from_numpy(lengths), S)
+
+
+def test_kernel_wrappers_raise_on_non_cpu_inputs_that_require_grad():
+    """A kernel's output carries no graph: off the CPU, an input that
+    requires grad must raise, not silently cut the GRU from the loss."""
+    meta = dict(device="meta")
+    N, L, E = 4, 3, 5
+    w = torch.zeros(E, 6 * H, **meta, requires_grad=True)
+    b = torch.zeros(6 * H, **meta)
+    xg = torch.zeros(N, L, 6 * H, **meta)
+    lengths = torch.ones(N, dtype=torch.int32, **meta)
+    w_hh = torch.zeros(2, H, 3 * H, **meta, requires_grad=True)
+    b_hh = torch.zeros(2, 3 * H, **meta)
+    y = torch.zeros(N, L, 2 * H, **meta, requires_grad=True)
+    calls = [
+        lambda: gru_cuda.gru_input_proj(torch.zeros(N * L, E, **meta), w, b),
+        lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh),
+        lambda: gru_cuda.bigru_backward(xg, y, y.detach(), y.detach(), lengths,
+                                        w_hh.detach(), b_hh),
+        lambda: gru_cuda.gru_input_proj_bwd(torch.zeros(N * L, E, **meta),
+                                            xg.view(N * L, -1).requires_grad_()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="BiGRUSplit"):
+            call()
+    # without grad, a non-CUDA device is refused as before
+    with pytest.raises(ValueError, match="unsupported device"):
+        gru_cuda.bigru_backward(xg, y.detach(), y.detach(), y.detach(), lengths,
+                                w_hh.detach(), b_hh)
 
 
 def test_wrappers_count_no_launch_on_cpu_and_raise_elsewhere():

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 and K2 against their plain versions at ragged and
-full shapes.  They need the card (a CUDA kernel has no CPU mode): the
+"""The CUDA kernels K1-K4 against their plain versions at ragged and full
+shapes, and the bi-GRU's parameter gradients on the card against the CPU.  They need the card (a CUDA kernel has no CPU mode): the
 ``cuda`` fixture skips them elsewhere.  On a machine with a card (no JAX
 needed):
 
@@ -51,6 +51,90 @@ def test_bigru_recurrence_matches_plain(cuda, N, L, H):
     assert (y[past] == 0).all()
 
 
+def _backward_inputs(cuda, N, L, H, lengths_kind, E=17, S=1):
+    g = torch.Generator().manual_seed(N * 7 + H)
+    x = torch.randn(N * L, E, generator=g).to(cuda)
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    if lengths_kind == "all_1":
+        lengths[:] = 1
+    elif lengths_kind == "all_L":
+        lengths[:] = L
+    else:
+        lengths[0], lengths[-1] = L, 1
+    lengths = lengths.to(cuda)
+    w_ih = (torch.rand(E, 6 * H, generator=g) / H ** 0.5).to(cuda)
+    b_ih = (torch.rand(6 * H, generator=g) / H ** 0.5).to(cuda)
+    w_hh = (torch.rand(2, H, 3 * H, generator=g) / H ** 0.5).to(cuda)
+    b_hh = (torch.rand(2, 3 * H, generator=g) / H ** 0.5).to(cuda)
+    xg = gru_cuda.gru_input_proj_ref(x, w_ih, b_ih).view(N, L, 6 * H)
+    y = gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
+    dy_sent = torch.randn(N, L, 2 * H, generator=g).to(cuda)
+    dy_pos = torch.randn(N // S, S * L, 2 * H, generator=g).to(cuda)
+    return x, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh
+
+
+def _close_rel(got, want, rtol):
+    scale = want.abs().max().clamp(min=1.0)
+    assert (got - want).abs().max() <= rtol * scale, (got - want).abs().max()
+
+
+@pytest.mark.parametrize("N,L,H,lengths_kind", [
+    (1, 1, 64, "mixed"), (1, 7, 32, "all_L"), (37, 5, 32, "mixed"),
+    (300, 20, 64, "mixed"), (64, 20, 64, "all_1"), (64, 20, 64, "all_L"),
+    (50, 9, 128, "mixed"), (33, 6, 96, "mixed")])
+def test_bigru_backward_matches_plain(cuda, N, L, H, lengths_kind):
+    _, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _backward_inputs(
+        cuda, N, L, H, lengths_kind)
+    before = gru_cuda.bigru_backward.launches
+    dxg, dw, db = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_backward.launches == before + 1
+    want = gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    torch.testing.assert_close(dxg, want[0], rtol=1e-5, atol=1e-5)
+    _close_rel(dw, want[1], 1e-4)  # sums over N*L rows in another order
+    _close_rel(db, want[2], 1e-4)
+    past = torch.arange(L, device=cuda)[None, :] >= lengths[:, None]
+    assert (dxg[past] == 0).all()
+    again = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    for a, b in zip(again, (dxg, dw, db)):  # fixed-order sums: same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,E,G", [(1, 50, 384), (130, 17, 100), (0, 17, 192),
+                                   (5000, 17, 192), (51200, 50, 384)])
+def test_gru_input_proj_bwd_matches_plain(cuda, M, E, G):
+    g = torch.Generator().manual_seed(M + E)
+    x = torch.randn(M, E, generator=g).to(cuda)
+    dxg = torch.randn(M, G, generator=g).to(cuda)
+    before = gru_cuda.gru_input_proj_bwd.launches
+    dw, db = gru_cuda.gru_input_proj_bwd(x, dxg)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_input_proj_bwd.launches == before + 1
+    want_dw, want_db = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
+    _close_rel(dw, want_dw, 1e-4)
+    _close_rel(db, want_db, 1e-4)
+    again = gru_cuda.gru_input_proj_bwd(x, dxg)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
+
+
+def test_bigru_split_grads_on_the_card_match_the_cpu(cuda):
+    from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
+    g = torch.Generator().manual_seed(3)
+    N, L, E, H, S = 40, 9, 17, 64, 4
+    x = torch.randn(N, L, E, generator=g)
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    c_pos = torch.randn(N // S, S * L, 2 * H, generator=g)
+    c_sent = torch.randn(N, L, 2 * H, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        gru = BiGRU(E, H, generator=torch.Generator().manual_seed(4)).to(dev)
+        pos, sent = bigru_split(gru, x.to(dev), lengths.to(dev), S)
+        ((pos * c_pos.to(dev)).sum() + (sent * c_sent.to(dev)).sum()).backward()
+        grads.append({n: p.grad.cpu() for n, p in gru.named_parameters()})
+    for n, want in grads[0].items():
+        _close_rel(grads[1][n], want, 1e-4)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(8, 4, device=cuda)
     w = torch.randn(4, 12, device=cuda)
@@ -69,3 +153,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gru_cuda.bigru_recurrence(
             torch.zeros(2, 3, 6, device=cuda), torch.ones(2, device=cuda),
             torch.zeros(2, 1, 3, device=cuda), torch.zeros(2, 3, device=cuda))
+    H = 48  # K3 is compiled for H in 32, 64, 96, 128
+    z = torch.zeros(2, 3, 2 * H, device=cuda)
+    with pytest.raises(ValueError, match="H=48"):
+        gru_cuda.bigru_backward(
+            torch.zeros(2, 3, 6 * H, device=cuda), z, z, z,
+            torch.ones(2, dtype=torch.int32, device=cuda),
+            torch.zeros(2, H, 3 * H, device=cuda), torch.zeros(2, 3 * H, device=cuda))
+    with pytest.raises(ValueError):
+        gru_cuda.gru_input_proj_bwd(x, torch.zeros(7, 12, device=cuda))
+    with pytest.raises(RuntimeError, match="BiGRUSplit"):
+        gru_cuda.gru_input_proj(x, w.requires_grad_(), b)

@@ -169,7 +169,7 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A4"),
     (["--review_net_only", "True", "--vgg_fused_pool", "True"], "A3"),
     (["--review_net_only", "True", "--mesh_shape", "[8]"], "A6"),
-    (["--review_net_only", "True", "--learning_rate", "1e-3"], "A2"),
+    (["--review_net_only", "True", "--save_every_batches", "2"], "A2"),
     (["--review_net_only", "True", "--use_pallas", "False"], "CUDA kernels"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(flags, item):

@@ -10,8 +10,10 @@ Differences from the JAX package:
 - ``device`` defaults to ``"cuda"``.  A CUDA device that is not there
   raises; nothing carries on on the CPU.  ``--device cpu`` is the only way
   onto the CPU.
-- ``multi_gpu`` defaults to False (the port runs on one card) and
-  ``build_chunk_rows`` to 0 (the port always takes the full-memory build).
+- ``multi_gpu`` defaults to False (the port runs on one card),
+  ``build_chunk_rows`` to 0 (the port always takes the full-memory build),
+  ``cache_dataset`` to False (each split is built in memory) and
+  ``save_last_every_epochs`` to 0 (no ``last/`` checkpoint).
 - Every flag that nothing in the port reads yet keeps its name and
   default, and raises ``NotImplementedError`` naming the ROADMAP.md item
   that ports it when given another value (``NOT_PORTED``).  So a flag the
@@ -68,9 +70,9 @@ class Config:
     compute_dtype = "float32"
     eval_every = 500
     max_batches = 50000
-    prefetch_depth = 2  # host->device look-ahead batches while serving
+    prefetch_depth = 2  # host->device look-ahead batches
     save_every_batches = 0
-    save_last_every_epochs = 1
+    save_last_every_epochs = 0  # 0 = no last/ checkpoint; resume is ROADMAP A2
     steps_per_dispatch = 1
     grad_accum_steps = 1
     data_workers = 0
@@ -95,7 +97,7 @@ class Config:
     adam_factored_nu = False
     profile_dir = ""
     metrics_jsonl = ""
-    cache_dataset = True
+    cache_dataset = False  # the dataset cache is ROADMAP A4
     checkpoint_backend = "npz"  # 'orbax' is a JAX library
     async_checkpoint = True
     coordinator_address = ""
@@ -138,16 +140,18 @@ class Config:
                 items[key] = val
         return sorted(items.items())
 
+    def __str__(self):
+        return "".join(f"{key} = {getattr(self, key)}\n"
+                       for key, _ in self._attributes())
+
 
 # flag -> the ROADMAP.md item that ports what it selects.  Every other flag
 # is read by the port.
 NOT_PORTED = {
     **dict.fromkeys((
-        "train_epochs", "learning_rate", "l2_regularization", "lr_decay",
-        "log_path", "test_only", "eval_every", "max_batches",
         "save_every_batches", "save_last_every_epochs", "resume_path",
         "rnet_pretrained", "adam_moment_dtype", "adam_factored_nu",
-        "profile_dir", "metrics_jsonl", "cache_dataset", "checkpoint_backend",
+        "profile_dir", "checkpoint_backend",
     ), "ROADMAP A2, training"),
     **dict.fromkeys((
         "kernel_count", "kernel_size", "threshold", "loss_v_rate",
@@ -157,7 +161,7 @@ NOT_PORTED = {
     **dict.fromkeys((
         "compute_dtype", "steps_per_dispatch", "grad_accum_steps",
         "device_dataset", "device_dataset_mb", "async_checkpoint",
-        "build_chunk_rows",
+        "build_chunk_rows", "cache_dataset",
     ), "ROADMAP A4, runtime features"),
     **dict.fromkeys((
         "mesh_shape", "shard_embedding", "coordinator_address",

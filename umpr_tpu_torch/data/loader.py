@@ -19,11 +19,17 @@ FIELDS = ("u_tokens", "u_lengths", "u_counts", "i_tokens", "i_lengths",
 
 
 class BatchLoader:
-    """Sequential batches of `batch_size` samples over a packed dataset."""
+    """Batches of `batch_size` samples over a packed dataset, in order or,
+    with `shuffle`, in one permutation of the samples drawn per iteration
+    from ``np.random.default_rng(seed)`` (the JAX loader's order for the
+    same seed).  `start_batch` skips that many batches of the order."""
 
-    def __init__(self, dataset, batch_size):
+    def __init__(self, dataset, batch_size, shuffle=False, seed=0, start_batch=0):
         self.ds = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.start_batch = start_batch
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self):
         return -(-len(self.ds) // self.batch_size)
@@ -46,7 +52,9 @@ class BatchLoader:
     def __iter__(self):
         n = len(self.ds)
         order = np.arange(n)
-        for start in range(0, n, self.batch_size):
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for start in range(self.start_batch * self.batch_size, n, self.batch_size):
             yield self._make_batch(order[start:start + self.batch_size])
 
 

@@ -79,6 +79,9 @@ class UMPR(nn.Module):
 
 
 def masked_sq_sum(pred, labels, mask):
-    """Sum of squared errors over real samples (mask > 0), a select so a
-    dead row's NaN cannot reach the sum."""
-    return torch.where(mask > 0, (pred - labels) ** 2, 0.0).sum()
+    """Sum of squared errors over real samples (mask > 0).  The select
+    comes before the square, so a dead row's NaN reaches neither the sum
+    nor its gradient: the square's backward sees the selected 0, where a
+    select after the square would multiply its zero cotangent by NaN."""
+    err = torch.where(mask > 0, pred - labels, 0.0)
+    return (err * err).sum()

@@ -10,9 +10,10 @@ Semantics, as in the JAX package:
   double-unsort quirk is not reproduced).
 
 Parameters are held in ``torch.nn.GRU``'s state-dict layout (weight_ih_l0
-is (3H, E)).  ``bigru_split`` runs the two CUDA kernels of
-ops/gru_cuda.py (their plain versions for CPU tensors); ``bigru_scan`` is
-the plain reference the tests hold it against.
+is (3H, E)).  ``bigru_split`` runs the CUDA kernels of ops/gru_cuda.py
+(their plain versions for CPU tensors) inside ``BiGRUSplit``, forward
+and backward; ``bigru_scan`` is the plain reference, differentiable by
+autograd, that the tests hold it against.
 """
 
 from __future__ import annotations
@@ -77,16 +78,52 @@ def bigru_scan(gru, x, lengths):
     return gru_cuda.bigru_recurrence_ref(xg.view(N, L, -1), lengths, w_hh, b_hh)
 
 
+class BiGRUSplit(torch.autograd.Function):
+    """The bi-GRU as one autograd node over the packed kernel operands
+    (port of ``_make_bigru_pallas_split``, umpr_tpu/ops/gru_pallas.py:952).
+
+    forward: K1 then K2 on detached tensors, returning (y_pos, y_sent), y_pos
+    a view of y_sent's memory.  backward: K3 sums the two cotangents (B7)
+    and runs the reverse sweep (B2), K4 gives dW_ih and db_ih (B4).  It
+    returns the grads of (w_ih, b_ih, w_hh, b_hh); the cat/transpose of
+    ``BiGRU.kernel_operands`` carries them back to the nn.GRU-layout
+    parameters.  There is no input gradient: x is the frozen embedding.
+    On the CPU every step runs the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, S, w_ih, b_ih, w_hh, b_hh):
+        N, L, E = x.shape
+        x2 = x.detach().reshape(N * L, E)
+        w_ih, b_ih, w_hh, b_hh = (t.detach() for t in (w_ih, b_ih, w_hh, b_hh))
+        xg = gru_cuda.gru_input_proj(x2, w_ih, b_ih)
+        y = gru_cuda.bigru_recurrence(xg.view(N, L, -1), lengths, w_hh, b_hh)
+        ctx.save_for_backward(x2, xg, y, lengths, w_hh, b_hh)
+        return y.view(N // S, S * L, y.shape[-1]), y
+
+    @staticmethod
+    def backward(ctx, dy_pos, dy_sent):
+        # y is an output of this node: saved, it comes back requiring grad
+        x2, xg, y, lengths, w_hh, b_hh = (t.detach() for t in ctx.saved_tensors)
+        N, L, _ = y.shape
+        dxg, dw_hh, db_hh = gru_cuda.bigru_backward(
+            xg.view(N, L, -1), y, dy_sent.contiguous(), dy_pos.contiguous(),
+            lengths, w_hh, b_hh)
+        dw_ih, db_ih = gru_cuda.gru_input_proj_bwd(x2, dxg.view(N * L, -1))
+        return None, None, None, dw_ih, db_ih, dw_hh, db_hh
+
+
 def bigru_split(gru, x, lengths, S):
     """Bi-GRU returning both true-time consumer layouts:
       y_pos  (N/S, S*L, 2H) -- the affinity-attention positions layout;
       y_sent (N, L, 2H)     -- the per-sentence S-Net layout.
-    y_pos is a view of y_sent.
+    y_pos is a view of y_sent's memory.  Differentiable in the GRU's
+    parameters through BiGRUSplit, on every device.
 
     x: (N, L, E) sentence rows, a free view of the (B, S, L, E) embedding
-    lookup; lengths: (N,) int32."""
-    N, L, E = x.shape
-    w_ih, b_ih, w_hh, b_hh = gru.kernel_operands()
-    xg = gru_cuda.gru_input_proj(x.reshape(N * L, E), w_ih, b_ih)
-    y = gru_cuda.bigru_recurrence(xg.view(N, L, -1), lengths, w_hh, b_hh)
-    return y.view(N // S, S * L, y.shape[-1]), y
+    lookup (frozen: x must not require grad); lengths: (N,) int32."""
+    if x.requires_grad:
+        raise NotImplementedError(
+            "bigru_split: x requires grad, but the input gradient (the dxc "
+            "branch of B4, ROADMAP B4-dx) is not ported; every UMPR config "
+            "feeds the frozen embedding")
+    return BiGRUSplit.apply(x, lengths, S, *gru.kernel_operands())

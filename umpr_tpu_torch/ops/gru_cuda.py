@@ -1,7 +1,8 @@
-"""The bi-GRU forward kernels: wrappers, plain versions, launch counts.
+"""The bi-GRU kernels: wrappers, plain versions, launch counts.
 
-Two CUDA C++ kernels for Hopper carry the forward of the JAX package's
-Pallas GRU stack (``bigru_pallas_split_nodx``, umpr_tpu/ops/gru_pallas.py):
+Four CUDA C++ kernels for Hopper carry the Pallas GRU stack of the JAX
+package (``bigru_pallas_split_nodx``, umpr_tpu/ops/gru_pallas.py).
+Forward:
 
 - K1 ``gru_input_proj`` (csrc/gru_input_proj.cu) replaces B5 (stack-pad)
   and B3 (input projection): xg = x @ [W_ih_f | W_ih_b] + b_ih in true time;
@@ -9,9 +10,21 @@ Pallas GRU stack (``bigru_pallas_split_nodx``, umpr_tpu/ops/gru_pallas.py):
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
   time, exact zeros past each length.
 
+Backward (the frozen-embedding case, no input gradient):
+
+- K3 ``bigru_backward`` (csrc/bigru_backward.cu) replaces B7 (the sum of
+  the two output cotangents) and B2 (the reverse sweep): dxg in true time,
+  dW_hh and db_hh; the states come from y, so K2 emits no ``hs``;
+- K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
+  with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg).
+
 Each wrapper takes its plain PyTorch version for CPU tensors and only
 then.  For CUDA tensors it launches the kernel or raises; it never falls
-back.  ``<wrapper>.launches`` counts kernel launches.
+back.  The kernels write through raw pointers, so their results carry no
+autograd graph: on a non-CPU device the wrappers raise on an input that
+requires grad.  ``ops.gru.BiGRUSplit`` calls them on detached tensors and
+gives the graph its backward.  ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -53,6 +66,58 @@ def bigru_recurrence_ref(xg, lengths, w_hh, b_hh):
     return y
 
 
+def h_prev_from_y(y, t, d):
+    """The state direction d held before its step t, read from K2's output
+    y (N, L, 2H): fwd y[t-1], bwd y[t+1], zeros at the sequence's start.
+    Exact at every valid step (t < length): y is zero past each length, so
+    the bwd state before its first step t = len-1 is y_b[len] = 0."""
+    H = y.shape[2] // 2
+    s = t - 1 if d == 0 else t + 1
+    if s < 0 or s >= y.shape[1]:
+        return y.new_zeros(y.shape[0], H)
+    return y[:, s, H * d:H * (d + 1)]
+
+
+def bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
+    """Plain version of K3, a Python loop over time with selects.
+
+    xg (N, L, 6H) and y (N, L, 2H) of the forward; dy_sent, dy_pos: the
+    cotangents of y_sent (N, L, 2H) and of its view y_pos (N/S, S*L, 2H).
+    -> dxg (N, L, 6H) in true time (zeros at invalid steps), dw_hh
+    (2, H, 3H), db_hh (2, 3H)."""
+    N, L, _ = xg.shape
+    H = w_hh.shape[1]
+    dy = dy_sent + dy_pos.reshape(N, L, 2 * H)
+    dxg = xg.new_zeros(N, L, 6 * H)
+    dw_hh, db_hh = torch.zeros_like(w_hh), torch.zeros_like(b_hh)
+    for d, steps in ((0, range(L - 1, -1, -1)), (1, range(L))):
+        g = xg.new_zeros(N, H)  # d loss / d (state after step t)
+        for t in steps:
+            valid = (t < lengths)[:, None]
+            hp = h_prev_from_y(y, t, d)
+            x = xg[:, t, 3 * H * d:3 * H * (d + 1)]
+            hg = hp @ w_hh[d] + b_hh[d]
+            r = torch.sigmoid(x[:, :H] + hg[:, :H])
+            z = torch.sigmoid(x[:, H:2 * H] + hg[:, H:2 * H])
+            n = torch.tanh(x[:, 2 * H:] + r * hg[:, 2 * H:])
+            g = g + torch.where(valid, dy[:, t, H * d:H * (d + 1)], 0.0)
+            dn = torch.where(valid, g * (1.0 - z) * (1.0 - n * n), 0.0)
+            dz = torch.where(valid, g * (hp - n) * z * (1.0 - z), 0.0)
+            dr = torch.where(valid, dn * hg[:, 2 * H:] * r * (1.0 - r), 0.0)
+            dxg[:, t, 3 * H * d:3 * H * (d + 1)] = torch.cat([dr, dz, dn], 1)
+            ghh = torch.cat([dr, dz, dn * r], 1)
+            dw_hh[d] += hp.t() @ ghh
+            db_hh[d] += ghh.sum(0)
+            g = torch.where(valid, g * z + ghh @ w_hh[d].t(), g)
+    return dxg, dw_hh, db_hh
+
+
+def gru_input_proj_bwd_ref(x, dxg):
+    """Plain version of K4: x (M, E), dxg (M, 6H) -> (dw_ih (E, 6H),
+    db_ih (6H,))."""
+    return x.t() @ dxg, dxg.sum(0)
+
+
 def _check(name, t, dtype, ndim, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -62,6 +127,18 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _device_kernel(name, *tensors):
+    """For a non-CPU call: raise unless the tensors are CUDA tensors that
+    need no graph (a kernel's output would silently cut it)."""
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel's output would "
+            "carry no graph; call it through ops.gru.BiGRUSplit, which "
+            "gives the kernels their backward")
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
 
 
 def _launch(name, argtypes, *args):
@@ -75,8 +152,7 @@ def gru_input_proj(x, w, b):
     """K1: x (M, E) f32 @ w (E, 6H) f32 + b (6H,) f32 -> xg (M, 6H) f32."""
     if x.device.type == "cpu":
         return gru_input_proj_ref(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"gru_input_proj: unsupported device {x.device}")
+    _device_kernel("gru_input_proj", x, w, b)
     for name, t, nd in (("x", x, 2), ("w", w, 2), ("b", b, 1)):
         _check(name, t, torch.float32, nd, x.device)
     M, E = x.shape
@@ -96,13 +172,8 @@ def gru_input_proj(x, w, b):
 gru_input_proj.launches = 0
 
 
-def bigru_recurrence(xg, lengths, w_hh, b_hh):
-    """K2: xg (N, L, 6H) f32, lengths (N,) int32, w_hh (2, H, 3H) f32,
-    b_hh (2, 3H) f32 -> y (N, L, 2H) f32."""
-    if xg.device.type == "cpu":
-        return bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
-    if xg.device.type != "cuda":
-        raise ValueError(f"bigru_recurrence: unsupported device {xg.device}")
+def _check_recurrence(name, xg, lengths, w_hh, b_hh):
+    """Checks shared by K2 and K3; returns (N, L, H)."""
     _check("xg", xg, torch.float32, 3, xg.device)
     _check("lengths", lengths, torch.int32, 1, xg.device)
     _check("w_hh", w_hh, torch.float32, 3, xg.device)
@@ -112,9 +183,19 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
     if (G6 != 6 * H or tuple(w_hh.shape) != (2, H, 3 * H)
             or tuple(b_hh.shape) != (2, 3 * H) or lengths.shape[0] != N):
         raise ValueError(
-            f"bigru_recurrence: shapes xg {tuple(xg.shape)}, lengths "
+            f"{name}: shapes xg {tuple(xg.shape)}, lengths "
             f"{tuple(lengths.shape)}, w_hh {tuple(w_hh.shape)}, b_hh "
             f"{tuple(b_hh.shape)} disagree")
+    return N, L, H
+
+
+def bigru_recurrence(xg, lengths, w_hh, b_hh):
+    """K2: xg (N, L, 6H) f32, lengths (N,) int32, w_hh (2, H, 3H) f32,
+    b_hh (2, 3H) f32 -> y (N, L, 2H) f32."""
+    if xg.device.type == "cpu":
+        return bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
+    _device_kernel("bigru_recurrence", xg, w_hh, b_hh)
+    N, L, H = _check_recurrence("bigru_recurrence", xg, lengths, w_hh, b_hh)
     if H > 128:
         raise ValueError(f"bigru_recurrence: H={H} > 128 does not fit the "
                          "block's shared memory")
@@ -128,7 +209,82 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
 
 bigru_recurrence.launches = 0
 
-KERNELS = (gru_input_proj, bigru_recurrence)
+BWD_ROWS = 16  # sentence rows per K3 block (csrc/bigru_backward.cu ROWS)
+BWD_H = (32, 64, 96, 128)  # hidden sizes K3 is compiled for
+
+
+def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
+    """K3: xg (N, L, 6H), y (N, L, 2H), dy_sent (N, L, 2H), dy_pos (any
+    shape of N*L*2H elements, read as (N, L, 2H)), lengths (N,) int32,
+    w_hh (2, H, 3H), b_hh (2, 3H), f32 -> (dxg (N, L, 6H), dw_hh
+    (2, H, 3H), db_hh (2, 3H)).
+
+    The kernel writes one dW_hh/db_hh partial per 16-row tile; they are
+    summed here in a fixed order (no atomics), so the result is the same
+    on every run."""
+    if xg.device.type == "cpu":
+        return bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    _device_kernel("bigru_backward", xg, y, dy_sent, dy_pos, w_hh, b_hh)
+    N, L, H = _check_recurrence("bigru_backward", xg, lengths, w_hh, b_hh)
+    _check("y", y, torch.float32, 3, xg.device)
+    _check("dy_sent", dy_sent, torch.float32, 3, xg.device)
+    _check("dy_pos", dy_pos, torch.float32, dy_pos.dim(), xg.device)
+    if (tuple(y.shape) != (N, L, 2 * H) or tuple(dy_sent.shape) != (N, L, 2 * H)
+            or dy_pos.numel() != N * L * 2 * H):
+        raise ValueError(
+            f"bigru_backward: shapes y {tuple(y.shape)}, dy_sent "
+            f"{tuple(dy_sent.shape)}, dy_pos {tuple(dy_pos.shape)} do not "
+            f"fit N={N}, L={L}, H={H}")
+    if H not in BWD_H:
+        raise ValueError(f"bigru_backward: H={H}; the kernel is built for "
+                         f"H in {BWD_H}")
+    tiles = -(-N // BWD_ROWS)
+    dxg = torch.empty(N, L, 6 * H, device=xg.device, dtype=torch.float32)
+    dw_part = torch.empty(tiles, 2, H, 3 * H, device=xg.device, dtype=torch.float32)
+    db_part = torch.empty(tiles, 2, 3 * H, device=xg.device, dtype=torch.float32)
+    _launch("bigru_backward", [_P] * 10 + [_I] * 3 + [_P],
+            xg.data_ptr(), y.data_ptr(), dy_sent.data_ptr(), dy_pos.data_ptr(),
+            lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            dxg.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), N, L, H)
+    bigru_backward.launches += 1
+    return dxg, dw_part.sum(0), db_part.sum(0)
+
+
+bigru_backward.launches = 0
+
+PROJ_BWD_ROWS = 1024  # x/dxg rows per K4 block (its split-K chunk)
+
+
+def gru_input_proj_bwd(x, dxg):
+    """K4: x (M, E) f32, dxg (M, 6H) f32 -> (dw_ih (E, 6H), db_ih (6H,)).
+
+    Each block reduces one chunk of PROJ_BWD_ROWS rows into a partial;
+    the partials are summed here in a fixed order (no atomics)."""
+    if x.device.type == "cpu":
+        return gru_input_proj_bwd_ref(x, dxg)
+    _device_kernel("gru_input_proj_bwd", x, dxg)
+    _check("x", x, torch.float32, 2, x.device)
+    _check("dxg", dxg, torch.float32, 2, x.device)
+    M, E = x.shape
+    G = dxg.shape[1]
+    if dxg.shape[0] != M:
+        raise ValueError(f"gru_input_proj_bwd: x {tuple(x.shape)} and dxg "
+                         f"{tuple(dxg.shape)} differ in rows")
+    chunks = max(1, -(-M // PROJ_BWD_ROWS))
+    if chunks > 65535 or -(-E // 64) > 65535:
+        raise ValueError(f"gru_input_proj_bwd: M={M}, E={E} exceed the grid")
+    dw_part = torch.empty(chunks, E, G, device=x.device, dtype=torch.float32)
+    db_part = torch.empty(chunks, G, device=x.device, dtype=torch.float32)
+    _launch("gru_input_proj_bwd", [_P] * 4 + [_I] * 4 + [_P],
+            x.data_ptr(), dxg.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+            M, E, G, PROJ_BWD_ROWS)
+    gru_input_proj_bwd.launches += 1
+    return dw_part.sum(0), db_part.sum(0)
+
+
+gru_input_proj_bwd.launches = 0
+
+KERNELS = (gru_input_proj, bigru_recurrence, bigru_backward, gru_input_proj_bwd)
 
 
 def reset_launches():

@@ -89,6 +89,10 @@ def restore_pytree(path, like):
     return tree
 
 
+def has_best(root):
+    return os.path.exists(os.path.join(root, "best", "structure.json"))
+
+
 def save_best(root, model):
     save_pytree(os.path.join(root, "best"), params_to_jax(model.state_dict()))
 
