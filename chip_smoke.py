@@ -6,11 +6,13 @@
 1. Print the card's name and power limit; build every CUDA kernel of the
    port from the sources in the checkout (one nvcc per source, in
    parallel) and print the build time and ptxas report.
-2. Hold each kernel against its plain PyTorch version at the UMPR-R shapes
-   (N=2560 sentence rows, L=20, E=50, H=64, f32; lengths 1..20) and time
-   the kernel, the plain version and one PyTorch library call (yardstick
-   only: the port never calls it): K1 and K2 (the bi-GRU forward), K3 and
-   K4 (its backward).
+2. Hold each kernel against its plain PyTorch version and time the
+   kernel, the plain version and one PyTorch library call (yardstick only:
+   the port never calls it): K1 and K2 (the bi-GRU forward) and K3 and K4
+   (its backward) at the UMPR-R shapes (N=2560 sentence rows, L=20, E=50,
+   H=64, f32; lengths 1..20); K5 and K6 (the fused bias + ReLU + 2x2 pool
+   and its backward) at the three VGG16 blocks they close at B=64, 224 px,
+   bit for bit.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -24,8 +26,18 @@
    gradients and the first validation MSE agree with the CPU (plain
    versions).  Then the ms per train step (CUDA events) and a
    torch.profiler breakdown of train steps.
-5. Print a ``{"kernels": [...]}`` line (launches: the training run's),
-   then, as the last line, ``{"ok": true, "device": {...}}``.
+5. Train full UMPR (``--review_net_only False --vgg_fused_pool True``,
+   224 px photos) the same way.  This machine has no JPEG decoder, so
+   the photos come from a seeded uint8 source keyed by file name (the
+   script says so).  Launch counts show every train step went through
+   K1-K4 three times (R-Net and C-Net's two calls) and K5/K6 once per
+   closed VGG block, every evaluation batch through K1, K2 and K5; the
+   loss is finite; the fused blocks' biases and C-Net's GRU moved; on 8
+   rows with dropout off, the card's predictions and gradients agree with
+   the CPU's.  Then the ms per train step and a profiler breakdown.
+6. Print each phase's seconds and a ``{"kernels": [...]}`` line
+   (launches: the full-UMPR run's, the other runs' beside them), then, as
+   the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -35,6 +47,7 @@ the checkout.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import shutil
 import subprocess
@@ -42,6 +55,7 @@ import sys
 import threading
 import time
 import urllib.request
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +67,8 @@ from umpr_tpu_torch.config import Config
 from umpr_tpu_torch.data.dataset import build_dataset
 from umpr_tpu_torch.data.loader import BatchLoader, to_device
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
-from umpr_tpu_torch.ops import _build, gru_cuda
+from umpr_tpu_torch.models.visual_net import FUSED_POOL_MIN_H
+from umpr_tpu_torch.ops import _build, gru_cuda, pool_cuda
 from umpr_tpu_torch.ops.gru import BiGRU
 from umpr_tpu_torch import serve
 from umpr_tpu_torch.text.vocab import Word2vec
@@ -78,6 +93,8 @@ K3_DXG_TOL = 1e-5  # per-step gate grads: the masked-GRU tolerance
 # entry instead
 SUM_RTOL = 1e-4
 GRAD_RTOL = 1e-3  # gradient tolerance of PARITY.md, card vs CPU
+GRAD_FLIP_FACTOR = 3  # VGG16 gradients: the card's distance from f64 over the
+                      # CPU's, where f32 ReLU/max-pool decisions flip
 MIN_SPREAD = 1e-3  # std of the served predictions: 10x E2E_TOL, so the
                    # card-vs-CPU check sees real, varied outputs
 # the seeded checkpoint: with seed 0 the ReLU head's input is positive on
@@ -352,6 +369,107 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
     return rows
 
 
+# the VGG16 blocks that close with K5/K6 at B=64, 224 px (conv output H >=
+# 56): x = the last conv's raw output, NHWC f32
+POOL_SHAPES = ((64, 224, 224, 64), (64, 112, 112, 128), (64, 56, 56, 256))
+DB_RTOL = 1e-5  # db: f32 sums of up to 802,816 terms against a float64 sum
+
+
+def pool_kernel_phase(device, shapes=POOL_SHAPES):
+    """K5 and K6 against their plain versions at the fused blocks' shapes,
+    on inputs rounded to a coarse grid so that ties and all-negative
+    windows occur: yp, idx and dx bit-equal, db against a float64 sum, a
+    second launch the same bits.  Times each shape and adds them up: the
+    kernel row's numbers are per train step."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=device).manual_seed(5)
+    per_shape = {"bias_relu_pool": [], "bias_relu_pool_bwd": []}
+    errs = dict.fromkeys(per_shape, 0.0)  # max |kernel - plain| of yp, dx
+    for shape in shapes:
+        N, H, W, C = shape
+        x = (torch.randn(shape, generator=g, device=device) * 2).round() / 2
+        b = (torch.randn(C, generator=g, device=device) * 0.4).round() / 4
+        dyp = torch.randn(N, H // 2, W // 2, C, generator=g, device=device)
+        yp, idx = pool_cuda.bias_relu_pool(x, b)
+        dx, db = pool_cuda.bias_relu_pool_bwd(dyp, idx, yp)
+        torch.cuda.synchronize()
+        ref_yp, ref_idx = pool_cuda.bias_relu_pool_ref(x, b)
+        ref_dx, _ = pool_cuda.bias_relu_pool_bwd_ref(dyp, ref_idx, ref_yp)
+        exact = (torch.equal(yp, ref_yp), torch.equal(idx, ref_idx), torch.equal(dx, ref_dx))
+        errs["bias_relu_pool"] = max(errs["bias_relu_pool"],
+                                     (yp - ref_yp).abs().max().item())
+        errs["bias_relu_pool_bwd"] = max(errs["bias_relu_pool_bwd"],
+                                         (dx - ref_dx).abs().max().item())
+        db64 = torch.where(ref_yp > 0, dyp, 0.0).double().sum((0, 1, 2))
+        db_rel = _rel_err(db.double(), db64)
+        a = torch.where(x + b < 0, 0.0, x + b)
+        hits = sum((a[:, i::2, j::2] == ref_yp).int() for i in (0, 1) for j in (0, 1))
+        ties = ((hits > 1) & (ref_yp > 0)).float().mean().item()
+        dead = (ref_yp == 0).float().mean().item()
+        del a, hits
+        del ref_yp, ref_idx, ref_dx
+        again = (*pool_cuda.bias_relu_pool(x, b), *pool_cuda.bias_relu_pool_bwd(dyp, idx, yp))
+        same = all(torch.equal(a, c) for a, c in zip(again, (yp, idx, dx, db)))
+        del again
+        print(f"K5/K6 at x {shape}: yp, idx, dx bit-equal to plain {exact}; db vs "
+              f"float64 sum {db_rel:.3e} relative (tolerance {DB_RTOL:.0e}); second "
+              f"launch same bits {same}; windows with a tie at a positive max "
+              f"{ties:.1%}, pooled exactly 0 {dead:.1%}")
+        if not (all(exact) and db_rel <= DB_RTOL and same):
+            raise AssertionError(f"K5/K6 disagree with their plain versions at {shape}")
+
+        # yardstick: ReLU then max_pool2d with indices on the NCHW view, and
+        # its autograd backward
+        xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        br = b.view(1, C, 1, 1).detach().requires_grad_()
+        with torch.enable_grad():
+            out, _ = F.max_pool2d(F.relu(xr + br), 2, return_indices=True)
+        dout = dyp.permute(0, 3, 1, 2)
+        n_in, n_out = x.numel(), yp.numel()
+        rows = (("bias_relu_pool",
+                 lambda: pool_cuda.bias_relu_pool(x, b),
+                 lambda: pool_cuda.bias_relu_pool_ref(x, b),
+                 lambda: F.max_pool2d(F.relu(xr.detach() + br.detach()), 2,
+                                      return_indices=True),
+                 bound(4 * (n_in + C + n_out) + n_out, 5 * n_in)),
+                ("bias_relu_pool_bwd",
+                 lambda: pool_cuda.bias_relu_pool_bwd(dyp, idx, yp),
+                 lambda: pool_cuda.bias_relu_pool_bwd_ref(dyp, idx, yp),
+                 lambda: torch.autograd.grad(out, (xr, br), dout, retain_graph=True),
+                 bound(4 * (2 * n_out + n_in + C) + n_out, 8 * n_out)))
+        for name, kernel, plain, library, (t_bound, by) in rows:
+            per_shape[name].append({
+                "x": list(shape), "ms": time_cuda(kernel, iters=10),
+                "plain_ms": time_cuda(plain, iters=3, warmup=1),
+                "library_ms": time_cuda(library, iters=10),
+                "bound_ms": t_bound, "bound_by": by})
+        del x, dyp, yp, idx, dx, xr, br, out, dout
+        torch.cuda.empty_cache()
+
+    kernel_rows = []
+    for name, src, replaces, call in (
+            ("bias_relu_pool", "bias_relu_pool.cu", "umpr_tpu/ops/pool_pallas.py:127",
+             "F.max_pool2d(F.relu(x + b), 2, return_indices=True) on the NCHW view"),
+            ("bias_relu_pool_bwd", "bias_relu_pool_bwd.cu",
+             "umpr_tpu/ops/pool_pallas.py:152",
+             "torch.autograd.grad of that max_pool2d(relu(x + b)) w.r.t. x and b")):
+        parts = per_shape[name]
+        total = {k: sum(p[k] for p in parts)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": f"umpr_tpu_torch/csrc/{src}",
+            "replaces": replaces, "max_abs_err": errs[name], **total,
+            "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in parts)
+            else "operations",
+            "library_call": call, "per_shape": parts})
+        print(f"{name}: {total['ms']:.4f} ms per train step over {len(parts)} shapes "
+              f"(plain {total['plain_ms']:.4f}, library {total['library_ms']:.4f}, "
+              f"bound {total['bound_ms']:.4f}); per shape "
+              + ", ".join(f"{p['x']}: {p['ms']:.4f} vs bound {p['bound_ms']:.4f}"
+                          for p in parts))
+    return kernel_rows
+
+
 def _post(base, rows):
     body = json.dumps({"rows": rows}).encode()
     req = urllib.request.Request(f"{base}/predict", data=body,
@@ -369,8 +487,11 @@ def _counting(fn, counter):
 
 
 FORWARD = ("gru_input_proj", "bigru_recurrence")  # K1, K2
-PLAIN = ("gru_input_proj_ref", "bigru_recurrence_ref", "bigru_backward_ref",
-         "gru_input_proj_bwd_ref")
+GRU_BACKWARD = ("bigru_backward", "gru_input_proj_bwd")  # K3, K4
+MODULES = (gru_cuda, pool_cuda)  # every kernel wrapper of the port
+PLAIN = {gru_cuda: ("gru_input_proj_ref", "bigru_recurrence_ref",
+                    "bigru_backward_ref", "gru_input_proj_bwd_ref"),
+         pool_cuda: ("bias_relu_pool_ref", "bias_relu_pool_bwd_ref")}
 
 
 @contextlib.contextmanager
@@ -379,16 +500,17 @@ def main_path_counts():
     CUDA tensors, and on exit fill the yielded dict with the launches made
     inside the block: (launches dict, [plain calls])."""
     launches, plain_calls = {}, [0]
-    saved = {name: getattr(gru_cuda, name) for name in PLAIN}
-    gru_cuda.reset_launches()
-    for name, fn in saved.items():
-        setattr(gru_cuda, name, _counting(fn, plain_calls))
+    saved = [(m, name, getattr(m, name)) for m in MODULES for name in PLAIN[m]]
+    for m in MODULES:
+        m.reset_launches()
+    for m, name, fn in saved:
+        setattr(m, name, _counting(fn, plain_calls))
     try:
         yield launches, plain_calls
     finally:
-        for name, fn in saved.items():
-            setattr(gru_cuda, name, fn)
-        launches.update({k.__name__: k.launches for k in gru_cuda.KERNELS})
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+        launches.update({k.__name__: k.launches for m in MODULES for k in m.KERNELS})
 
 
 def pre_relu(predictor, ds):
@@ -565,7 +687,8 @@ def train_phase(device_name):
         raise AssertionError("a non-finite loss or MSE was logged")
     if plain_calls[0]:
         raise AssertionError("a plain version ran on the card")
-    want = dict.fromkeys(launches, steps) | dict.fromkeys(FORWARD, steps + eval_batches)
+    want = (dict.fromkeys(launches, 0) | dict.fromkeys(GRU_BACKWARD, steps)
+            | dict.fromkeys(FORWARD, steps + eval_batches))
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
 
@@ -611,6 +734,181 @@ def train_phase(device_name):
           f"evaluations and dataset builds included (host clock)")
     device_breakdown(lambda: train_step(model, opt, dev_batch, 1e-3), "train step",
                      steps=5)
+    return launches
+
+
+def seeded_photo(path, resize=(224, 224)):
+    """Stand-in for images.get_image on a machine without a JPEG decoder:
+    uint8 pixels seeded by the photo's file name; zeros for an empty slot,
+    as get_image gives."""
+    if not path:
+        return np.zeros((resize[1], resize[0], 3), dtype=np.uint8)
+    rng = np.random.default_rng(zlib.crc32(Path(path).name.encode()))
+    return rng.integers(0, 256, (resize[1], resize[0], 3), dtype=np.uint8)
+
+
+def _l2_rel(got, want, floor):
+    """||got - want|| / max(||want||, floor)."""
+    return ((got - want).norm() / want.norm().clamp(min=floor)).item()
+
+
+def full_train_phase(device_name):
+    """Full UMPR training at the reference widths and 224 px through the
+    port's CLI (--vgg_fused_pool True).  Returns the launch counts of the
+    main path (fit + test)."""
+    from umpr_tpu_torch.data import images
+    root = WORK / "full"
+    glove = write_splits(root, seed=1, shards=5)
+    images.get_image = seeded_photo
+    print("photos: this machine has no JPEG decoder, so "
+          "umpr_tpu_torch.data.images.get_image is replaced by a uint8 source "
+          "seeded by each photo's file name (zeros for an empty slot)")
+    # seed 2: at init the ReLU head is above 0 on this corpus (seed 0
+    # clamps every prediction to 0, and the MSE then trains nothing)
+    argv = ["--review_net_only", "False", "--vgg_fused_pool", "True", "--seed", "2",
+            "--data_dir", str(root), "--word2vec_file", str(glove),
+            "--train_epochs", "2", "--learning_rate", "1e-3", "--eval_every", "4",
+            "--data_workers", "4", "--model_path", str(root / "model"),
+            "--log_path", str(root / "train.log"),
+            "--metrics_jsonl", str(root / "metrics.jsonl")]
+    with main_path_counts() as (launches, plain_calls):
+        t0 = time.perf_counter()
+        trainer = train_main.main(argv)  # default device: cuda
+        main_s = time.perf_counter() - t0
+    cfg, B = trainer.config, trainer.config.batch_size
+    fused = sum(1 for h in (cfg.photo_size >> k for k in range(5))
+                if h >= FUSED_POOL_MIN_H and h % 2 == 0)
+    w2v = Word2vec(str(glove))
+    photos = (str(root / "photos.json"), str(root / "photos"))
+    ds = {s: build_dataset(str(root / f"{s}.csv"), *photos, w2v, cfg)
+          for s in ("train", "valid", "test")}
+    events = [json.loads(line) for line in open(root / "metrics.jsonl")]
+    evals = [e for e in events if e["event"] == "eval"]
+    steps = trainer.batch_counter
+    n_batches = {s: -(-len(d) // B) for s, d in ds.items()}
+    eval_batches = len(evals) * n_batches["valid"] + n_batches["test"]
+    print(f"full UMPR training: {steps} train steps over {len(ds['train'])} samples "
+          f"(B={B}, S={cfg.max_sent_count}, L={cfg.max_sent_length}, "
+          f"S_ui={cfg.max_ui_sent_count}, {cfg.photo_size} px, VGG blocks closed by "
+          f"K5/K6: {fused}), {len(evals)} validations of {len(ds['valid'])} samples, "
+          f"test on {len(ds['test'])}, in {main_s:.1f} s (host clock, datasets "
+          f"built and checkpoints written inside); photo cache "
+          f"{trainer.photo_cache.hits} hits, {trainer.photo_cache.misses} misses")
+    for e in events:
+        print("  " + json.dumps({k: v for k, v in e.items() if k != "ts"}))
+    print(f"full UMPR path launches: {launches}; plain versions called on the card: "
+          f"{plain_calls[0]}; eval batches: {eval_batches}")
+    if steps < 8:
+        raise AssertionError(f"only {steps} train steps")
+    values = [v for e in events for k, v in e.items()
+              if k in ("train_loss", "valid_mse", "test_mse")]
+    if not all(v is not None and np.isfinite(v) for v in values):
+        raise AssertionError("a non-finite loss or MSE was logged")
+    zero_mse = float(np.mean(ds["valid"].ratings.astype(np.float64) ** 2))
+    if not all(abs(e["valid_mse"] - zero_mse) > 1e-3 for e in evals):
+        raise AssertionError(f"a validation MSE equals {zero_mse:.6f}, that of "
+                             "predictions clamped to 0")
+    if plain_calls[0]:
+        raise AssertionError("a plain version ran on the card")
+    # per train step: three bi-GRU calls (R-Net, C-Net on the ui review,
+    # C-Net on the histories) and one fused pool per closed block
+    want = (dict.fromkeys(FORWARD, 3 * (steps + eval_batches))
+            | dict.fromkeys(GRU_BACKWARD, 3 * steps)
+            | {"bias_relu_pool": fused * (steps + eval_batches),
+               "bias_relu_pool_bwd": fused * steps})
+    if not fused or launches != want:
+        raise AssertionError(f"full UMPR launches {launches}, expected {want}")
+
+    # the fused blocks' biases (K6's db) and C-Net's GRU moved
+    dims = ModelDims.from_config(cfg)
+    init = UMPR(dims, w2v.embedding, torch.Generator().manual_seed(cfg.seed))
+    init_sd, trained = init.state_dict(), trainer.model.state_dict()
+    closing = [f"visual_net.vgg16.features.{i}.bias" for i in (1, 3, 6)[:fused]]
+    watched = closing + [n for n in init_sd if n.startswith("control_net.cnet.gru.")]
+    moved = {n: (trained[n].cpu() - init_sd[n]).abs().max().item() for n in watched}
+    print(f"moved by (max abs): fused blocks' biases "
+          f"{[f'{moved[n]:.3e}' for n in closing]}, C-Net GRU "
+          f"{min(moved[n] for n in watched[fused:]):.3e} .. "
+          f"{max(moved[n] for n in watched[fused:]):.3e}")
+    if not min(moved.values()) > 0:
+        raise AssertionError("a fused block's bias or a C-Net GRU weight did not move")
+
+    # one sub-batch of the trained model, dropout off: the card against the
+    # CPU's plain versions in f32, and both against the CPU in f64
+    sub = next(iter(BatchLoader(ds["train"], 8, ignore_photos=False,
+                                resize=(cfg.photo_size, cfg.photo_size))))
+    cpu32 = UMPR(dims, w2v.embedding)
+    cpu32.load_state_dict({k: v.cpu() for k, v in trained.items()})
+    # raise the head's bias until every row's prediction is > 0, so that
+    # the ReLU head passes the MSE's gradient to every branch
+    head = []
+    hook = cpu32.linear_fusion.register_forward_hook(
+        lambda module, args, out: head.append(out[:, 0]))
+    with torch.no_grad():
+        cpu32(to_device(sub, "cpu"))
+        cpu32.linear_fusion.bias += 1.0 - head[0].min().clamp(max=1.0)
+    hook.remove()
+    runs = {}
+    for name, model in (("card", copy.deepcopy(cpu32).to(trainer.device)),
+                        ("cpu64", copy.deepcopy(cpu32).double()), ("cpu32", cpu32)):
+        head = []
+        hook = model.linear_fusion.register_forward_hook(
+            lambda module, args, out: head.append(out[:, 0].detach().cpu().double()))
+        pred, loss, _ = model(to_device(sub, next(model.parameters()).device))
+        loss.backward()
+        hook.remove()
+        runs[name] = (pred.detach().cpu().double(), head[0], {
+            n: p.grad.cpu().double() for n, p in model.named_parameters()
+            if p.grad is not None})
+        del model, pred, loss
+    (card_pred, card_head, card_g), (cpu_pred, cpu_head, cpu_g) = runs["card"], runs["cpu32"]
+    exact = runs["cpu64"][2]
+    pred_err = max((card_pred - cpu_pred).abs().max().item(),
+                   (card_head - cpu_head).abs().max().item())
+    if set(card_g) != set(exact) or len(exact) != len(list(cpu32.parameters())) - 1:
+        raise AssertionError("a parameter got no gradient")
+    # a gradient below a thousandth of the largest gradient's norm is held
+    # against that thousandth: the visual linear's bias cancels in eq. 11,
+    # so its gradient is rounding alone
+    floor = 1e-3 * max(g.norm() for g in exact.values())
+    vs_cpu = {n: _l2_rel(card_g[n], cpu_g[n], floor) for n in exact}
+    err_card = {n: _l2_rel(card_g[n], exact[n], floor) for n in exact}
+    err_cpu = {n: _l2_rel(cpu_g[n], exact[n], floor) for n in exact}
+    # a ReLU or max-pool decision within f32 rounding of its threshold can
+    # flip, and a flip moves whole gradient terms: where the CPU's own f32
+    # gradient is that far from f64, the card's may be as far, not farther
+    # than GRAD_FLIP_FACTOR times
+    bad = [n for n in exact
+           if not err_card[n] <= max(GRAD_RTOL, GRAD_FLIP_FACTOR * err_cpu[n])]
+    flipped = sorted((n for n in exact if err_cpu[n] > GRAD_RTOL), key=err_cpu.get)
+    worst = max(vs_cpu, key=vs_cpu.get)
+    calm = [n for n in exact if n not in flipped]
+    print(f"8 rows of the trained model, dropout off: card vs CPU plain versions, "
+          f"predictions and the head's pre-ReLU input max abs diff {pred_err:.3e} "
+          f"(tolerance {E2E_TOL:.0e}; head range [{cpu_head.min():.4f}, "
+          f"{cpu_head.max():.4f}]); gradients l2-relative, card vs CPU f32: worst "
+          f"{vs_cpu[worst]:.3e} ({worst}); against the CPU in f64, {len(calm)} of "
+          f"{len(exact)} parameters: card {max(err_card[n] for n in calm):.3e}, CPU "
+          f"{max(err_cpu[n] for n in calm):.3e} (tolerance {GRAD_RTOL:.0e})")
+    for n in flipped:
+        print(f"  f32 decision flips: {n}: card {err_card[n]:.3e}, CPU {err_cpu[n]:.3e} "
+              f"from f64 (card tolerance {GRAD_FLIP_FACTOR}x the CPU's)")
+    if not (pred_err <= E2E_TOL and not bad and (cpu_head > 0).all()):
+        raise AssertionError(f"card and CPU disagree on full UMPR: {bad}")
+
+    # speed on the card: train steps back to back on one batch
+    model, opt = trainer.model, trainer.opt
+    batch = to_device(next(iter(BatchLoader(
+        ds["train"], B, ignore_photos=False, resize=(cfg.photo_size, cfg.photo_size)))),
+        trainer.device)
+    step = lambda: train_step(model, opt, batch, 1e-3, trainer.dropout_generator(0))
+    step_ms = time_cuda(step, iters=10)
+    print(f"full UMPR training on {device_name}: {step_ms:.3f} ms per B={B} train step "
+          f"({B / step_ms * 1e3:.1f} samples/s, CUDA events, back to back); fit + "
+          f"test {main_s / steps * 1e3:.1f} ms per train step, evaluations, "
+          f"checkpoints and dataset builds included (host clock); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_breakdown(step, "full UMPR train step", steps=5, top=14)
     return launches
 
 
@@ -682,13 +980,27 @@ def main():
 
     device = torch.device("cuda")
     device_name = torch.cuda.get_device_name(0)
+    card = f"{device_name} ({smi})"
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name}: {seconds[name]} s")
+        return out
+
     with torch.no_grad():
-        kernels = kernel_phase(device)
-    served = serve_phase(f"{device_name} ({smi})")
-    trained = train_phase(f"{device_name} ({smi})")
+        kernels = phase("gru kernels", kernel_phase, device)
+        kernels += phase("pool kernels", pool_kernel_phase, device)
+    served = phase("UMPR-R serving", serve_phase, card)
+    trained = phase("UMPR-R training", train_phase, card)
+    full = phase("full UMPR training", full_train_phase, card)
     for k in kernels:
-        k["launches"] = trained[k["name"]]
+        k["launches"] = full[k["name"]]
+        k["launches_umpr_r_training"] = trained[k["name"]]
         k["launches_serving"] = served[k["name"]]
+    print(f"phase seconds: {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -1,5 +1,8 @@
 """The port's host layers against the JAX package: vocabulary, batch
-loader (dead-row padding) and masking helpers, on the same inputs."""
+loader (dead-row padding, photos) and masking helpers, on the same
+inputs."""
+
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,3 +82,53 @@ def test_masking_matches_jax():
     np.testing.assert_array_equal(
         masking.exists_mask(3, 4, 5, 6, "cpu").numpy(),
         np.asarray(jmasking.exists_mask(3, 4, 5, 6)))
+
+
+def _jpegs(tmp_path, n=10, V=2, P=2):
+    """A dataset whose photo slots name JPEGs written with cv2 (odd sizes,
+    so the resize runs), an unreadable file and empty slots."""
+    import cv2
+    rng = np.random.default_rng(5)
+    ds = small_dataset(n=n, V=V, P=P)
+    paths = []
+    for i in range(4):
+        path = str(tmp_path / f"p{i}.jpg")
+        img = rng.integers(0, 256, (30 + 7 * i, 41, 3)).astype(np.uint8)
+        assert cv2.imwrite(path, img)
+        paths.append(path)
+    (tmp_path / "broken.jpg").write_bytes(b"not a jpeg")
+    paths += [str(tmp_path / "broken.jpg"), str(tmp_path / "missing.jpg"), ""]
+    ds.photo_paths = rng.choice(np.asarray(paths), size=(n, V, P))
+    return ds
+
+
+@pytest.mark.parametrize("workers,cache", [(0, False), (3, True)])
+def test_loader_photos_equal_jax_loader(tmp_path, workers, cache):
+    from umpr_tpu.data.images import PhotoCache as JaxPhotoCache
+    from umpr_tpu_torch.data.images import PhotoCache
+    ds = _jpegs(tmp_path)
+    kw = dict(ignore_photos=False, resize=(24, 16), workers=workers)
+    ours = list(BatchLoader(ds, 4, photo_cache=PhotoCache() if cache else None, **kw))
+    theirs = list(JaxBatchLoader(ds, 4, photo_cache=JaxPhotoCache() if cache else None,
+                                 **kw))
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        assert a.keys() == b.keys() and a["photos"].dtype == np.uint8
+        assert a["photos"].shape == (4, 2, 2, 16, 24, 3)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert ours[0]["photos"].any()  # real pixels were decoded
+    assert not ours[-1]["photos"][2:].any()  # the dead rows' slots are empty
+
+
+def test_photo_cache_is_shared_and_decoding_without_cv2_raises(tmp_path, monkeypatch):
+    from umpr_tpu_torch.data import images
+    ds = _jpegs(tmp_path)
+    cache = images.PhotoCache()
+    for _ in range(2):
+        list(BatchLoader(ds, 4, ignore_photos=False, resize=(8, 8), photo_cache=cache))
+    assert cache.misses == len(set(ds.photo_paths.ravel()) | {""}) and cache.hits > 0
+    monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises
+    assert not images.get_image("", (8, 8)).any()
+    with pytest.raises(ImportError):
+        images.get_image(str(tmp_path / "p0.jpg"), (8, 8))

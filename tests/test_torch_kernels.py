@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K4 against their plain versions at ragged and full
-shapes, and the bi-GRU's parameter gradients on the card against the CPU.  They need the card (a CUDA kernel has no CPU mode): the
+"""The CUDA kernels K1-K6 against their plain versions at ragged and full
+shapes, and the bi-GRU's and the fused pool's gradients on the card
+against the CPU.  They need the card (a CUDA kernel has no CPU mode): the
 ``cuda`` fixture skips them elsewhere.  On a machine with a card (no JAX
 needed):
 
@@ -164,3 +165,76 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gru_cuda.gru_input_proj_bwd(x, torch.zeros(7, 12, device=cuda))
     with pytest.raises(RuntimeError, match="BiGRUSplit"):
         gru_cuda.gru_input_proj(x, w.requires_grad_(), b)
+
+
+@pytest.mark.parametrize("N,H,W,C,kind", [
+    (1, 2, 2, 3, "normal"), (1, 2, 2, 64, "normal"), (2, 4, 6, 128, "normal"),
+    (1, 2, 2, 512, "normal"), (3, 6, 14, 64, "grid"), (2, 8, 10, 3, "grid"),
+    (2, 4, 4, 64, "tie"), (1, 10, 10, 5, "tie"), (1, 56, 56, 256, "grid"),
+    (2, 6, 8, 64, "nan"), (1, 4, 4, 3, "nan")])
+def test_bias_relu_pool_kernels_match_plain_bit_for_bit(cuda, N, H, W, C, kind):
+    """W = 6, 10, 14: W/2 positions do not fill a block's position rows;
+    C = 3, 5: the one-channel path; "tie": every window all equal; "nan":
+    NaN inputs pool to NaN with argmax 3, and pass no gradient."""
+    from umpr_tpu_torch.ops import pool_cuda
+    g = torch.Generator().manual_seed(N * H * W + C)
+    x = torch.randn(N, H, W, C, generator=g)
+    b = torch.randn(C, generator=g) * 0.1
+    if kind == "grid":
+        x, b = (x * 2).round() / 2, (b * 4).round() / 4
+    if kind == "tie":
+        x = x[:, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(2, 2).contiguous()
+    if kind == "nan":
+        x[torch.rand(x.shape, generator=g) < 0.05] = float("nan")
+    dyp = torch.randn(N, H // 2, W // 2, C, generator=g)
+    x, b, dyp = x.to(cuda), b.to(cuda), dyp.to(cuda)
+    before = (pool_cuda.bias_relu_pool.launches, pool_cuda.bias_relu_pool_bwd.launches)
+    yp, idx = pool_cuda.bias_relu_pool(x, b)
+    dx, db = pool_cuda.bias_relu_pool_bwd(dyp, idx, yp)
+    torch.cuda.synchronize()
+    assert (pool_cuda.bias_relu_pool.launches,
+            pool_cuda.bias_relu_pool_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_yp, want_idx = pool_cuda.bias_relu_pool_ref(x, b)
+    want_dx, want_db = pool_cuda.bias_relu_pool_bwd_ref(dyp, want_idx, want_yp)
+    torch.testing.assert_close(yp, want_yp, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(idx, want_idx) and torch.equal(dx, want_dx)
+    if kind == "nan":
+        assert yp.isnan().any() and (idx[yp.isnan()] == 3).all()
+        assert torch.isfinite(dx).all() and torch.isfinite(db).all()
+    g64 = torch.where(want_yp > 0, dyp, 0.0).double().sum((0, 1, 2))
+    _close_rel(db.double(), g64, 1e-5)
+    if kind == "tie":
+        assert not idx.any()  # every tie went to the first corner
+    again = (*pool_cuda.bias_relu_pool(x, b), *pool_cuda.bias_relu_pool_bwd(dyp, idx, yp))
+    for a, c in zip(again, (yp, idx, dx, db)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True)
+
+
+def test_fused_bias_relu_pool_grads_on_the_card_match_the_cpu(cuda):
+    from umpr_tpu_torch.ops.pool import fused_bias_relu_pool
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 12, 10, 64, generator=g)
+    b = torch.randn(64, generator=g) * 0.1
+    c = torch.randn(2, 6, 5, 64, generator=g)
+    out = []
+    for dev in ("cpu", cuda):
+        xd, bd = (t.detach().to(dev).requires_grad_() for t in (x, b))
+        y = fused_bias_relu_pool(xd, bd)
+        (y * c.to(dev)).sum().backward()
+        out.append((y.detach().cpu(), xd.grad.cpu(), bd.grad.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    _close_rel(out[1][2], out[0][2], 1e-5)
+
+
+def test_pool_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from umpr_tpu_torch.ops import pool_cuda
+    x = torch.randn(1, 4, 4, 8, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        pool_cuda.bias_relu_pool(x.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pool_cuda.bias_relu_pool(x.permute(0, 2, 1, 3), b)
+    with pytest.raises(ValueError, match="even"):
+        pool_cuda.bias_relu_pool(x[:, :3], b)
+    with pytest.raises(RuntimeError, match="FusedBiasReluPool"):
+        pool_cuda.bias_relu_pool(x.requires_grad_(), b)

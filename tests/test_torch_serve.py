@@ -162,19 +162,31 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--review_net_only", "False"], "A3"),
+    (["--review_net_only", "False", "--remat_vgg", "True"], "A4"),
     (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A4"),
     (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A2"),
     (["--review_net_only", "True", "--steps_per_dispatch", "8"], "A4"),
     (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A4"),
-    (["--review_net_only", "True", "--vgg_fused_pool", "True"], "A3"),
+    (["--review_net_only", "False", "--vgg_fused_pool", "True"], "A5"),
     (["--review_net_only", "True", "--mesh_shape", "[8]"], "A6"),
     (["--review_net_only", "True", "--save_every_batches", "2"], "A2"),
     (["--review_net_only", "True", "--use_pallas", "False"], "CUDA kernels"),
 ])
-def test_unported_flags_raise_naming_the_roadmap_item(flags, item):
+def test_unported_flags_raise_naming_the_roadmap_item(flags, item, tmp_path):
+    """Through serve.main, which reads the flags with Config first: the
+    flags of NOT_PORTED raise there, and serving full UMPR raises after."""
     with pytest.raises(NotImplementedError, match=item):
-        Config(["--device", "cpu"] + flags)
+        serve.main(["--device", "cpu", "--model_path", str(tmp_path),
+                    "--input", str(tmp_path / "in.csv")] + flags)
+    if item != "A5":
+        with pytest.raises(NotImplementedError, match=item):
+            Config(["--device", "cpu"] + flags)
+
+
+def test_full_umpr_predictor_raises_naming_a5(tmp_path):
+    cfg = Config(["--device", "cpu", "--review_net_only", "False"])
+    with pytest.raises(NotImplementedError, match="A5"):
+        serve.Predictor(cfg, FakeW2v(np.zeros((5, 4), np.float32)), str(tmp_path))
 
 
 def test_every_flag_is_read_or_raises():

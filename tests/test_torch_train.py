@@ -2,8 +2,8 @@
 train step against ``make_train_step`` (use_pallas=True, the Pallas GRU
 kernels interpreted), the shuffled loader order, the weight-decay mask,
 a short ``Trainer.fit`` + ``test`` against the JAX Trainer, and the
-``umpr_tpu_torch.main`` CLI.  Tolerances: one train step 1e-5, logged
-MSEs 1e-4 (PARITY.md)."""
+``umpr_tpu_torch.main`` CLI, for UMPR-R and full UMPR (64 px photos).
+Tolerances: one train step 1e-5, logged MSEs 1e-4 (PARITY.md)."""
 
 import json
 
@@ -27,6 +27,7 @@ from umpr_tpu.train import checkpoint as jckpt
 from umpr_tpu.train.optim import _no_bias_mask, merge_params, split_frozen
 from umpr_tpu.train.optim import make_optimizer as jax_make_optimizer
 from umpr_tpu.train.step import make_train_step
+from umpr_tpu.train import trainer as jax_trainer_module
 from umpr_tpu.train.trainer import Trainer as JaxTrainer
 from umpr_tpu.utils.logging import get_logger as jax_get_logger
 from umpr_tpu_torch import main as port_main
@@ -233,3 +234,61 @@ def test_main_cli_trains_tests_and_reloads(tmp_path):
     port_main.main(argv + ["--test_only", "True"])
     again = _events(tmp_path / "m.jsonl")[-1]
     assert again["event"] == "test" and again["test_mse"] == test_mse
+
+
+def _write_photos(root):
+    """A JPEG for every photo that photos.json names."""
+    import cv2
+    rng = np.random.default_rng(0)
+    (root / "photos").mkdir()
+    for line in open(root / "photos.json"):
+        pid = json.loads(line)["photo_id"]
+        img = rng.integers(0, 256, (48, 56, 3)).astype(np.uint8)
+        assert cv2.imwrite(str(root / "photos" / f"{pid}.jpg"), img)
+
+
+FULL = ["--device", "cpu", "--review_net_only", "False", "--photo_size", "64",
+        "--kernel_count", "8", "--train_epochs", "1", "--eval_every", "4",
+        "--learning_rate", "1e-3", "--seed", "1"]
+
+
+def test_full_umpr_cli_trains_tests_reloads_and_starts_at_the_jax_valid_mse(
+        tmp_path, monkeypatch):
+    glove = _splits(tmp_path)
+    _write_photos(tmp_path)
+    model_dir = tmp_path / "run"
+    argv = FULL + SHAPE + ["--vgg_fused_pool", "True", "--data_workers", "2",
+                           "--data_dir", str(tmp_path), "--word2vec_file", glove,
+                           "--model_path", str(model_dir),
+                           "--log_path", str(tmp_path / "train.txt"),
+                           "--metrics_jsonl", str(tmp_path / "m.jsonl")]
+    trainer = port_main.main(argv)
+    assert trainer.batch_counter >= 4 and trainer.photo_cache.hits > 0
+    assert (model_dir / "best" / "arrays.npz").exists()
+    events = _events(tmp_path / "m.jsonl")
+    values = [e[k] for e in events for k in ("valid_mse", "train_loss", "test_mse")
+              if k in e]
+    assert len(values) >= 4 and all(v is not None and np.isfinite(v) for v in values)
+    port_main.main(argv + ["--test_only", "True"])
+    again = _events(tmp_path / "m.jsonl")[-1]
+    assert again["event"] == "test" and again["test_mse"] == events[-1]["test_mse"]
+
+    # the initial validation MSE against the JAX Trainer on the same weights
+    # (its own init replaced by the port's) and the same decoded photos
+    cfg = trainer.config
+    w2v = Word2vec(glove)
+    init = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                torch.Generator().manual_seed(cfg.seed))
+    monkeypatch.setattr(jax_trainer_module, "init_umpr",
+                        lambda key, dims, emb: params_to_jax(init.state_dict()))
+    jcfg = JaxConfig(argv=FULL + SHAPE + [
+        "--use_pallas", "False", "--multi_gpu", "False", "--device_dataset", "off",
+        "--async_checkpoint", "False"])
+    jw = JaxWord2vec(glove)
+    jtrainer = JaxTrainer(jcfg, jax_get_logger(logger_name="jax-full"), jw)
+    photos = (str(tmp_path / "photos.json"), str(tmp_path / "photos"))
+    jvalid = jax_build_dataset(str(tmp_path / "valid.csv"), *photos, jw, jcfg)
+    jmse = jtrainer._evaluate(jtrainer._loader(jvalid))
+    np.testing.assert_allclose(events[0]["valid_mse"], jmse, rtol=1e-4, atol=1e-4)
+    zero_mse = float(np.mean(jvalid.ratings ** 2))  # a head clamped to 0
+    assert abs(jmse - zero_mse) > 1e-2

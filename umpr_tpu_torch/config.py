@@ -46,7 +46,7 @@ class Config:
 
     # ----- mode switches -----
     test_only = False
-    review_net_only = False  # False (full UMPR) is ROADMAP A3; pass True
+    review_net_only = False  # True: UMPR-R; False: full UMPR (photos, VGG16)
 
     # ----- dataset shaping -----
     review_level = "sentence"  # 'sentence' or 'review'
@@ -89,9 +89,10 @@ class Config:
     resume_path = ""
     rnet_pretrained = ""
     vgg16_weights = ""
-    photo_size = 224
-    vgg_fold_w = True
-    vgg_fused_pool = False
+    photo_size = 224  # a positive multiple of 32 (VGG16's five pools)
+    vgg_fold_w = True  # the JAX package's TPU lane-layout trick: the same
+                       # function either way; the port never folds
+    vgg_fused_pool = False  # close VGG blocks with H >= 56 with K5/K6
     remat_vgg = False
     adam_moment_dtype = "float32"
     adam_factored_nu = False
@@ -117,10 +118,9 @@ class Config:
 
         if self.review_level not in ("sentence", "review"):
             raise ValueError('"review_level" must be equal to "sentence" or "review"!')
-        if not self.review_net_only:
-            raise NotImplementedError(
-                "full UMPR (--review_net_only False) is not ported yet "
-                "(ROADMAP A3); pass --review_net_only True")
+        if self.photo_size <= 0 or self.photo_size % 32:
+            raise ValueError(f"--photo_size {self.photo_size}: expected a positive "
+                             "multiple of 32")
         defaults = dict(self._attributes())
         for key, item in NOT_PORTED.items():
             if getattr(self, key) != defaults[key]:
@@ -154,14 +154,9 @@ NOT_PORTED = {
         "profile_dir", "checkpoint_backend",
     ), "ROADMAP A2, training"),
     **dict.fromkeys((
-        "kernel_count", "kernel_size", "threshold", "loss_v_rate",
-        "data_workers", "photo_cache_mb", "vgg16_weights", "photo_size",
-        "vgg_fold_w", "vgg_fused_pool", "remat_vgg",
-    ), "ROADMAP A3, full UMPR"),
-    **dict.fromkeys((
         "compute_dtype", "steps_per_dispatch", "grad_accum_steps",
         "device_dataset", "device_dataset_mb", "async_checkpoint",
-        "build_chunk_rows", "cache_dataset",
+        "build_chunk_rows", "cache_dataset", "remat_vgg",
     ), "ROADMAP A4, runtime features"),
     **dict.fromkeys((
         "mesh_shape", "shard_embedding", "coordinator_address",

@@ -1,14 +1,20 @@
 """The JAX package's parameter pytree <-> this package's state dict.
 
 umpr_tpu keeps parameters as a nested dict (``init_umpr`` layout) with
-"x @ W" weights; this package keeps torch's layouts.  The mapping, by
-parameter path:
+"x @ W" weights; VGG16's ``features`` and ``classifier`` are lists, keyed
+by int position (``keystr`` ``['features'][0]``).  This package keeps
+torch's layouts; a list position is a state-dict name part ("0", "12").
+The mapping, by parameter path:
 
 - ``embedding``                        -> ``embedding.weight``
 - ``...gru.fwd|bwd.w_ih|w_hh``  (E|H, 3H) -> ``...gru.weight_ih_l0|weight_hh_l0[_reverse]`` (3H, E|H), transposed
 - ``...gru.fwd|bwd.bias_ih|bias_hh``    -> ``...gru.bias_ih_l0|bias_hh_l0[_reverse]``
 - ``...<linear>.kernel`` (in, out)      -> ``...<linear>.weight`` (out, in), transposed
-- every other leaf (``M``, ``Ms``, ``Ws``, ``bias``) keeps its path.
+- ``...<conv1d>.kernel`` (k, in, out)   -> ``...<conv1d>.weight`` (out, in, k), transposed
+- ``...<conv2d>.kernel`` HWIO (3, 3, in, out) -> ``...<conv2d>.weight`` OIHW,
+  ``permute(3, 2, 0, 1)``: NOT a transpose, which would swap each 3x3
+  filter's rows and columns without changing the shape
+- every other leaf (``M``, ``Ms``, ``Ws``, ``bias``, ``pos_v_emb``) keeps its path.
 
 Gate order [r | z | n] is the same on both sides.
 """
@@ -24,8 +30,22 @@ _GRU_NAMES = {v: k for k, v in _GRU_KEYS.items()}
 _GRU_DIRS = {"fwd": "", "bwd": "_reverse"}
 
 
+def _from_jax_layout(a, transpose):
+    """A JAX leaf -> torch's layout (a kernel by its rank)."""
+    if not transpose:
+        return a
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+
+
+def _to_jax_layout(a, transpose):
+    if not transpose:
+        return a
+    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+
+
 def _torch_name(path):
     """JAX path tuple -> (state-dict name, transposed?)."""
+    path = tuple(str(k) for k in path)
     if path == ("embedding",):
         return "embedding.weight", False
     if len(path) >= 3 and path[-3] == "gru":
@@ -37,29 +57,32 @@ def _torch_name(path):
 
 
 def leaves_with_path(tree, prefix=()):
-    """(path tuple, leaf) of a nested dict, in JAX's sorted-key order."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from leaves_with_path(tree[k], prefix + (k,))
+    """(path tuple, leaf) of a nested dict/list, in JAX's leaf order:
+    dict keys sorted, list items in order (their path part an int)."""
+    items = enumerate(tree) if isinstance(tree, list) else (
+        (k, tree[k]) for k in sorted(tree))
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from leaves_with_path(v, prefix + (k,))
         else:
-            yield prefix + (k,), tree[k]
+            yield prefix + (k,), v
 
 
 def params_from_jax(tree):
-    """JAX param pytree (nested dict of numpy arrays) -> state dict of f32
-    CPU tensors for ``UMPR.load_state_dict``."""
+    """JAX param pytree (nested dict/list of numpy arrays) -> state dict of
+    f32 CPU tensors for ``load_state_dict``."""
     out = {}
     for path, leaf in leaves_with_path(tree):
         name, transpose = _torch_name(path)
         a = np.asarray(leaf, dtype=np.float32)
-        out[name] = torch.tensor(a.T if transpose else a)
+        out[name] = torch.tensor(np.ascontiguousarray(_from_jax_layout(a, transpose)))
     return out
 
 
 def _jax_path(name):
     """state-dict name -> (JAX path tuple, transposed?); inverse of
-    _torch_name."""
-    parts = tuple(name.split("."))
+    _torch_name.  Digit parts become int list positions."""
+    parts = tuple(int(p) if p.isdigit() else p for p in name.split("."))
     if name == "embedding.weight":
         return ("embedding",), False
     if len(parts) >= 2 and parts[-2] == "gru":
@@ -72,8 +95,20 @@ def _jax_path(name):
     return parts, False
 
 
+def listify(node):
+    """Dicts keyed by ints 0..n-1 -> lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: listify(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        if sorted(node) != list(range(len(node))):
+            raise ValueError(f"list positions {sorted(node)} are not 0..{len(node) - 1}")
+        return [node[i] for i in range(len(node))]
+    return node
+
+
 def params_to_jax(state_dict):
-    """Inverse of params_from_jax: state dict -> nested dict of numpy
+    """Inverse of params_from_jax: state dict -> nested dict/list of numpy
     arrays in umpr_tpu's init_umpr layout."""
     tree = {}
     for name, t in state_dict.items():
@@ -82,5 +117,5 @@ def params_to_jax(state_dict):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(a.T if transpose else a)
-    return tree
+        node[path[-1]] = np.ascontiguousarray(_to_jax_layout(a, transpose))
+    return listify(tree)

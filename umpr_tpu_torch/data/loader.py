@@ -1,18 +1,24 @@
 """Batch loader: packed dataset -> static-shape batches -> device tensors.
 
-Port of umpr_tpu/data/loader.py without photos.  Every batch has the same
-shape: the final partial batch is padded with dead samples
-(``sample_mask`` 0, counts 0, lengths 1), which never raise the runtime
-batch maxima, so the last batch scores like the reference's smaller one.
+Port of umpr_tpu/data/loader.py (the single-host path).  Every batch has
+the same shape: the final partial batch is padded with dead samples
+(``sample_mask`` 0, counts 0, lengths 1, photo paths ''), which never
+raise the runtime batch maxima, so the last batch scores like the
+reference's smaller one.  Unless ``ignore_photos``, each batch carries
+``photos`` (B, V, P, H, W, 3) uint8, decoded on the host (by a pool of
+``workers`` threads, through a shared ``photo_cache`` when given).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from umpr_tpu_torch.data.images import load_photo_batch
 
 FIELDS = ("u_tokens", "u_lengths", "u_counts", "i_tokens", "i_lengths",
           "i_counts", "ui_tokens", "ui_lengths", "ui_counts", "ratings")
@@ -22,14 +28,20 @@ class BatchLoader:
     """Batches of `batch_size` samples over a packed dataset, in order or,
     with `shuffle`, in one permutation of the samples drawn per iteration
     from ``np.random.default_rng(seed)`` (the JAX loader's order for the
-    same seed).  `start_batch` skips that many batches of the order."""
+    same seed).  `start_batch` skips that many batches of the order.
+    `resize` is the photos' (width, height)."""
 
-    def __init__(self, dataset, batch_size, shuffle=False, seed=0, start_batch=0):
+    def __init__(self, dataset, batch_size, shuffle=False, seed=0, start_batch=0,
+                 ignore_photos=True, resize=(224, 224), workers=0, photo_cache=None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.start_batch = start_batch
+        self.ignore_photos = ignore_photos
+        self.resize = resize
+        self.photo_cache = photo_cache
         self._rng = np.random.default_rng(seed)
+        self._executor = ThreadPoolExecutor(max_workers=workers) if workers > 0 else None
 
     def __len__(self):
         return -(-len(self.ds) // self.batch_size)
@@ -47,6 +59,11 @@ class BatchLoader:
                 batch[k][n_real:] = 0  # fancy indexing made private copies
             for k in ("u_lengths", "i_lengths", "ui_lengths"):
                 batch[k][n_real:] = 1
+        if not self.ignore_photos:
+            paths = self.ds.photo_paths[idx]  # a private copy (fancy indexing)
+            paths[n_real:] = ""
+            batch["photos"] = load_photo_batch(paths, self.resize, self._executor,
+                                               self.photo_cache)
         return batch
 
     def __iter__(self):

@@ -1,9 +1,11 @@
-"""Train and test UMPR-R with the port (port of the repository's main.py).
+"""Train and test UMPR with the port (port of the repository's main.py).
 
-    python -m umpr_tpu_torch.main --review_net_only True \
+    python -m umpr_tpu_torch.main --review_net_only False \
         --data_dir data/music --word2vec_file embedding/glove.6B.50d.txt
 
-builds the train, valid and test splits from ``<data_dir>/{train,valid,
+trains full UMPR (photos from ``<data_dir>/photos``, listed in
+``photos.json``); ``--review_net_only True`` trains UMPR-R.  It builds
+the train, valid and test splits from ``<data_dir>/{train,valid,
 test}.csv``, logs the initial validation MSE, trains with Adam (evaluating
 every ``--eval_every`` batches and saving ``best/`` on improvement), then
 reports the test MSE of ``best/``.  ``--test_only True --model_path <run>``
@@ -35,7 +37,8 @@ def main(argv=None):
             sys.exit(-1)
     else:
         # abspath so `--data_dir .` names the run after the real directory
-        save_name = os.path.basename(os.path.abspath(config.data_dir)) + "_review_net"
+        save_name = os.path.basename(os.path.abspath(config.data_dir)) + (
+            "_review_net" if config.review_net_only else "")
         stamp = date("%Y%m%d_%H%M%S")
         config.log_path = config.log_path or f"./log/{save_name}{stamp}.txt"
         config.model_path = config.model_path or f"./model/{save_name}{stamp}"

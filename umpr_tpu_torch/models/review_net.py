@@ -45,6 +45,21 @@ class SNet(nn.Module):
         self.Ws = nn.Parameter(randn((1, self_atte_size), generator))
 
 
+def snet(net, H, word_soft, S, t_exists):
+    """One S-Net (eq. 5-6) over per-sentence rows H (B*S, L, 2u);
+    word_soft (B, ...) gives each sentence its weight mass, the sum of its
+    (B*S, -1) row (C-Net passes its view probabilities, as the reference
+    does).  Returns self_atte (B, S, 2u) and sentiment (B, 2u)."""
+    B = H.shape[0] // S
+    inner = torch.einsum("ae,nle->nla", net.Ms, H)
+    scores = torch.einsum("oa,nla->nl", net.Ws, torch.tanh(inner))
+    sent_soft = masked_softmax(scores, t_exists[None, :], dim=-1)
+    self_atte = torch.einsum("nle,nl->ne", H, sent_soft)  # (B*S, 2u)
+    mass = word_soft.reshape(B * S, -1).sum(dim=-1)
+    sentiment = (mass[:, None] * self_atte).reshape(B, S, -1).sum(dim=1)
+    return self_atte.reshape(B, S, -1), sentiment
+
+
 def snet_pair(snet_u, snet_i, y_sent, soft_u, soft_i, S, t_exists):
     """Both S-Nets (eq. 5-6) in one batched pass over the (2*B*S, L, 2u)
     GRU output, a 2-valued group axis carrying the user/item parameters.

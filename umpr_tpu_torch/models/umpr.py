@@ -1,14 +1,16 @@
-"""UMPR-R: embedding -> ReviewNet -> ReLU head (port of the
-``review_net_only`` branch of umpr_tpu/models/umpr.py).
+"""UMPR: embedding -> ReviewNet [-> ControlNet + VisualNet] -> ReLU head
+(port of umpr_tpu/models/umpr.py).  ``review_net_only`` gives UMPR-R.
 
 - The GloVe table is frozen and is a checkpoint leaf.
 - Runtime batch maxima give the exists masks, so a statically padded batch
   scores like the reference's dynamically padded one; ``pad_maxima`` in the
   batch pins them instead (serving pins them to the full padding).
-- The MSE is a mask-weighted mean over real samples.  Dead rows are dropped
-  with a select: eager PyTorch gives 0 * NaN = NaN.
-
-Full UMPR (ControlNet, VisualNet, loss_v) is ROADMAP A3.
+- The MSE is a mask-weighted mean over real samples.  Full UMPR adds
+  ``loss_v_rate * loss_v``, loss_v the mean of the cross-batch (V, V)
+  product prefer^T @ match (reference model.py:276).
+- Dead rows are dropped with selects before every product they reach:
+  eager PyTorch gives 0 * NaN = NaN, in the forward and in a matmul's
+  weight gradient alike.
 """
 
 from __future__ import annotations
@@ -19,40 +21,76 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from umpr_tpu_torch.models.control_net import ControlNet
 from umpr_tpu_torch.models.layers import linear
 from umpr_tpu_torch.models.review_net import ReviewNet
+from umpr_tpu_torch.models.visual_net import VisualNet
 from umpr_tpu_torch.ops import masking
 
 
 @dataclass(frozen=True)
 class ModelDims:
-    """Static model configuration."""
+    """Static model configuration.  Unlike the JAX package's, it defaults
+    to UMPR-R (``review_net_only=True``)."""
     gru_size: int = 64
     self_atte_size: int = 64
+    review_net_only: bool = True
+    kernel_count: int = 120
+    kernel_size: int = 3
+    threshold: float = 0.35
+    view_size: int = 1
+    loss_v_rate: float = 0.1
+    photo_size: int = 224
+    vgg_fused_pool: bool = False
+    # the JAX package's width-folded VGG block 1 computes the same function
+    # as the unfolded one; the port takes the flag and never folds
+    vgg_fold_w: bool = True
 
     @classmethod
     def from_config(cls, config):
         return cls(gru_size=config.gru_size,
-                   self_atte_size=config.self_atte_size)
+                   self_atte_size=config.self_atte_size,
+                   review_net_only=config.review_net_only,
+                   kernel_count=config.kernel_count,
+                   kernel_size=config.kernel_size,
+                   threshold=config.threshold,
+                   view_size=len(config.views),
+                   loss_v_rate=config.loss_v_rate,
+                   photo_size=config.photo_size,
+                   vgg_fused_pool=config.vgg_fused_pool,
+                   vgg_fold_w=config.vgg_fold_w)
 
 
 class UMPR(nn.Module):
-    """UMPR-R.  Built on the CPU from `generator`; move it with .to()."""
+    """UMPR, or UMPR-R with ``dims.review_net_only``.  Built on the CPU
+    from `generator`; move it with .to()."""
 
     def __init__(self, dims: ModelDims, word_emb, generator=None):
         super().__init__()
+        self.dims = dims
         word_emb = torch.as_tensor(word_emb, dtype=torch.float32)
         self.embedding = nn.Embedding.from_pretrained(word_emb, freeze=True)
         emb_size = word_emb.shape[1]
         self.review_net = ReviewNet(emb_size, dims.gru_size,
                                     dims.self_atte_size, generator)
-        self.linear_fusion = linear(2 * dims.gru_size, 1, generator=generator)
+        fusion_in = 2 * dims.gru_size
+        if not dims.review_net_only:
+            self.control_net = ControlNet(
+                emb_size, dims.gru_size, dims.kernel_count, dims.kernel_size,
+                dims.view_size, dims.self_atte_size, generator)
+            self.visual_net = VisualNet(dims.view_size, dims.photo_size,
+                                        dims.vgg_fused_pool, generator)
+            fusion_in += 2 * dims.view_size
+        self.linear_fusion = linear(fusion_in, 1, generator=generator)
 
-    def forward(self, batch):
-        """batch: dict of tensors from data.loader (u_/i_ tokens, lengths,
-        counts, ratings, optional sample_mask and pad_maxima).
+    def forward(self, batch, dropout_generator=None):
+        """batch: dict of tensors from data.loader (u_/i_/ui_ tokens,
+        lengths, counts, ratings, photos for full UMPR, optional
+        sample_mask and pad_maxima).  dropout_generator: the VGG
+        classifier's dropout masks come from it; None (eval) turns dropout
+        off.
 
-        Returns (prediction (B,), loss, {"loss_r": loss})."""
+        Returns (prediction (B,), loss, {"loss_r": ..., ["loss_v": ...]})."""
         u_tok, i_tok = batch["u_tokens"], batch["i_tokens"]
         u_len, i_len = batch["u_lengths"], batch["i_lengths"]
         labels = batch["ratings"]
@@ -73,9 +111,35 @@ class UMPR(nn.Module):
         # one gather for user + item histories
         both_emb = self.embedding(torch.cat([u_tok, i_tok]).long())  # (2B, S, L, E)
         rn = self.review_net(both_emb, u_len, i_len, exists)
-        prediction = F.relu(self.linear_fusion(rn))[:, 0]
-        loss = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
-        return prediction, loss, {"loss_r": loss}
+        if self.dims.review_net_only:
+            prediction = F.relu(self.linear_fusion(rn))[:, 0]
+            loss = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
+            return prediction, loss, {"loss_r": loss}
+
+        ui_tok, ui_len = batch["ui_tokens"], batch["ui_lengths"]
+        if pm is None:
+            Sb_ui, Lb_ui = batch["ui_counts"].max(), ui_len.max()
+        else:
+            Sb_ui, Lb_ui = pm[2], pm[3]
+        ui_exists = masking.exists_mask(Sb_ui, Lb_ui, ui_tok.shape[1], L, u_tok.device)
+        ui_emb = self.embedding(ui_tok.long())  # (B, S_ui, L, E)
+        c_u, c_i, prefer_pos, prefer_neg = self.control_net(
+            both_emb, ui_emb, u_len, i_len, ui_len, exists, ui_exists,
+            self.dims.threshold)
+        pos_match, neg_match, final_pos, final_neg = self.visual_net(
+            batch["photos"], c_u, c_i, dropout_generator)
+
+        alive = mask[:, None] > 0
+        fused = torch.where(alive, torch.cat([rn, final_pos, final_neg], dim=-1), 0.0)
+        prediction = F.relu(self.linear_fusion(fused))[:, 0]
+        loss_r = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
+        # cross-batch (V, B) @ (B, V): dead rows selected out of both operands
+        prefer_pos, prefer_neg, pos_match, neg_match = (
+            torch.where(alive, t, 0.0)
+            for t in (prefer_pos, prefer_neg, pos_match, neg_match))
+        loss_v = (prefer_pos.t() @ pos_match + prefer_neg.t() @ neg_match).mean()
+        loss = loss_r + self.dims.loss_v_rate * loss_v
+        return prediction, loss, {"loss_r": loss_r, "loss_v": loss_v}
 
 
 def masked_sq_sum(pred, labels, mask):

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("gru_input_proj", "bigru_recurrence", "bigru_backward",
-           "gru_input_proj_bwd")
+           "gru_input_proj_bwd", "bias_relu_pool", "bias_relu_pool_bwd")
 
 _lock = threading.Lock()
 _libs = {}  # name -> loaded ctypes.CDLL

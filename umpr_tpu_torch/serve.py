@@ -1,5 +1,6 @@
 """Batch serving of UMPR-R rating predictions from a checkpoint (port of
-umpr_tpu/serve.py for ``--review_net_only True``).
+umpr_tpu/serve.py for ``--review_net_only True``).  Full UMPR serving
+needs the decode-once photo bank and raises (ROADMAP A5).
 
 CSV mode:
 
@@ -54,8 +55,16 @@ def set_f32_parity():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _umpr_r_only(config):
+    if not config.review_net_only:
+        raise NotImplementedError(
+            "serving full UMPR (--review_net_only False) is not ported yet "
+            "(ROADMAP A5, the decode-once photo bank); pass --review_net_only True")
+
+
 class Predictor:
     def __init__(self, config, word2vec, model_path):
+        _umpr_r_only(config)
         self.config = config
         self.device = config.torch_device
         if self.device.type == "cuda":
@@ -241,6 +250,7 @@ def main(argv=None):
     parser.add_argument("--host", default="127.0.0.1")
     args, rest = parser.parse_known_args(argv)
     config = Config(rest)
+    _umpr_r_only(config)
     if not config.model_path:
         raise ValueError("--model_path is required for serving")
 

@@ -4,10 +4,11 @@ without JAX (port of umpr_tpu/train/checkpoint.py:113-262, npz backend).
 A checkpoint directory holds ``arrays.npz`` (``leaf_00000`` ...) and
 ``structure.json`` (``version`` 1, ``keys``, ``dtypes``, ``n``).  Keys are
 JAX ``keystr`` strings of the parameter path, e.g.
-``['review_net']['rnet']['gru']['fwd']['w_ih']``, in JAX's sorted-dict leaf
-order.  Restore matches leaves by key and checks shapes and dtypes, as
-umpr_tpu's ``restore_pytree`` does for version >= 1, so either package
-reads the other's checkpoints.  Layout under a run directory: ``best/``
+``['review_net']['rnet']['gru']['fwd']['w_ih']`` or, for a list position,
+``['visual_net']['vgg16']['features'][0]['kernel']``, in JAX's leaf order
+(dict keys sorted, lists in order).  Restore matches leaves by key and
+checks shapes and dtypes, as umpr_tpu's ``restore_pytree`` does for
+version >= 1, so either package reads the other's checkpoints.  Layout under a run directory: ``best/``
 holds the parameters at the best validation MSE.
 """
 
@@ -18,13 +19,15 @@ import os
 
 import numpy as np
 
-from umpr_tpu_torch.convert import leaves_with_path, params_from_jax, params_to_jax
+from umpr_tpu_torch.convert import (leaves_with_path, listify, params_from_jax,
+                                    params_to_jax)
 
 FORMAT_VERSION = 1
 
 
 def keystr(path):
-    """('a', 'b') -> "['a']['b']", as jax.tree_util.keystr writes dict keys."""
+    """('a', 0, 'b') -> "['a'][0]['b']", as jax.tree_util.keystr writes
+    dict keys and list positions."""
     return "".join(f"[{k!r}]" for k in path)
 
 
@@ -47,8 +50,9 @@ def save_pytree(path, tree):
 
 
 def restore_pytree(path, like):
-    """Restore into the structure of `like` (nested dict of arrays): leaves
-    matched by key; missing or extra keys, shapes and dtypes are checked."""
+    """Restore into the structure of `like` (nested dict/list of arrays):
+    leaves matched by key; missing or extra keys, shapes and dtypes are
+    checked."""
     meta_path = os.path.join(path, "structure.json")
     if not os.path.exists(meta_path):
         if os.path.isdir(os.path.join(path, "orbax")):
@@ -86,7 +90,7 @@ def restore_pytree(path, like):
             for part in p[:-1]:
                 node = node.setdefault(part, {})
             node[p[-1]] = new.astype(np.asarray(old).dtype)
-    return tree
+    return listify(tree)
 
 
 def has_best(root):
@@ -99,6 +103,11 @@ def save_best(root, model):
 
 def restore_best(root, model):
     """Load ``<root>/best`` (written by either package) into `model`."""
-    like = params_to_jax(model.state_dict())
-    tree = restore_pytree(os.path.join(root, "best"), like)
-    model.load_state_dict(params_from_jax(tree))
+    restore_module(os.path.join(root, "best"), model)
+
+
+def restore_module(path, module):
+    """Load the checkpoint at `path` into `module`: a whole model, or a
+    submodule for a checkpoint of that subtree (``--vgg16_weights``)."""
+    tree = restore_pytree(path, params_to_jax(module.state_dict()))
+    module.load_state_dict(params_from_jax(tree))

@@ -5,6 +5,8 @@ a statically padded batch trains and scores like the reference's
 dynamically padded one (serving pins the full padding instead).  Dead rows
 of a final partial batch (``sample_mask`` 0) reach neither the loss, its
 gradient nor ``n_real``.  Neither step reads a value back to the host.
+Dropout (full UMPR's VGG classifier) runs in the train step when it is
+given a generator, and never in the eval step.
 """
 
 from __future__ import annotations
@@ -14,14 +16,16 @@ import torch
 from umpr_tpu_torch.models.umpr import masked_sq_sum
 
 
-def train_step(model, opt, batch, lr):
+def train_step(model, opt, batch, lr, dropout_generator=None):
     """One Adam step at learning rate `lr` -> (loss, n_real), 0-d device
-    tensors: the batch's masked-mean MSE before the step and its count of
-    real samples."""
+    tensors: the batch's loss before the step (masked-mean MSE, plus
+    loss_v_rate * loss_v for full UMPR) and its count of real samples.
+    dropout_generator: a torch.Generator on the model's device for the
+    dropout masks; None turns dropout off."""
     for group in opt.param_groups:
         group["lr"] = lr
     opt.zero_grad(set_to_none=True)
-    _, loss, _ = model(batch)
+    _, loss, _ = model(batch, dropout_generator)
     loss.backward()
     opt.step()
     return loss.detach(), batch["sample_mask"].sum()

@@ -10,6 +10,14 @@ checked at epoch end, and a final evaluation and save when no ``best/``
 exists yet.  Each epoch shuffles the training set with seed ``seed +
 epoch``, the JAX loader's order.
 
+Full UMPR: the train and eval loaders decode photos through one shared
+``PhotoCache`` (``--photo_cache_mb``) with ``--data_workers`` threads;
+``--vgg16_weights`` loads a checkpoint of the VGG16 subtree (a failure is
+logged and training goes on, as in the JAX trainer).  Train step k draws
+its dropout masks from a generator seeded by (``seed``, k): the JAX
+trainer's fold_in(PRNGKey(seed), k) gives other bits, but the same
+determinism.
+
 Not ported (their flags raise, ROADMAP A2/A4/A6): ``last/`` checkpoints
 and resume, ``--save_every_batches``, multi-step dispatch, the
 device-resident dataset, multi-host runs and profiling.
@@ -21,8 +29,10 @@ import json
 import math
 import time
 
+import numpy as np
 import torch
 
+from umpr_tpu_torch.data.images import PhotoCache
 from umpr_tpu_torch.data.loader import BatchLoader, prefetch_iter, to_device
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.serve import set_f32_parity
@@ -40,9 +50,18 @@ class Trainer:
             set_f32_parity()
         self.dims = ModelDims.from_config(config)
         self.embedding = word2vec.embedding
-        self.model = self._new_model().to(self.device)
+        model = self._new_model()
+        if config.vgg16_weights and not config.review_net_only:
+            try:
+                ckpt.restore_module(config.vgg16_weights, model.visual_net.vgg16)
+                logger.info(f'Loaded VGG16 pretrained weights from "{config.vgg16_weights}"')
+            except Exception:
+                logger.info(f'Failed to load VGG16 weights from "{config.vgg16_weights}"')
+        self.model = model.to(self.device)
         self.opt = make_optimizer(self.model, config.l2_regularization,
                                   config.learning_rate)
+        self.photo_cache = (PhotoCache(config.photo_cache_mb << 20)
+                            if config.photo_cache_mb > 0 else None)
         self.batch_counter = 0
         self.best_loss = 100.0
 
@@ -51,8 +70,21 @@ class Trainer:
                     torch.Generator().manual_seed(self.config.seed))
 
     def _loader(self, dataset, shuffle=False, seed=0):
-        return BatchLoader(dataset, self.config.batch_size, shuffle=shuffle,
-                           seed=seed)
+        cfg = self.config
+        return BatchLoader(dataset, cfg.batch_size, shuffle=shuffle, seed=seed,
+                           ignore_photos=cfg.review_net_only,
+                           resize=(cfg.photo_size, cfg.photo_size),
+                           workers=cfg.data_workers, photo_cache=self.photo_cache)
+
+    def dropout_generator(self, batch_counter):
+        """The generator of train step `batch_counter`'s dropout masks, on
+        the model's device, seeded from (seed, batch_counter); None for
+        UMPR-R, which has no dropout."""
+        if self.config.review_net_only:
+            return None
+        seed = np.random.SeedSequence([self.config.seed, batch_counter])
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0]))
 
     def _device_batches(self, loader):
         return prefetch_iter((to_device(b, self.device) for b in loader),
@@ -104,7 +136,8 @@ class Trainer:
                 return float(ls), float(ns)
 
             for batch in self._device_batches(train_loader):
-                loss, n_real = train_step(self.model, self.opt, batch, lr)
+                loss, n_real = train_step(self.model, self.opt, batch, lr,
+                                          self.dropout_generator(self.batch_counter))
                 parts.append((loss * n_real, n_real))
                 before = self.batch_counter
                 self.batch_counter += 1
