@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 1. Print the card's name and power limit; build every CUDA kernel of the
-   port from the sources in the checkout (one nvcc per source, in
+   port (K1-K9) from the sources in the checkout (one nvcc per source, in
    parallel) and print the build time and ptxas report.
 2. Hold each kernel against its plain PyTorch version and time the
    kernel, the plain version and one PyTorch library call (yardstick only:
-   the port never calls it): K1 and K2 (the bi-GRU forward) and K3 and K4
-   (its backward) at the UMPR-R shapes (N=2560 sentence rows, L=20, E=50,
-   H=64, f32; lengths 1..20); K5 and K6 (the fused bias + ReLU + 2x2 pool
-   and its backward) at the three VGG16 blocks they close at B=64, 224 px,
-   bit for bit.
+   the port never calls it): K1 and K2 (the bi-GRU forward), K3 and K4
+   (its backward) and K9 (its input gradient) at the UMPR-R shapes
+   (N=2560 sentence rows, L=20, E=50, H=64, f32; lengths 1..20); K5 and
+   K6 (the fused bias + ReLU + 2x2 pool and its backward) at the three
+   VGG16 blocks they close at B=64, 224 px, bit for bit; K7 and K8 (the
+   affinity attention) at the long-history shape (B=64, P=8192, D=128)
+   and at B10's (P=400), on saturated inputs where every max is a tie,
+   and on NaN inputs.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -22,9 +25,9 @@
    (2 epochs over a seeded train/valid/test corpus, Adam at lr 1e-3, an
    evaluation every 2 batches, then the test pass).  Launch counts show
    every train step went through K1-K4 and every evaluation batch through
-   K1 and K2; the loss is finite and the GRU weights moved; one step's
-   gradients and the first validation MSE agree with the CPU (plain
-   versions).  Then the ms per train step (CUDA events) and a
+   K1 and K2; the loss is finite and the GRU weights and M moved; one
+   step's gradients and the first validation MSE agree with the CPU
+   (plain versions).  Then the ms per train step (CUDA events) and a
    torch.profiler breakdown of train steps.
 5. Train full UMPR (``--review_net_only False --vgg_fused_pool True``,
    224 px photos) the same way.  This machine has no JPEG decoder, so
@@ -35,9 +38,18 @@
    loss is finite; the fused blocks' biases and C-Net's GRU moved; on 8
    rows with dropout off, the card's predictions and gradients agree with
    the CPU's.  Then the ms per train step and a profiler breakdown.
-6. Print each phase's seconds and a ``{"kernels": [...]}`` line
-   (launches: the full-UMPR run's, the other runs' beside them), then, as
-   the last line, ``{"ok": true, "device": {...}}``.
+6. A gradient through ``bigru_split`` with x requiring grad at the UMPR-R
+   shapes, card (K1-K4, K9) against CPU.
+7. Long-history UMPR-R (``--max_sent_count 128 --max_sent_length 64``,
+   P = 8192; every batch of the corpus reaches both maxima): serving as in
+   3, with K7/K8 once per batch (above 4 GiB of (B, P, P) f32) and 4 rows
+   held against a CPU Predictor of batch 4, which takes the composite
+   attention; training as in 4, with K7/K8 in every train step and
+   evaluation batch and one step's gradients against the CPU's.
+8. Print each phase's seconds and a ``{"kernels": [...]}`` line (launches:
+   each kernel's main path -- the full-UMPR run for K1-K6, the long-history
+   training for K7/K8, the input-gradient run for K9 -- and the other runs'
+   beside them), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -48,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -68,8 +81,8 @@ from umpr_tpu_torch.data.dataset import build_dataset
 from umpr_tpu_torch.data.loader import BatchLoader, to_device
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.models.visual_net import FUSED_POOL_MIN_H
-from umpr_tpu_torch.ops import _build, gru_cuda, pool_cuda
-from umpr_tpu_torch.ops.gru import BiGRU
+from umpr_tpu_torch.ops import _build, attention, attention_cuda, gru_cuda, pool_cuda
+from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
 from umpr_tpu_torch import serve
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train import checkpoint as ckpt
@@ -103,13 +116,14 @@ CKPT_SEED = 0
 
 
 def write_corpus(root, seed=0, shards=3, users=12, items=12, per_user=8,
-                 vocab=2000, dim=50):
+                 vocab=2000, dim=50, sent_tokens=(4, 26), review_sents=(2, 8)):
     """A seeded synthetic corpus in the training-CSV schema with enough
     history to fill S=L=20: `shards` groups of users and items that never
-    meet, so each shard is a self-contained request.  Writes glove.txt
-    (`vocab` words, `dim`-d), reviews.csv and photos.json (one item lacks a
-    photo, so its rows are unscorable).  Returns (glove path, csv path,
-    list of row-index arrays per shard)."""
+    meet, so each shard is a self-contained request.  A sentence has
+    `sent_tokens` [low, high) words and a review `review_sents` [low, high)
+    sentences.  Writes glove.txt (`vocab` words, `dim`-d), reviews.csv and
+    photos.json (one item lacks a photo, so its rows are unscorable).
+    Returns (glove path, csv path, list of row-index arrays per shard)."""
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -120,7 +134,7 @@ def write_corpus(root, seed=0, shards=3, users=12, items=12, per_user=8,
             f.write(w + " " + " ".join(f"{x:.6f}" for x in v) + "\n")
 
     def sentence():
-        toks = list(rng.choice(words, size=rng.integers(4, 26)))
+        toks = list(rng.choice(words, size=rng.integers(*sent_tokens)))
         if rng.random() < 0.3:
             toks[rng.integers(len(toks))] = str(rng.integers(0, 1000))  # <NUM>
         if rng.random() < 0.3:
@@ -132,7 +146,7 @@ def write_corpus(root, seed=0, shards=3, users=12, items=12, per_user=8,
         start = len(rows)
         for u in range(users):
             for it in rng.choice(items, size=per_user, replace=False):
-                review = ". ".join(sentence() for _ in range(rng.integers(2, 8))) + "."
+                review = ". ".join(sentence() for _ in range(rng.integers(*review_sents))) + "."
                 rows.append({"userID": f"U{s}_{u}", "itemID": f"I{s}_{it}",
                              "review": review, "rating": float(rng.integers(1, 6))})
         shard_rows.append(np.arange(start, len(rows)))
@@ -369,6 +383,41 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
     return rows
 
 
+K9_TOL = 1e-5  # dx: f32 sums of 6H = 384 products in another order, against its largest entry
+
+
+def input_grad_kernel_phase(device, M=51200, E=50, H=64):
+    """K9 against its plain version at the UMPR-R shapes (N*L = 51,200
+    rows, 6H = 384, E = 50)."""
+    g = torch.Generator(device=device).manual_seed(7)
+    dxg = torch.randn(M, 6 * H, generator=g, device=device)
+    w = torch.randn(E, 6 * H, generator=g, device=device) / (6 * H) ** 0.5
+    dx = gru_cuda.gru_input_proj_dx(dxg, w)
+    torch.cuda.synchronize()
+    ref = gru_cuda.gru_input_proj_dx_ref(dxg, w)
+    err, rel = (dx - ref).abs().max().item(), _rel_err(dx, ref)
+    same = torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
+    print(f"K9 gru_input_proj_dx: max|kernel - plain| = {err:.3e}, relative {rel:.3e} "
+          f"(tolerance {K9_TOL:.0e}); second launch same bits {same}")
+    if not (rel <= K9_TOL and same):
+        raise AssertionError("K9 disagrees with its plain version")
+    t_bound, by = bound(4 * (dxg.numel() + w.numel() + dx.numel()), 2 * M * 6 * H * E)
+    row = {
+        "name": "gru_input_proj_dx", "route": "cuda",
+        "source": "umpr_tpu_torch/csrc/gru_input_proj_dx.cu",
+        "replaces": "umpr_tpu/ops/gru_pallas.py:394",
+        "replaces_branch": "emit_dxc=True",
+        "max_abs_err": err, "max_rel_err": rel,
+        "ms": time_cuda(lambda: gru_cuda.gru_input_proj_dx(dxg, w)),
+        "plain_ms": time_cuda(lambda: gru_cuda.gru_input_proj_dx_ref(dxg, w)),
+        "bound_ms": t_bound, "bound_by": by,
+        "library_ms": time_cuda(lambda: torch.mm(dxg, w.t())),
+        "library_call": "torch.mm(dxg, w_ih.t())"}
+    print(f"gru_input_proj_dx: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+          f"{row['library_call']} {row['library_ms']:.4f}, bound {t_bound:.4f} by {by})")
+    return [row]
+
+
 # the VGG16 blocks that close with K5/K6 at B=64, 224 px (conv output H >=
 # 56): x = the last conv's raw output, NHWC f32
 POOL_SHAPES = ((64, 224, 224, 64), (64, 112, 112, 128), (64, 56, 56, 256))
@@ -470,6 +519,171 @@ def pool_kernel_phase(device, shapes=POOL_SHAPES):
     return kernel_rows
 
 
+# the long-history configuration: 128 sentences of up to 64 tokens (P =
+# 8192), and a corpus whose histories and sentences reach both
+LONG_FLAGS = ("--max_sent_count", "128", "--max_sent_length", "64")
+LONG_CORPUS = dict(sent_tokens=(4, 80), review_sents=(18, 26))
+
+ATT_TOL = 1e-5  # K7's maxima and K8's soft/atte: f32 sums in another order,
+                # against each output's largest entry
+TIE_GAP = 1e-6  # an argmax may differ from the plain version's only where
+                # its two candidates' values lie this close
+ATT_SHAPE = (64, 8192, 128)  # B, P = 128 sentences x 64 tokens, D = 2H
+B10_SHAPE = (64, 400, 128)  # the reference P = 20 x 20, B10's route
+
+
+def attention_case(device, B, P, D, seed, scale, frac=0.9):
+    """Seeded gru_u, gru_i (B, P, D), M (D, D) and exists (P,) bool (the
+    first frac of positions) on the device; T . U has a standard deviation
+    of about 128 * scale (D = 128): 0.64 at scale 0.005, far from tanh's
+    saturation; at scale 10 tanh is exactly +-1 almost everywhere."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    U = torch.randn(B, P, D, generator=g, device=device)
+    I = torch.randn(B, P, D, generator=g, device=device)
+    M = torch.randn(D, D, generator=g, device=device) * scale
+    return U, I, M, torch.arange(P, device=device) < int(P * frac)
+
+
+def _argmax_gaps(T, U, got, want, col):
+    """Where the kernel's argmax `got` differs from the plain version's
+    `want`: (count, the largest value gap between the two candidates,
+    from one more product).  col: the indices are rows p of a column's
+    max (K7's partials, (B, R, P)), else columns q of a row's max (B, P)."""
+    diff = (got != want).nonzero()
+    if not len(diff):
+        return 0, 0.0
+    b, pos = diff[:, 0], diff[:, -1]
+    gk, gw = got[tuple(diff.t())].long(), want[tuple(diff.t())].long()
+    if col:
+        vk, vw = ((T[b, i] * U[b, pos]).sum(-1) for i in (gk, gw))
+    else:
+        vk, vw = ((T[b, pos] * U[b, j]).sum(-1) for j in (gk, gw))
+    return len(diff), (torch.tanh(vk) - torch.tanh(vw)).abs().max().item()
+
+
+def _attention_check(U, I, M, exists, label, exact_argmax=False):
+    """K7, then K8 on K7's partials, against their plain versions; a second
+    launch must give the same bits.  Returns (T, K7's partials, K8's
+    inputs' errors (K7 max abs, K8 max abs), near ties)."""
+    B, P, D = U.shape
+    T = (I.view(B * P, D) @ M).view(B, P, D)
+    parts = attention_cuda.affinity_tiles(T, U, exists)
+    out = attention_cuda.affinity_finish(*parts[:3], exists, U, I)
+    torch.cuda.synchronize()
+    want = attention_cuda.affinity_tiles_ref(T, U, exists)
+    nan_same = all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(parts[::2], want[::2]))
+    err7 = max((a - b).nan_to_num().abs().max().item()
+               for a, b in zip(parts[::2], want[::2]))
+    n_col, gap_col = _argmax_gaps(T, U, parts[1], want[1], col=True)
+    n_row, gap_row = _argmax_gaps(T, U, parts[3], want[3], col=False)
+    del want
+    ref = attention_cuda.affinity_finish_ref(*parts[:3], exists, U, I)
+    rel8 = max(((a - b).nan_to_num().abs().max()
+                / b.nan_to_num().abs().max().clamp(min=1e-30)).item()
+               for a, b in zip(out[:4], ref[:4]))
+    err8 = max((a - b).nan_to_num().abs().max().item() for a, b in zip(out[:4], ref[:4]))
+    nan_same = nan_same and all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(out, ref))
+    exact8 = (torch.equal(out[4].nan_to_num(), ref[4].nan_to_num())
+              and torch.equal(out[5], ref[5]))
+    del ref
+    again = attention_cuda.affinity_tiles(T, U, exists)
+    again = (*again, *attention_cuda.affinity_finish(*again[:3], exists, U, I))
+    same = all(torch.equal(a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan())
+               for a, b in zip(again, (*parts, *out)))
+    del again
+    saturated = (parts[2] == 1.0).float().mean().item()
+    print(f"K7/K8 {label} at (B, P, D) = {(B, P, D)}: K7 maxima max|kernel - plain| "
+          f"{err7:.3e} (tolerance {ATT_TOL:.0e}); argmax differences {n_col} column, "
+          f"{n_row} row, largest value gap {max(gap_col, gap_row):.3e} (allowed "
+          f"{0 if exact_argmax else TIE_GAP:.0e}); K8 soft/atte max|kernel - plain| "
+          f"{err8:.3e}, {rel8:.3e} of the largest entry (tolerance {ATT_TOL:.0e}); "
+          f"colmax, amax_u exact {exact8}; NaN at the same places {nan_same}; second "
+          f"launch same bits {same}; rows whose max is exactly 1.0: {saturated:.1%}")
+    ties_ok = (n_col + n_row == 0) if exact_argmax else max(gap_col, gap_row) <= TIE_GAP
+    if not (err7 <= ATT_TOL and ties_ok and rel8 <= ATT_TOL and exact8 and nan_same
+            and same):
+        raise AssertionError(f"K7/K8 disagree with their plain versions ({label})")
+    return T, parts, (err7, err8), n_col + n_row
+
+
+def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
+                           saturated=((8, 8192, 128), B10_SHAPE), nan=(4, 1000, 128)):
+    """K7 and K8 against their plain versions at the long-history shape
+    (B=64, P=8192, D=128, 90% of positions existing) and at B10's
+    (P=400); saturated inputs, where every max is an exact tie and the
+    first index must win; NaN inputs.  Times both of `shapes`."""
+    timing, errs, near = {}, [0.0, 0.0], 0
+    for label, shape in zip(("long history", "B10 shape"), shapes):
+        B, P, D = shape
+        U, I, M, exists = attention_case(device, B, P, D, seed=P, scale=0.005)
+        T, parts, err, n = _attention_check(U, I, M, exists, label)
+        errs = [max(a, b) for a, b in zip(errs, err)]
+        near += n
+        n_ex = int(exists.sum())
+        R = parts[0].shape[1]
+        # every entry with its row or its column existing is needed (the
+        # maxima of masked columns and rows are residuals too)
+        needed = B * (P * P - (P - n_ex) ** 2)
+        k7_bound = bound(4 * (2 * B * P * D + B * R * P * 2 + B * P * 2) + P, 2 * needed * D)
+        k8_bound = bound(4 * (B * R * P * 2 + B * P + 2 * B * P * D + 4 * B * P + 2 * B * D) + P,
+                         B * R * P + 2 * B * P * (2 * D + 4))
+        out_buf = torch.empty(B, P, P, device=device)
+        timing[label] = {
+            "shape": list(shape),
+            "affinity_tiles": {
+                "ms": time_cuda(lambda: attention_cuda.affinity_tiles(T, U, exists),
+                                iters=5, warmup=1),
+                "plain_ms": time_cuda(lambda: attention_cuda.affinity_tiles_ref(T, U, exists),
+                                      iters=2, warmup=1),
+                "library_ms": time_cuda(lambda: torch.bmm(T, U.transpose(1, 2), out=out_buf),
+                                        iters=3, warmup=1),
+                "bound_ms": k7_bound[0], "bound_by": k7_bound[1]},
+            "affinity_finish": {
+                "ms": time_cuda(lambda: attention_cuda.affinity_finish(
+                    *parts[:3], exists, U, I), iters=10),
+                "plain_ms": time_cuda(lambda: attention_cuda.affinity_finish_ref(
+                    *parts[:3], exists, U, I), iters=5),
+                "library_ms": None,
+                "bound_ms": k8_bound[0], "bound_by": k8_bound[1]}}
+        del out_buf, T, parts, U, I, M
+        torch.cuda.empty_cache()
+        for name, t in timing[label].items():
+            if name == "shape":
+                continue
+            lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+            print(f"{name} at {shape}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                  f"library {lib}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+
+    for shape in saturated:
+        U, I, M, exists = attention_case(device, *shape, seed=1, scale=10.0)
+        _, parts, _, _ = _attention_check(U, I, M, exists, "saturated", exact_argmax=True)
+        if not (parts[2] == 1.0).float().mean() > 0.99:
+            raise AssertionError("the saturated case is not saturated")
+        del U, I, M, parts
+    U, I, M, exists = attention_case(device, *nan, seed=2, scale=0.005)
+    I[0, 0, 0] = float("nan")   # row 0 of sample 0 (existing): NaN maxima
+    U[-1, -1, 0] = float("nan")  # a masked column: its column max only
+    _attention_check(U, I, M, exists, "NaN", exact_argmax=True)
+    del U, I, M
+    torch.cuda.empty_cache()
+
+    main = timing["long history"]
+    out = []
+    for name, src, call, err in (
+            ("affinity_tiles", "affinity_tiles.cu",
+             "torch.bmm(T, U^T) in f32 into a preallocated (B, P, P) tensor: the "
+             "product part only, no tanh, max or argmax", errs[0]),
+            ("affinity_finish", "affinity_finish.cu", None, errs[1])):
+        out.append({
+            "name": name, "route": "cuda", "source": f"umpr_tpu_torch/csrc/{src}",
+            "replaces": "umpr_tpu/ops/attention_pallas.py:415",
+            "also_replaces": ["umpr_tpu/ops/attention_pallas.py:167"],
+            "max_abs_err": err, **main[name], "library_call": call,
+            "shape": main["shape"], "argmax_near_ties": near,
+            "at_b10_shape": timing["B10 shape"][name]})
+    return out
+
+
 def _post(base, rows):
     body = json.dumps({"rows": rows}).encode()
     req = urllib.request.Request(f"{base}/predict", data=body,
@@ -488,10 +702,13 @@ def _counting(fn, counter):
 
 FORWARD = ("gru_input_proj", "bigru_recurrence")  # K1, K2
 GRU_BACKWARD = ("bigru_backward", "gru_input_proj_bwd")  # K3, K4
-MODULES = (gru_cuda, pool_cuda)  # every kernel wrapper of the port
+ATTENTION = ("affinity_tiles", "affinity_finish")  # K7, K8
+MODULES = (gru_cuda, pool_cuda, attention_cuda)  # every kernel wrapper of the port
 PLAIN = {gru_cuda: ("gru_input_proj_ref", "bigru_recurrence_ref",
-                    "bigru_backward_ref", "gru_input_proj_bwd_ref"),
-         pool_cuda: ("bias_relu_pool_ref", "bias_relu_pool_bwd_ref")}
+                    "bigru_backward_ref", "gru_input_proj_bwd_ref",
+                    "gru_input_proj_dx_ref"),
+         pool_cuda: ("bias_relu_pool_ref", "bias_relu_pool_bwd_ref"),
+         attention_cuda: ("affinity_tiles_ref", "affinity_finish_ref")}
 
 
 @contextlib.contextmanager
@@ -525,16 +742,49 @@ def pre_relu(predictor, ds):
     return torch.cat(outs).numpy()[:len(ds)]  # dead rows pad the last batch
 
 
-def serve_phase(device_name):
-    """UMPR-R serving at the reference widths.  Returns the launch counts
-    of the main path (HTTP requests + CSV mode)."""
-    if WORK.exists():
-        shutil.rmtree(WORK)
-    glove, csv, shard_rows = write_corpus(WORK, seed=0)
-    model_dir = WORK / "model"
-    argv = ["--review_net_only", "True", "--data_dir", str(WORK), "--word2vec_file", str(glove),
-            "--model_path", str(model_dir)]
+def subset(ds, n):
+    """The first n samples of a packed dataset."""
+    return dataclasses.replace(ds, **{f.name: getattr(ds, f.name)[:n]
+                                      for f in dataclasses.fields(ds)})
+
+
+def batch_maxima(data):
+    """(largest sentence count, largest sentence length) over the user and
+    item histories of a packed dataset or a batch; a batch's are the
+    runtime maxima that set its exists mask in training."""
+    get = data.__getitem__ if isinstance(data, dict) else lambda k: getattr(data, k)
+    return (max(int(get("u_counts").max()), int(get("i_counts").max())),
+            max(int(get("u_lengths").max()), int(get("i_lengths").max())))
+
+
+def kernel_attention(cfg):
+    """Does a batch of this config take the attention kernels K7/K8 (above
+    ops/attention.py's (B, P, P) byte threshold)?"""
+    P = cfg.max_sent_count * cfg.max_sent_length
+    return cfg.batch_size * P * P * 4 > attention.TILED_BYTES_THRESHOLD
+
+
+CPU_ROWS = 4  # rows held against the CPU where a full batch's composite would
+              # not fit it (4 * 8192^2 f32 is 1 GiB)
+
+
+def serve_phase(device_name, work=WORK, flags=(), corpus=None):
+    """UMPR-R serving (B=64, reference widths): HTTP requests and a CSV
+    pass on the card, then the same rows on the CPU with the plain
+    versions.  flags: extra CLI flags (the long-history shape); corpus:
+    write_corpus keyword arguments.  Where the card's batches take K7/K8,
+    every batch must launch them, and the first CPU_ROWS samples are held
+    against a CPU Predictor of that batch size, which takes the composite.
+    Returns the launch counts of the main path (HTTP requests + CSV
+    mode)."""
+    if work.exists():
+        shutil.rmtree(work)
+    glove, csv, shard_rows = write_corpus(work, seed=0, **(corpus or {}))
+    model_dir = work / "model"
+    argv = ["--review_net_only", "True", "--data_dir", str(work), "--word2vec_file", str(glove),
+            "--model_path", str(model_dir), *flags]
     cfg = Config(argv)  # default device: cuda
+    long_history = kernel_attention(cfg)
     w2v = Word2vec(str(glove))
     model = UMPR(ModelDims.from_config(cfg), w2v.embedding,
                  torch.Generator().manual_seed(CKPT_SEED))
@@ -554,7 +804,7 @@ def serve_phase(device_name):
             answers = [_post(base, rows) for rows in requests]
             http_s = time.perf_counter() - t0
             repeat = _post(base, requests[0])
-            out_csv = WORK / "predictions.csv"
+            out_csv = work / "predictions.csv"
             serve.main(argv + ["--input", str(csv), "--output", str(out_csv)])
     finally:
         server.shutdown()
@@ -569,9 +819,13 @@ def serve_phase(device_name):
                     for a in answers + [repeat])
     csv_pred = pd.read_csv(out_csv)["prediction"].to_numpy()
     n_batches += -(-int(np.isfinite(csv_pred).sum()) // cfg.batch_size)
+    full_ds = build_dataset(str(csv), str(work / "photos.json"), str(work / "photos"),
+                            w2v, cfg)
     print(f"HTTP: {len(requests)} /predict requests, {int(scored.sum())} of "
           f"{len(df)} rows scored at B={cfg.batch_size}, S={cfg.max_sent_count}, "
-          f"L={cfg.max_sent_length}, in {http_s:.3f} s")
+          f"L={cfg.max_sent_length} (P={cfg.max_sent_count * cfg.max_sent_length}), "
+          f"in {http_s:.3f} s; the CSV's largest history and sentence: "
+          f"{batch_maxima(full_ds)}")
     if scored.sum() <= cfg.batch_size:
         raise AssertionError("the requests did not span two batches")
     if not (http[scored] >= 0).all():
@@ -596,18 +850,22 @@ def serve_phase(device_name):
           f"card: {plain_calls[0]}; batches dispatched: {n_batches}")
     if plain_calls[0]:
         raise AssertionError("a plain version ran on the card")
-    want = dict.fromkeys(launches, 0) | dict.fromkeys(FORWARD, n_batches)
+    want = (dict.fromkeys(launches, 0) | dict.fromkeys(FORWARD, n_batches)
+            | dict.fromkeys(ATTENTION if long_history else (), n_batches))
     if launches != want:
         raise AssertionError(f"serving launches {launches}, expected {want}")
 
     # the same rows on the CPU, plain versions
-    cpu = serve.Predictor(Config(argv + ["--device", "cpu"]), w2v, str(model_dir))
-    ds = build_dataset(str(csv), str(WORK / "photos.json"),
-                             str(WORK / "photos"), w2v, cfg)
+    cpu_argv = argv + ["--device", "cpu"]
+    ds = full_ds
+    if long_history:
+        cpu_argv += ["--batch_size", str(CPU_ROWS)]
+        ds = subset(full_ds, CPU_ROWS)
+    cpu = serve.Predictor(Config(cpu_argv), w2v, str(model_dir))
     cpu_pred, rows = cpu.predict_dataset(ds)
     err = np.abs(cpu_pred - csv_pred[rows]).max()
-    print(f"card vs CPU plain versions: max abs diff {err:.3e} "
-          f"(tolerance {E2E_TOL:.0e}) over {len(rows)} samples")
+    print(f"card vs CPU plain versions (CPU batch {cpu.config.batch_size}): max abs "
+          f"diff {err:.3e} (tolerance {E2E_TOL:.0e}) over {len(rows)} samples")
     if not err <= E2E_TOL:
         raise AssertionError("card and CPU predictions disagree")
     card_pre, cpu_pre = pre_relu(predictor, ds), pre_relu(cpu, ds)
@@ -619,48 +877,53 @@ def serve_phase(device_name):
         raise AssertionError("card and CPU disagree before the ReLU")
 
     # throughput on the card: the full host path, then the device forward
-    predictor.predict_dataset(ds)
+    predictor.predict_dataset(full_ds)
     t0 = time.perf_counter()
     reps = 5
     for _ in range(reps):
-        predictor.predict_dataset(ds)
+        predictor.predict_dataset(full_ds)
     wall = (time.perf_counter() - t0) / reps
-    n_b = -(-len(ds) // cfg.batch_size)
-    batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))),
-                            predictor.device)
+    n_b = -(-len(full_ds) // cfg.batch_size)
+    batch = to_device(next(iter(BatchLoader(full_ds, cfg.batch_size))),
+                      predictor.device)
     batch["pad_maxima"] = (cfg.max_sent_count, cfg.max_sent_length,
                            cfg.max_ui_sent_count, cfg.max_sent_length)
     with torch.inference_mode():
         fwd_ms = time_cuda(lambda: predictor.model(batch))
     print(f"serving on {device_name}: predict_dataset {wall / n_b * 1e3:.3f} ms "
-          f"per B={cfg.batch_size} batch ({len(ds) / wall:.1f} samples/s, host "
-          f"clock, {len(ds)} samples); device forward {fwd_ms:.3f} ms per batch "
+          f"per B={cfg.batch_size} batch ({len(full_ds) / wall:.1f} samples/s, host "
+          f"clock, {len(full_ds)} samples); device forward {fwd_ms:.3f} ms per batch "
           f"({cfg.batch_size / fwd_ms * 1e3:.1f} samples/s, CUDA events)")
     with torch.inference_mode():
         device_breakdown(lambda: predictor.model(batch), "forward")
     return launches
 
 
-def _gru_params(model):
+def _watched_params(model):
+    """R-Net's bi-GRU weights and its affinity form M."""
     return {n: p.detach().cpu() for n, p in model.named_parameters()
-            if ".gru." in n}
+            if ".gru." in n or n.endswith("rnet.M")}
 
 
-def train_phase(device_name):
+def train_phase(device_name, work="train", flags=(), corpus=None):
     """UMPR-R training at the reference widths through the port's CLI.
+    flags, corpus: as serve_phase's.  Where the batches take K7/K8, every
+    train step and evaluation batch must launch them, and the CPU's
+    validation MSE (two more CPU forwards at that P) is not taken.
     Returns the launch counts of the main path (fit + test)."""
-    root = WORK / "train"
-    glove = write_splits(root, seed=1, shards=5)
+    root = WORK / work
+    glove = write_splits(root, seed=1, shards=5, **(corpus or {}))
     argv = ["--review_net_only", "True", "--data_dir", str(root),
             "--word2vec_file", str(glove), "--train_epochs", "2",
             "--learning_rate", "1e-3", "--eval_every", "2",
             "--model_path", str(root / "model"), "--log_path", str(root / "train.log"),
-            "--metrics_jsonl", str(root / "metrics.jsonl")]
+            "--metrics_jsonl", str(root / "metrics.jsonl"), *flags]
     with main_path_counts() as (launches, plain_calls):
         t0 = time.perf_counter()
         trainer = train_main.main(argv)  # default device: cuda
         main_s = time.perf_counter() - t0
     cfg, B = trainer.config, trainer.config.batch_size
+    long_history = kernel_attention(cfg)
     w2v = Word2vec(str(glove))
     photos = (str(root / "photos.json"), str(root / "photos"))
     ds = {s: build_dataset(str(root / f"{s}.csv"), *photos, w2v, cfg)
@@ -670,11 +933,13 @@ def train_phase(device_name):
     steps = trainer.batch_counter
     n_batches = {s: -(-len(d) // B) for s, d in ds.items()}
     eval_batches = len(evals) * n_batches["valid"] + n_batches["test"]
+    batch = next(iter(BatchLoader(ds["train"], B)))
     print(f"training: {steps} train steps over {len(ds['train'])} samples "
           f"(B={B}, S={cfg.max_sent_count}, L={cfg.max_sent_length}), "
           f"{len(evals)} validations of {len(ds['valid'])} samples, test on "
           f"{len(ds['test'])}, in {main_s:.1f} s (host clock, datasets built "
-          f"inside)")
+          f"inside); the first train batch's largest history and sentence "
+          f"(its exists mask): {batch_maxima(batch)}")
     for e in events:
         print("  " + json.dumps({k: v for k, v in e.items() if k != "ts"}))
     print(f"training path launches: {launches}; plain versions called on the "
@@ -688,50 +953,61 @@ def train_phase(device_name):
     if plain_calls[0]:
         raise AssertionError("a plain version ran on the card")
     want = (dict.fromkeys(launches, 0) | dict.fromkeys(GRU_BACKWARD, steps)
-            | dict.fromkeys(FORWARD, steps + eval_batches))
+            | dict.fromkeys(FORWARD, steps + eval_batches)
+            | dict.fromkeys(ATTENTION if long_history else (), steps + eval_batches))
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
 
-    # the GRU moved, and one step's gradients agree with the CPU
+    # the GRU and M moved, and one step's gradients agree with the CPU
     dims = ModelDims.from_config(cfg)
     init = UMPR(dims, w2v.embedding, torch.Generator().manual_seed(cfg.seed))
-    before = _gru_params(init)
+    before = _watched_params(init)
     moved = {n: (p - before[n]).abs().max().item()
-             for n, p in _gru_params(trainer.model).items()}
-    print(f"GRU weights moved by (max abs): {min(moved.values()):.3e} .. "
+             for n, p in _watched_params(trainer.model).items()}
+    print(f"GRU weights and M moved by (max abs): {min(moved.values()):.3e} .. "
           f"{max(moved.values()):.3e} over {len(moved)} tensors")
-    if len(moved) != 8 or not min(moved.values()) > 0:
-        raise AssertionError("a GRU weight did not move")
-    batch = next(iter(BatchLoader(ds["train"], B)))
-    grads = []
+    if len(moved) != 9 or not min(moved.values()) > 0:
+        raise AssertionError("a GRU weight or M did not move")
+    grads, losses = [], []
     for dev in ("cpu", trainer.device):
         model = UMPR(dims, w2v.embedding, torch.Generator().manual_seed(cfg.seed)).to(dev)
-        model(to_device(batch, dev))[1].backward()
+        loss = model(to_device(batch, dev))[1]
+        loss.backward()
+        losses.append(loss.item())
         grads.append({n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None})
+        del model, loss
     rel = {n: _rel_err(grads[1][n], g) for n, g in grads[0].items()}
     gru_rel = max(v for n, v in rel.items() if ".gru." in n)
-    print(f"one train step, card vs CPU plain versions: GRU gradients max "
-          f"relative diff {gru_rel:.3e}, all {len(rel)} parameters "
+    print(f"one train step, card vs CPU plain versions: loss {losses[1]:.6f} vs "
+          f"{losses[0]:.6f}; GRU gradients max relative diff {gru_rel:.3e}, M "
+          f"{rel['review_net.rnet.M']:.3e}, all {len(rel)} parameters "
           f"{max(rel.values()):.3e} (tolerance {GRAD_RTOL:.0e})")
-    if len(rel) != len(list(init.parameters())) - 1 or not max(rel.values()) <= GRAD_RTOL:
+    if (len(rel) != len(list(init.parameters())) - 1 or not max(rel.values()) <= GRAD_RTOL
+            or not abs(losses[1] - losses[0]) <= E2E_TOL * max(1.0, abs(losses[0]))):
         raise AssertionError("card and CPU gradients disagree")
-    cpu_mse = evaluate_mse(init, (to_device(b, "cpu")
-                                  for b in BatchLoader(ds["valid"], B)))
-    err = abs(cpu_mse - evals[0]["valid_mse"])
-    print(f"initial validation MSE: card {evals[0]['valid_mse']:.6f}, CPU "
-          f"{cpu_mse:.6f}, diff {err:.3e} (tolerance {E2E_TOL:.0e})")
-    if not err <= E2E_TOL:
-        raise AssertionError("card and CPU validation MSEs disagree")
+    if long_history:
+        print("initial validation MSE against the CPU: not taken here (two more "
+              "CPU forwards at this P); the gradient check's loss covers the forward")
+    else:
+        cpu_mse = evaluate_mse(init, (to_device(b, "cpu")
+                                      for b in BatchLoader(ds["valid"], B)))
+        err = abs(cpu_mse - evals[0]["valid_mse"])
+        print(f"initial validation MSE: card {evals[0]['valid_mse']:.6f}, CPU "
+              f"{cpu_mse:.6f}, diff {err:.3e} (tolerance {E2E_TOL:.0e})")
+        if not err <= E2E_TOL:
+            raise AssertionError("card and CPU validation MSEs disagree")
 
     # speed on the card: train steps back to back on one batch
     model, opt = trainer.model, trainer.opt
     dev_batch = to_device(batch, trainer.device)
-    step_ms = time_cuda(lambda: train_step(model, opt, dev_batch, 1e-3))
+    step_ms = time_cuda(lambda: train_step(model, opt, dev_batch, 1e-3),
+                        iters=10 if long_history else 20)
     print(f"training on {device_name}: {step_ms:.3f} ms per B={B} train step "
           f"({B / step_ms * 1e3:.1f} samples/s, CUDA events, back to back); "
           f"fit + test {main_s / steps * 1e3:.1f} ms per train step, "
-          f"evaluations and dataset builds included (host clock)")
+          f"evaluations and dataset builds included (host clock); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     device_breakdown(lambda: train_step(model, opt, dev_batch, 1e-3), "train step",
                      steps=5)
     return launches
@@ -812,7 +1088,7 @@ def full_train_phase(device_name):
         raise AssertionError("a plain version ran on the card")
     # per train step: three bi-GRU calls (R-Net, C-Net on the ui review,
     # C-Net on the histories) and one fused pool per closed block
-    want = (dict.fromkeys(FORWARD, 3 * (steps + eval_batches))
+    want = (dict.fromkeys(launches, 0) | dict.fromkeys(FORWARD, 3 * (steps + eval_batches))
             | dict.fromkeys(GRU_BACKWARD, 3 * steps)
             | {"bias_relu_pool": fused * (steps + eval_batches),
                "bias_relu_pool_bwd": fused * steps})
@@ -912,6 +1188,41 @@ def full_train_phase(device_name):
     return launches
 
 
+def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20):
+    """A gradient through ``bigru_split`` with x requiring grad, at the
+    UMPR-R shapes, on the card (K1-K4 and K9) and on the CPU (plain
+    versions).  Returns the card run's launch counts."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(N, L, E, generator=g) * 0.5
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    c_pos = torch.randn(N // S, S * L, 2 * H, generator=g)
+    c_sent = torch.randn(N, L, 2 * H, generator=g)
+    grads = {}
+    for dev in ("cpu", device):
+        gru = BiGRU(E, H, generator=torch.Generator().manual_seed(9)).to(dev)
+        xd = x.to(dev).detach().requires_grad_()  # a leaf on either device
+        with main_path_counts() as (launches, plain_calls):
+            pos, sent = bigru_split(gru, xd, lengths.to(dev), S)
+            ((pos * c_pos.to(dev)).sum() + (sent * c_sent.to(dev)).sum()).backward()
+            torch.cuda.synchronize()
+        grads[dev] = (xd.grad.cpu(), {n: p.grad.cpu() for n, p in gru.named_parameters()})
+    (card_dx, card_w), (cpu_dx, cpu_w) = grads[device], grads["cpu"]
+    dx_rel = _rel_err(card_dx, cpu_dx)
+    w_rel = max(_rel_err(card_w[n], w) for n, w in cpu_w.items())
+    print(f"bigru_split with x requiring grad (N={N}, L={L}, E={E}, H={H}) on "
+          f"{device_name}: dx card vs "
+          f"CPU max relative diff {dx_rel:.3e}, weights {w_rel:.3e} (tolerance "
+          f"{SUM_RTOL:.0e}); launches {launches}; plain versions on the card "
+          f"{plain_calls[0]}")
+    want = (dict.fromkeys(launches, 0)
+            | dict.fromkeys(FORWARD + GRU_BACKWARD + ("gru_input_proj_dx",), 1))
+    if plain_calls[0] or launches != want:
+        raise AssertionError(f"input-gradient launches {launches}, expected {want}")
+    if not (dx_rel <= SUM_RTOL and w_rel <= SUM_RTOL):
+        raise AssertionError("card and CPU input gradients disagree")
+    return launches
+
+
 def device_breakdown(fn, what, steps=10, top=10):
     """Device time by kernel over `steps` calls of fn (torch.profiler), and
     the device's busy share of the host wall time of those calls."""
@@ -992,14 +1303,26 @@ def main():
 
     with torch.no_grad():
         kernels = phase("gru kernels", kernel_phase, device)
+        kernels += phase("input-gradient kernel", input_grad_kernel_phase, device)
         kernels += phase("pool kernels", pool_kernel_phase, device)
+        kernels += phase("attention kernels", attention_kernel_phase, device)
     served = phase("UMPR-R serving", serve_phase, card)
     trained = phase("UMPR-R training", train_phase, card)
     full = phase("full UMPR training", full_train_phase, card)
+    input_grad = phase("bigru_split input gradient", input_grad_phase, card)
+    long_served = phase("long-history UMPR-R serving", serve_phase, card,
+                        WORK / "long_serve", LONG_FLAGS, LONG_CORPUS)
+    long_trained = phase("long-history UMPR-R training", train_phase, card,
+                         "long_train", LONG_FLAGS, LONG_CORPUS)
+    # each kernel's launches come from the main path that runs it
+    main_path = {"gru_input_proj_dx": input_grad, "affinity_tiles": long_trained,
+                 "affinity_finish": long_trained}
     for k in kernels:
-        k["launches"] = full[k["name"]]
-        k["launches_umpr_r_training"] = trained[k["name"]]
-        k["launches_serving"] = served[k["name"]]
+        k["launches"] = main_path.get(k["name"], full)[k["name"]]
+        for run, counts in (("umpr_r_training", trained), ("serving", served),
+                            ("long_history_serving", long_served),
+                            ("long_history_training", long_trained)):
+            k[f"launches_{run}"] = counts[k["name"]]
     print(f"phase seconds: {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

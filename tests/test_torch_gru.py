@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from umpr_tpu.ops.gru import _direction_scan, bigru_scan, init_bigru
+from umpr_tpu.ops.gru import bigru_split as jax_bigru_split
 from umpr_tpu.ops.gru_pallas import bigru_pallas_split_nodx
 from umpr_tpu_torch.convert import params_from_jax, params_to_jax
 from umpr_tpu_torch.ops import gru_cuda
@@ -190,10 +191,76 @@ def test_y_gives_the_state_before_every_valid_step(kind):
 
 
 def test_bigru_split_raises_when_x_requires_grad():
-    _, gru, x, lengths, S = _setup(9)
-    with pytest.raises(NotImplementedError, match="B4-dx"):
-        bigru_split(gru, torch.from_numpy(x).requires_grad_(),
-                    torch.from_numpy(lengths), S)
+    """x requiring grad no longer raises (the name is from before B4-dx
+    was ported): bigru_split gives dx as jax.grad does."""
+    _check_input_grad_against_jax(9)
+
+
+def test_bigru_split_input_grad_matches_jax_grad():
+    _check_input_grad_against_jax(10)
+
+
+def _check_input_grad_against_jax(seed):
+    """dx of bigru_split (K9, the emit_dxc branch of B4) and the weights'
+    grads against jax.grad of the JAX package's bigru_split with
+    use_pallas and need_dx."""
+    jparams, gru, x, lengths, S = _setup(seed)
+    c_pos, c_sent = _cotangents(seed, *x.shape[:2], S)
+
+    def loss(p, xj):
+        pos, sent = jax_bigru_split(p, xj, jnp.asarray(lengths), S,
+                                    use_pallas=True, need_dx=True)
+        return jnp.sum(pos * c_pos) + jnp.sum(sent * c_sent)
+
+    want_p, want_x = jax.grad(loss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    pos, sent = bigru_split(gru, xt, torch.from_numpy(lengths), S)
+    ((pos * torch.from_numpy(c_pos)).sum() + (sent * torch.from_numpy(c_sent)).sum()).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), **TOL)
+    got = params_to_jax({f"gru.{n}": p.grad for n, p in gru.named_parameters()})["gru"]
+    for d in ("fwd", "bwd"):
+        for k in ("w_ih", "w_hh", "bias_ih", "bias_hh"):
+            np.testing.assert_allclose(got[d][k], np.asarray(want_p[d][k]), **TOL,
+                                       err_msg=f"{d}.{k}")
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_1", "all_L"])
+def test_input_grad_plain_version_matches_autograd_through_bigru_scan(kind):
+    """K9's plain version on the plain backward's dxg is autograd's x.grad
+    through the port's bigru_scan."""
+    _, gru, x, lengths, S = _setup(11)
+    N, L, E = x.shape
+    if kind != "mixed":
+        lengths[:] = 1 if kind == "all_1" else L
+    lengths_t = torch.from_numpy(lengths)
+    xt = torch.from_numpy(x).requires_grad_()
+    c_pos, c_sent = (torch.from_numpy(c) for c in _cotangents(11, N, L, S))
+    y = port_bigru_scan(gru, xt, lengths_t)
+    ((y.view(N // S, S * L, -1) * c_pos).sum() + (y * c_sent).sum()).backward()
+    w_ih, b_ih, w_hh, b_hh = (t.detach() for t in gru.kernel_operands())
+    xg = gru_cuda.gru_input_proj_ref(xt.detach().reshape(N * L, E), w_ih, b_ih)
+    dxg, _, _ = gru_cuda.bigru_backward_ref(xg.view(N, L, -1), y.detach(), c_sent,
+                                            c_pos, lengths_t, w_hh, b_hh)
+    dx = gru_cuda.gru_input_proj_dx_ref(dxg.view(N * L, -1), w_ih).view(N, L, E)
+    torch.testing.assert_close(dx, xt.grad, **TOL)
+    # past each length nothing reaches x
+    past = torch.arange(L)[None, :] >= lengths_t[:, None]
+    assert (dx[past] == 0).all()
+
+
+def test_frozen_input_launches_no_input_gradient(monkeypatch):
+    """x without grad (the frozen embedding) never reaches K9."""
+    _, gru, x, lengths, S = _setup(12)
+    calls = []
+    monkeypatch.setattr(gru_cuda, "gru_input_proj_dx",
+                        lambda *a: calls.append(1) or gru_cuda.gru_input_proj_dx_ref(*a))
+    pos, sent = bigru_split(gru, torch.from_numpy(x), torch.from_numpy(lengths), S)
+    (pos.sum() + sent.sum()).backward()
+    assert not calls and gru.weight_ih_l0.grad is not None
+    xt = torch.from_numpy(x).requires_grad_()
+    pos, sent = bigru_split(gru, xt, torch.from_numpy(lengths), S)
+    (pos.sum() + sent.sum()).backward()
+    assert calls == [1] and xt.grad.shape == xt.shape
 
 
 def test_kernel_wrappers_raise_on_non_cpu_inputs_that_require_grad():
@@ -215,6 +282,7 @@ def test_kernel_wrappers_raise_on_non_cpu_inputs_that_require_grad():
                                         w_hh.detach(), b_hh),
         lambda: gru_cuda.gru_input_proj_bwd(torch.zeros(N * L, E, **meta),
                                             xg.view(N * L, -1).requires_grad_()),
+        lambda: gru_cuda.gru_input_proj_dx(xg.view(N * L, -1), w.t()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="BiGRUSplit"):

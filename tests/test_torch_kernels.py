@@ -1,8 +1,8 @@
-"""The CUDA kernels K1-K6 against their plain versions at ragged and full
-shapes, and the bi-GRU's and the fused pool's gradients on the card
-against the CPU.  They need the card (a CUDA kernel has no CPU mode): the
-``cuda`` fixture skips them elsewhere.  On a machine with a card (no JAX
-needed):
+"""The CUDA kernels K1-K9 against their plain versions at ragged and full
+shapes, and the bi-GRU's, the fused pool's and the affinity attention's
+gradients on the card against the CPU.  They need the card (a CUDA kernel
+has no CPU mode): the ``cuda`` fixture skips them elsewhere.  On a machine
+with a card (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -238,3 +238,140 @@ def test_pool_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         pool_cuda.bias_relu_pool(x[:, :3], b)
     with pytest.raises(RuntimeError, match="FusedBiasReluPool"):
         pool_cuda.bias_relu_pool(x.requires_grad_(), b)
+
+
+@pytest.mark.parametrize("M,G,E", [(1, 384, 50), (130, 100, 17), (0, 192, 17),
+                                   (5000, 192, 70), (51200, 384, 50)])
+def test_gru_input_proj_dx_matches_plain(cuda, M, G, E):
+    g = torch.Generator().manual_seed(M + G)
+    dxg = torch.randn(M, G, generator=g).to(cuda)
+    w = torch.randn(E, G, generator=g).to(cuda)
+    before = gru_cuda.gru_input_proj_dx.launches
+    dx = gru_cuda.gru_input_proj_dx(dxg, w)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_input_proj_dx.launches == before + 1
+    assert dx.shape == (M, E)
+    if M:
+        _close_rel(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w), 1e-5)
+    assert torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
+
+
+def test_bigru_split_input_grad_on_the_card_matches_the_cpu(cuda):
+    from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
+    g = torch.Generator().manual_seed(13)
+    N, L, E, H, S = 40, 9, 17, 64, 4
+    x = torch.randn(N, L, E, generator=g)
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    c_pos = torch.randn(N // S, S * L, 2 * H, generator=g)
+    c_sent = torch.randn(N, L, 2 * H, generator=g)
+    dx = []
+    for dev in ("cpu", cuda):
+        gru = BiGRU(E, H, generator=torch.Generator().manual_seed(4)).to(dev)
+        xd = x.to(dev).detach().requires_grad_()
+        pos, sent = bigru_split(gru, xd, lengths.to(dev), S)
+        ((pos * c_pos.to(dev)).sum() + (sent * c_sent.to(dev)).sum()).backward()
+        dx.append(xd.grad.cpu())
+    _close_rel(dx[1], dx[0], 1e-5)
+
+
+def _attention_inputs(B, P, D, kind, seed=0):
+    """U, I (B, P, D), M (D, D), exists (P,) bool on the CPU.  kind: "rand"
+    (80% existing), "all", "none" (every row and column masked), "tie"
+    (tanh exactly +-1 nearly everywhere), "nan" (a NaN in an existing row
+    of T, one in a masked column of U)."""
+    g = torch.Generator().manual_seed(seed * 1000 + B * P + D)
+    U = torch.randn(B, P, D, generator=g)
+    I = torch.randn(B, P, D, generator=g)
+    M = torch.randn(D, D, generator=g) * (10.0 if kind == "tie" else 0.005)
+    exists = torch.rand(P, generator=g) < 0.8
+    if kind == "all":
+        exists[:] = True
+    elif kind == "none":
+        exists[:] = False
+    elif kind == "nan":
+        exists[:] = True
+        exists[P // 2:] = False
+        I[0, 0, 0] = float("nan")
+        U[-1, P - 1, 0] = float("nan")
+    return U, I, M, exists
+
+
+def _same(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("B,P,D,kind", [
+    (1, 1, 128, "all"), (1, 1, 128, "none"), (2, 130, 128, "rand"), (3, 300, 100, "rand"),
+    (2, 257, 16, "all"), (1, 1000, 128, "rand"), (2, 200, 128, "none"), (2, 300, 128, "tie"),
+    (2, 260, 100, "tie"), (2, 150, 128, "nan"), (1, 129, 100, "nan")])
+def test_affinity_kernels_match_plain(cuda, B, P, D, kind):
+    """K7, then K8 on K7's partials, against their plain versions on the same
+    card inputs: P not a multiple of the 128-row tile, P = 1, B = 1, D = 100
+    and 16, every position masked, exact ties, NaN; two launches give the
+    same bits."""
+    from umpr_tpu_torch.ops import attention_cuda as ac
+    U, I, M, exists = (t.to(cuda) for t in _attention_inputs(B, P, D, kind))
+    T = I @ M
+    before = (ac.affinity_tiles.launches, ac.affinity_finish.launches)
+    parts = ac.affinity_tiles(T, U, exists)
+    out = ac.affinity_finish(parts[0], parts[1], parts[2], exists, U, I)
+    torch.cuda.synchronize()
+    assert (ac.affinity_tiles.launches, ac.affinity_finish.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    want = ac.affinity_tiles_ref(T, U, exists)
+    for got, ref in zip(parts[::2], want[::2]):  # the maxima, f32 sums in another order
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, equal_nan=True)
+    for got, ref in zip(parts[1::2], want[1::2]):  # the first argmax, exactly
+        assert torch.equal(got, ref)
+    ref_out = ac.affinity_finish_ref(parts[0], parts[1], parts[2], exists, U, I)
+    for got, ref in zip(out[:4], ref_out[:4]):  # soft_u, soft_i, atte_u, atte_i
+        scale = ref.abs().nan_to_num().max().clamp(min=1e-30)
+        torch.testing.assert_close(got / scale, ref / scale, rtol=0, atol=1e-5,
+                                   equal_nan=True)
+    _same(out[4], ref_out[4])  # colmax: the same partials, the same merge
+    assert torch.equal(out[5], ref_out[5])
+    if kind == "tie":
+        assert (parts[2] == 1.0).float().mean() > 0.99
+    if kind == "none":  # every max is -1e30, reached first at index 0
+        assert (parts[3] == 0).all() and (out[5] == 0).all()
+    if kind == "nan":
+        assert parts[2].isnan().any() and out[4].isnan().any()
+    again = ac.affinity_tiles(T, U, exists)
+    again_out = ac.affinity_finish(again[0], again[1], again[2], exists, U, I)
+    for a, b in zip((*again, *again_out), (*parts, *out)):
+        _same(a, b)
+
+
+def test_affinity_attention_grads_on_the_card_match_the_cpu(cuda):
+    """The kernel path (use_pallas on B10's shapes) forward and backward,
+    card against CPU; the backward twice gives the same bits."""
+    from umpr_tpu_torch.ops.attention import affinity_attention
+    U, I, M, exists = _attention_inputs(3, 300, 128, "rand", seed=1)
+    c = torch.randn(3, 300, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        u, i, m = (t.to(dev).detach().requires_grad_() for t in (U, I, M))
+        su, si, au, ai = affinity_attention(u, i, m, exists.to(dev), use_pallas=True)
+        ((au ** 2).sum() + (ai ** 2).sum() + (su * c.to(dev)).sum()
+         + (si ** 2).sum()).backward()
+        runs.append([t.detach().cpu() for t in (su, si, au, ai, u.grad, i.grad, m.grad)])
+    for got, want in zip(runs[1], runs[0]):
+        _close_rel(got, want, 1e-4)
+    for a, b in zip(runs[1], runs[2]):
+        assert torch.equal(a, b)
+
+
+def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from umpr_tpu_torch.ops import attention_cuda as ac
+    T = torch.randn(2, 10, 8, device=cuda)
+    e = torch.ones(10, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        ac.affinity_tiles(T.double(), T.double(), e)
+    with pytest.raises(TypeError):
+        ac.affinity_tiles(T, T, e.float())
+    with pytest.raises(ValueError):
+        ac.affinity_tiles(T, T[:, :9].contiguous(), e)
+    with pytest.raises(ValueError, match="contiguous"):
+        ac.affinity_tiles(T.transpose(1, 2).contiguous().transpose(1, 2), T, e)
+    with pytest.raises(RuntimeError, match="AffinityAttention"):
+        ac.affinity_tiles(T.requires_grad_(), T, e)

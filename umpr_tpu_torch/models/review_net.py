@@ -21,9 +21,13 @@ class RNet(nn.Module):
         # learned affinity bilinear form M (2u, 2u), torch.randn init
         self.M = nn.Parameter(randn((2 * gru_size, 2 * gru_size), generator))
 
-    def forward(self, both_emb, u_lengths, i_lengths, exists):
+    def forward(self, both_emb, u_lengths, i_lengths, exists, attention_pallas=None):
         """both_emb: (2B, S, L, E), user histories stacked over item
-        histories; *_lengths: (B, S) int32; exists: (S, L) bool.
+        histories; *_lengths: (B, S) int32; exists: (S, L) bool;
+        attention_pallas: True asks for the attention kernels where the
+        JAX package's use_pallas takes its whole-tile kernel (B10), as
+        umpr_tpu/models/review_net.py:31-64 does; above 4 GiB of (B, P, P)
+        they are taken anyway.
 
         Returns y_sent (2*B*S, L, 2u), soft_u, soft_i (B, S*L) and
         atte_u, atte_i (B, 2u).  Eq. 3-4."""
@@ -33,7 +37,7 @@ class RNet(nn.Module):
         y_pos, y_sent = bigru_split(self.gru, both_emb.reshape(B2 * S, L, E),
                                     both_len, S)
         soft_u, soft_i, atte_u, atte_i = affinity_attention(
-            y_pos[:B], y_pos[B:], self.M, exists.reshape(S * L))
+            y_pos[:B], y_pos[B:], self.M, exists.reshape(S * L), bool(attention_pallas))
         return y_sent, soft_u, soft_i, atte_u, atte_i
 
 
@@ -90,12 +94,14 @@ class ReviewNet(nn.Module):
         self.linear_i = linear(4 * gru_size, 2 * gru_size, bias=False,
                                generator=generator)
 
-    def forward(self, both_emb, u_lengths, i_lengths, exists):
+    def forward(self, both_emb, u_lengths, i_lengths, exists, attention_pallas=None):
         """both_emb: (2B, S, L, E) user histories stacked over item
-        histories -> (B, 2u) textual-matching representation (eq. 7-8)."""
+        histories -> (B, 2u) textual-matching representation (eq. 7-8).
+        attention_pallas: passed to RNet (UMPR.forward passes none, as
+        umpr_tpu/models/umpr.py does)."""
         S = both_emb.shape[1]
         y_sent, soft_u, soft_i, atte_u, atte_i = self.rnet(
-            both_emb, u_lengths, i_lengths, exists)
+            both_emb, u_lengths, i_lengths, exists, attention_pallas)
         # token mask of row 0 == that of any existing sentence row
         sent_u, sent_i = snet_pair(self.snet_u, self.snet_i, y_sent,
                                    soft_u, soft_i, S, exists[0])

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("gru_input_proj", "bigru_recurrence", "bigru_backward",
-           "gru_input_proj_bwd", "bias_relu_pool", "bias_relu_pool_bwd")
+           "gru_input_proj_bwd", "gru_input_proj_dx", "bias_relu_pool",
+           "bias_relu_pool_bwd", "affinity_tiles", "affinity_finish")
 
 _lock = threading.Lock()
 _libs = {}  # name -> loaded ctypes.CDLL

@@ -84,11 +84,13 @@ class BiGRUSplit(torch.autograd.Function):
 
     forward: K1 then K2 on detached tensors, returning (y_pos, y_sent), y_pos
     a view of y_sent's memory.  backward: K3 sums the two cotangents (B7)
-    and runs the reverse sweep (B2), K4 gives dW_ih and db_ih (B4).  It
-    returns the grads of (w_ih, b_ih, w_hh, b_hh); the cat/transpose of
-    ``BiGRU.kernel_operands`` carries them back to the nn.GRU-layout
-    parameters.  There is no input gradient: x is the frozen embedding.
-    On the CPU every step runs the kernels' plain versions."""
+    and runs the reverse sweep (B2), K4 gives dW_ih and db_ih (B4), and K9
+    the input gradient dx (B4's dxc) only when x requires grad: the
+    PyTorch form of the JAX package's need_dx.  It returns the grads of
+    (x, w_ih, b_ih, w_hh, b_hh); the cat/transpose of
+    ``BiGRU.kernel_operands`` carries the weights' back to the
+    nn.GRU-layout parameters.  On the CPU every step runs the kernels'
+    plain versions."""
 
     @staticmethod
     def forward(ctx, x, lengths, S, w_ih, b_ih, w_hh, b_hh):
@@ -97,19 +99,23 @@ class BiGRUSplit(torch.autograd.Function):
         w_ih, b_ih, w_hh, b_hh = (t.detach() for t in (w_ih, b_ih, w_hh, b_hh))
         xg = gru_cuda.gru_input_proj(x2, w_ih, b_ih)
         y = gru_cuda.bigru_recurrence(xg.view(N, L, -1), lengths, w_hh, b_hh)
-        ctx.save_for_backward(x2, xg, y, lengths, w_hh, b_hh)
+        ctx.save_for_backward(x2, xg, y, lengths, w_ih, w_hh, b_hh)
         return y.view(N // S, S * L, y.shape[-1]), y
 
     @staticmethod
     def backward(ctx, dy_pos, dy_sent):
         # y is an output of this node: saved, it comes back requiring grad
-        x2, xg, y, lengths, w_hh, b_hh = (t.detach() for t in ctx.saved_tensors)
+        x2, xg, y, lengths, w_ih, w_hh, b_hh = (t.detach() for t in ctx.saved_tensors)
         N, L, _ = y.shape
         dxg, dw_hh, db_hh = gru_cuda.bigru_backward(
             xg.view(N, L, -1), y, dy_sent.contiguous(), dy_pos.contiguous(),
             lengths, w_hh, b_hh)
-        dw_ih, db_ih = gru_cuda.gru_input_proj_bwd(x2, dxg.view(N * L, -1))
-        return None, None, None, dw_ih, db_ih, dw_hh, db_hh
+        dxg = dxg.view(N * L, -1)
+        dw_ih, db_ih = gru_cuda.gru_input_proj_bwd(x2, dxg)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = gru_cuda.gru_input_proj_dx(dxg, w_ih).view(N, L, -1)
+        return dx, None, None, dw_ih, db_ih, dw_hh, db_hh
 
 
 def bigru_split(gru, x, lengths, S):
@@ -117,13 +123,10 @@ def bigru_split(gru, x, lengths, S):
       y_pos  (N/S, S*L, 2H) -- the affinity-attention positions layout;
       y_sent (N, L, 2H)     -- the per-sentence S-Net layout.
     y_pos is a view of y_sent's memory.  Differentiable in the GRU's
-    parameters through BiGRUSplit, on every device.
+    parameters through BiGRUSplit, on every device, and in x when x
+    requires grad.
 
     x: (N, L, E) sentence rows, a free view of the (B, S, L, E) embedding
-    lookup (frozen: x must not require grad); lengths: (N,) int32."""
-    if x.requires_grad:
-        raise NotImplementedError(
-            "bigru_split: x requires grad, but the input gradient (the dxc "
-            "branch of B4, ROADMAP B4-dx) is not ported; every UMPR config "
-            "feeds the frozen embedding")
+    lookup (the frozen embedding in every UMPR config); lengths: (N,)
+    int32."""
     return BiGRUSplit.apply(x, lengths, S, *gru.kernel_operands())

@@ -1,7 +1,8 @@
 """The bi-GRU kernels: wrappers, plain versions, launch counts.
 
-Four CUDA C++ kernels for Hopper carry the Pallas GRU stack of the JAX
-package (``bigru_pallas_split_nodx``, umpr_tpu/ops/gru_pallas.py).
+Five CUDA C++ kernels for Hopper carry the Pallas GRU stack of the JAX
+package (``bigru_pallas_split`` and ``bigru_pallas_split_nodx``,
+umpr_tpu/ops/gru_pallas.py).
 Forward:
 
 - K1 ``gru_input_proj`` (csrc/gru_input_proj.cu) replaces B5 (stack-pad)
@@ -10,13 +11,17 @@ Forward:
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
   time, exact zeros past each length.
 
-Backward (the frozen-embedding case, no input gradient):
+Backward:
 
 - K3 ``bigru_backward`` (csrc/bigru_backward.cu) replaces B7 (the sum of
   the two output cotangents) and B2 (the reverse sweep): dxg in true time,
   dW_hh and db_hh; the states come from y, so K2 emits no ``hs``;
 - K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
-  with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg).
+  with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg);
+- K9 ``gru_input_proj_dx`` (csrc/gru_input_proj_dx.cu) replaces B4's
+  ``emit_dxc=True`` branch: the input gradient dx = dxg @ W_ih^T, launched
+  only when x requires grad (every UMPR config feeds the frozen
+  embedding, and pays nothing for it).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and only
 then.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -118,6 +123,11 @@ def gru_input_proj_bwd_ref(x, dxg):
     return x.t() @ dxg, dxg.sum(0)
 
 
+def gru_input_proj_dx_ref(dxg, w):
+    """Plain version of K9: dxg (M, 6H), w (E, 6H) -> dx (M, E)."""
+    return dxg @ w.t()
+
+
 def _check(name, t, dtype, ndim, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -129,14 +139,15 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _device_kernel(name, *tensors):
+def _device_kernel(name, *tensors, node="ops.gru.BiGRUSplit"):
     """For a non-CPU call: raise unless the tensors are CUDA tensors that
-    need no graph (a kernel's output would silently cut it)."""
+    need no graph (a kernel's output would silently cut it); `node` is the
+    autograd node that gives the kernel its backward."""
     if any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, and the kernel's output would "
-            "carry no graph; call it through ops.gru.BiGRUSplit, which "
-            "gives the kernels their backward")
+            f"carry no graph; call it through {node}, which gives the "
+            "kernels their backward")
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {tensors[0].device}")
 
@@ -284,7 +295,33 @@ def gru_input_proj_bwd(x, dxg):
 
 gru_input_proj_bwd.launches = 0
 
-KERNELS = (gru_input_proj, bigru_recurrence, bigru_backward, gru_input_proj_bwd)
+
+def gru_input_proj_dx(dxg, w):
+    """K9: dxg (M, 6H) f32, w (E, 6H) f32 (the packed W_ih) -> dx (M, E)
+    f32."""
+    if dxg.device.type == "cpu":
+        return gru_input_proj_dx_ref(dxg, w)
+    _device_kernel("gru_input_proj_dx", dxg, w)
+    _check("dxg", dxg, torch.float32, 2, dxg.device)
+    _check("w", w, torch.float32, 2, dxg.device)
+    M, G = dxg.shape
+    E = w.shape[0]
+    if w.shape[1] != G:
+        raise ValueError(f"gru_input_proj_dx: dxg {tuple(dxg.shape)} and w "
+                         f"{tuple(w.shape)} differ in 6H")
+    if M > 65535 * 64:
+        raise ValueError(f"gru_input_proj_dx: {M} rows exceed the grid")
+    dx = torch.empty(M, E, device=dxg.device, dtype=torch.float32)
+    _launch("gru_input_proj_dx", [_P] * 3 + [_I] * 3 + [_P],
+            dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M, G, E)
+    gru_input_proj_dx.launches += 1
+    return dx
+
+
+gru_input_proj_dx.launches = 0
+
+KERNELS = (gru_input_proj, bigru_recurrence, bigru_backward, gru_input_proj_bwd,
+           gru_input_proj_dx)
 
 
 def reset_launches():
