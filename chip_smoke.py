@@ -62,6 +62,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -91,10 +92,12 @@ from umpr_tpu_torch.train.step import evaluate_mse, train_step
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FMA (non-tensor
-# core) FLOP/s, at the full 700 W power limit
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FMA (non-tensor
+# core) FLOP/s and dense TF32 tensor-core FLOP/s, at the full 700 W power
+# limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 K1_TOL = 1e-5  # f32 sums of 50 products in another order
 K2_TOL = 1e-5  # masked GRU tolerance of PARITY.md, f32 over 20 steps
@@ -190,10 +193,82 @@ def time_cuda(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes, flops):
-    """Least time on the card in ms, and what sets it."""
+def profile_device(fn, steps):
+    """fn once to warm up, then `steps` calls under torch.profiler: (the
+    kernels' key averages, host wall ms per call, all key averages).
+    Device-side kernel events only: the CPU ops that launched them carry
+    the same time again, and a user annotation's device span (the
+    optimizer's "Optimizer.step#...") covers kernels counted already."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    # the tracer is already running through one traced-and-dropped call
+    # when the window opens, so a short window's first launches are not
+    # lost to its start-up (the step breakdowns count every K7 launch);
+    # a window of one-kernel calls still loses one (see device_ms)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn()
+            if i == steps - 1:  # the window closes at this step(): all of it done
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            prof.step()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    return kernels, wall_ms, events
+
+
+def device_ms(fn, steps=20):
+    """Device time per call of fn: its kernels' time under torch.profiler,
+    without the host's share that time_cuda's back-to-back calls may
+    measure.  None where the profiler recorded no device time.
+
+    Each kernel counts its mean duration times its launches per call, its
+    count over the window / `steps` rounded: every call of fn launches the
+    same kernels, and a window of calls that launch one kernel each loses
+    one launch's record (K7 timed 5 times read as 4 launches' time), which
+    a total / `steps` would count as time the kernel did not take."""
+    kernels, _, _ = profile_device(fn, steps)
+    if not kernels:
+        return None
+    return sum(e.self_device_time_total / e.count / 1e3 * max(1, round(e.count / steps))
+               for e in kernels)
+
+
+def timed(kernel, plain, library, iters=20, plain_iters=20, lib_iters=20):
+    """The timing keys of a kernel row: ms, plain_ms and library_ms (CUDA
+    events over back-to-back calls), device_ms and library_device_ms
+    (torch.profiler); library None where no one PyTorch call computes the
+    same function."""
+    out = {"ms": time_cuda(kernel, iters=iters),
+           "plain_ms": time_cuda(plain, iters=plain_iters, warmup=3 if plain_iters >= 5 else 1),
+           "device_ms": device_ms(kernel, steps=iters),
+           "library_ms": None, "library_device_ms": None}
+    if library is not None:
+        out["library_ms"] = time_cuda(library, iters=lib_iters)
+        out["library_device_ms"] = device_ms(library, steps=lib_iters)
+    return out
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def bound(n_bytes, flops, tf32_flops=0):
+    """Least time on the card in ms, and what sets it: `flops` f32
+    operations on the CUDA cores, `tf32_flops` TF32 products on the tensor
+    cores (3xTF32 counts its three)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + tf32_flops / TF32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -212,21 +287,25 @@ def kernel_phase(device, N=2560, L=20, E=50, H=64):
     xg = gru_cuda.gru_input_proj(x2, w_ih, b_ih)
     torch.cuda.synchronize()
     err = (xg - gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih)).abs().max().item()
-    print(f"K1 gru_input_proj: max|kernel - plain| = {err:.3e} (tolerance {K1_TOL:.0e})")
-    if not err <= K1_TOL:
+    same = torch.equal(gru_cuda.gru_input_proj(x2, w_ih, b_ih), xg)
+    print(f"K1 gru_input_proj: max|kernel - plain| = {err:.3e} (tolerance {K1_TOL:.0e}); "
+          f"second launch same bits {same}")
+    if not (err <= K1_TOL and same):
         raise AssertionError("K1 disagrees with its plain version")
+    # 3xTF32 products on the tensor cores, the bias adds on the CUDA cores
+    M = x2.shape[0]
     t_bound, by = bound(4 * (x2.numel() + w_ih.numel() + b_ih.numel() + xg.numel()),
-                        2 * x2.shape[0] * E * 6 * H)
+                        M * 6 * H, tf32_flops=3 * 2 * M * E * 6 * H)
     rows.append({
         "name": "gru_input_proj", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/gru_input_proj.cu",
         "replaces": "umpr_tpu/ops/gru_pallas.py:319",
         "also_replaces": ["umpr_tpu/ops/gru_pallas.py:541"],
         "max_abs_err": err,
-        "ms": time_cuda(lambda: gru_cuda.gru_input_proj(x2, w_ih, b_ih)),
-        "plain_ms": time_cuda(lambda: gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih)),
+        **timed(lambda: gru_cuda.gru_input_proj(x2, w_ih, b_ih),
+                lambda: gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih),
+                lambda: torch.addmm(b_ih, x2, w_ih)),
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": time_cuda(lambda: torch.addmm(b_ih, x2, w_ih)),
         "library_call": "torch.addmm"})
 
     xg = xg.view(N, L, 6 * H)
@@ -262,18 +341,26 @@ def kernel_phase(device, N=2560, L=20, E=50, H=64):
         "replaces": "umpr_tpu/ops/gru_pallas.py:205",
         "also_replaces": ["umpr_tpu/ops/gru_pallas.py:463"],
         "max_abs_err": err,
-        "ms": time_cuda(lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)),
-        "plain_ms": time_cuda(
-            lambda: gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), iters=5),
+        **timed(lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh),
+                lambda: gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), library,
+                plain_iters=5),
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": time_cuda(library),
         "library_call": "torch.nn.GRU(bidirectional) on pack_padded_sequence"})
     rows += backward_kernel_phase(x, xg, y, lengths, gru, lib)
     for r in rows:
-        print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-              f"{r['library_call']} {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+        print_row(r)
     return rows
+
+
+def print_row(r, where=""):
+    """A kernel row's times: CUDA events over back-to-back calls (ms) and
+    the profiler's device time (device_ms), beside the bound."""
+    share = (f", device time at {r['bound_ms'] / r['device_ms']:.1%} of the bound"
+             if r["device_ms"] else "")
+    print(f"{r['name']}{where}: {r['ms']:.4f} ms, device {_ms(r['device_ms'])} ms (plain "
+          f"{r['plain_ms']:.4f}; {r['library_call']} {_ms(r['library_ms'])}, device "
+          f"{_ms(r['library_device_ms'])}); bound {r['bound_ms']:.4f} by "
+          f"{r['bound_by']}{share}")
 
 
 def _rel_err(got, want):
@@ -314,9 +401,11 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
     err4 = max((dw_ih - ref4[0]).abs().max().item(),
                (db_ih - ref4[1]).abs().max().item())
     rel4 = max(_rel_err(dw_ih, ref4[0]), _rel_err(db_ih, ref4[1]))
+    same4 = all(torch.equal(a, b) for a, b in zip(gru_cuda.gru_input_proj_bwd(x2, dxg2),
+                                                  (dw_ih, db_ih)))
     print(f"K4 gru_input_proj_bwd: max|kernel - plain| = {err4:.3e}, relative "
-          f"{rel4:.3e} (tolerance {SUM_RTOL:.0e})")
-    if not rel4 <= SUM_RTOL:
+          f"{rel4:.3e} (tolerance {SUM_RTOL:.0e}); second launch same bits {same4}")
+    if not (rel4 <= SUM_RTOL and same4):
         raise AssertionError("K4 disagrees with its plain version")
 
     # yardstick: cuDNN's packed bidirectional GRU, gradient of its weights
@@ -343,7 +432,7 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
         cudnn_rel = max(_rel_err(ours[n], lib_grads[n]) for n in ours)
         print(f"K3+K4 vs cuDNN packed GRU weight gradients: max relative diff "
               f"{cudnn_rel:.3e}")
-        lib_ms = time_cuda(library)
+        lib_ms, lib_device_ms = time_cuda(library), device_ms(library)
 
     # this run's lengths: each direction reads xg, h_prev (y) and both
     # cotangents only at valid steps and does three (H x 3H) products there
@@ -358,27 +447,28 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
         "replaces": "umpr_tpu/ops/gru_pallas.py:698",
         "also_replaces": ["umpr_tpu/ops/gru_pallas.py:501"],
         "max_abs_err": err, "max_rel_err_dw_db": rel,
-        "ms": time_cuda(lambda: gru_cuda.bigru_backward(
-            xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)),
-        "plain_ms": time_cuda(lambda: gru_cuda.bigru_backward_ref(
-            xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh), iters=3, warmup=1),
+        **timed(lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
+                lambda: gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh,
+                                                    b_hh), None, plain_iters=3),
+        "library_ms": lib_ms, "library_device_ms": lib_device_ms,
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": lib_ms,
         "library_call": "torch.autograd.grad of nn.GRU(bidirectional) on "
                         "pack_padded_sequence w.r.t. its weights (projection "
                         "backward included)"})
     M = N * L
+    # 3xTF32 products on the tensor cores, db's adds on the CUDA cores
     t_bound, by = bound(4 * (x2.numel() + dxg2.numel() + dw_ih.numel() + db_ih.numel()),
-                        2 * M * E * 6 * H + M * 6 * H)
+                        M * 6 * H, tf32_flops=3 * 2 * M * E * 6 * H)
     rows.append({
         "name": "gru_input_proj_bwd", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/gru_input_proj_bwd.cu",
         "replaces": "umpr_tpu/ops/gru_pallas.py:394",
         "max_abs_err": err4, "max_rel_err": rel4,
-        "ms": time_cuda(lambda: gru_cuda.gru_input_proj_bwd(x2, dxg2)),
-        "plain_ms": time_cuda(lambda: gru_cuda.gru_input_proj_bwd_ref(x2, dxg2)),
+        **timed(lambda: gru_cuda.gru_input_proj_bwd(x2, dxg2),
+                lambda: gru_cuda.gru_input_proj_bwd_ref(x2, dxg2),
+                lambda: (x2.t() @ dxg2, dxg2.sum(0))),
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": time_cuda(lambda: (x2.t() @ dxg2, dxg2.sum(0))),
+        "partials": gru_cuda.proj_bwd_chunks(M)[1],
         "library_call": "x.T @ dxg and dxg.sum(0)"})
     return rows
 
@@ -408,13 +498,12 @@ def input_grad_kernel_phase(device, M=51200, E=50, H=64):
         "replaces": "umpr_tpu/ops/gru_pallas.py:394",
         "replaces_branch": "emit_dxc=True",
         "max_abs_err": err, "max_rel_err": rel,
-        "ms": time_cuda(lambda: gru_cuda.gru_input_proj_dx(dxg, w)),
-        "plain_ms": time_cuda(lambda: gru_cuda.gru_input_proj_dx_ref(dxg, w)),
+        **timed(lambda: gru_cuda.gru_input_proj_dx(dxg, w),
+                lambda: gru_cuda.gru_input_proj_dx_ref(dxg, w),
+                lambda: torch.mm(dxg, w.t())),
         "bound_ms": t_bound, "bound_by": by,
-        "library_ms": time_cuda(lambda: torch.mm(dxg, w.t())),
         "library_call": "torch.mm(dxg, w_ih.t())"}
-    print(f"gru_input_proj_dx: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-          f"{row['library_call']} {row['library_ms']:.4f}, bound {t_bound:.4f} by {by})")
+    print_row(row)
     return [row]
 
 
@@ -488,9 +577,8 @@ def pool_kernel_phase(device, shapes=POOL_SHAPES):
                  bound(4 * (2 * n_out + n_in + C) + n_out, 8 * n_out)))
         for name, kernel, plain, library, (t_bound, by) in rows:
             per_shape[name].append({
-                "x": list(shape), "ms": time_cuda(kernel, iters=10),
-                "plain_ms": time_cuda(plain, iters=3, warmup=1),
-                "library_ms": time_cuda(library, iters=10),
+                "x": list(shape),
+                **timed(kernel, plain, library, iters=10, plain_iters=3, lib_iters=10),
                 "bound_ms": t_bound, "bound_by": by})
         del x, dyp, yp, idx, dx, xr, br, out, dout
         torch.cuda.empty_cache()
@@ -503,19 +591,19 @@ def pool_kernel_phase(device, shapes=POOL_SHAPES):
              "umpr_tpu/ops/pool_pallas.py:152",
              "torch.autograd.grad of that max_pool2d(relu(x + b)) w.r.t. x and b")):
         parts = per_shape[name]
-        total = {k: sum(p[k] for p in parts)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        total = {k: None if any(p[k] is None for p in parts) else sum(p[k] for p in parts)
+                 for k in ("ms", "plain_ms", "device_ms", "library_ms", "library_device_ms",
+                           "bound_ms")}
         kernel_rows.append({
             "name": name, "route": "cuda", "source": f"umpr_tpu_torch/csrc/{src}",
             "replaces": replaces, "max_abs_err": errs[name], **total,
             "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in parts)
             else "operations",
             "library_call": call, "per_shape": parts})
-        print(f"{name}: {total['ms']:.4f} ms per train step over {len(parts)} shapes "
-              f"(plain {total['plain_ms']:.4f}, library {total['library_ms']:.4f}, "
-              f"bound {total['bound_ms']:.4f}); per shape "
-              + ", ".join(f"{p['x']}: {p['ms']:.4f} vs bound {p['bound_ms']:.4f}"
-                          for p in parts))
+        print_row(kernel_rows[-1], f" per train step over {len(parts)} shapes")
+        print("  per shape " + ", ".join(
+            f"{p['x']}: {p['ms']:.4f}, device {_ms(p['device_ms'])} vs bound "
+            f"{p['bound_ms']:.4f}" for p in parts))
     return kernel_rows
 
 
@@ -631,28 +719,26 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
         timing[label] = {
             "shape": list(shape),
             "affinity_tiles": {
-                "ms": time_cuda(lambda: attention_cuda.affinity_tiles(T, U, exists),
-                                iters=5, warmup=1),
-                "plain_ms": time_cuda(lambda: attention_cuda.affinity_tiles_ref(T, U, exists),
-                                      iters=2, warmup=1),
-                "library_ms": time_cuda(lambda: torch.bmm(T, U.transpose(1, 2), out=out_buf),
-                                        iters=3, warmup=1),
+                **timed(lambda: attention_cuda.affinity_tiles(T, U, exists),
+                        lambda: attention_cuda.affinity_tiles_ref(T, U, exists),
+                        lambda: torch.bmm(T, U.transpose(1, 2), out=out_buf),
+                        iters=5, plain_iters=2, lib_iters=3),
                 "bound_ms": k7_bound[0], "bound_by": k7_bound[1]},
             "affinity_finish": {
-                "ms": time_cuda(lambda: attention_cuda.affinity_finish(
-                    *parts[:3], exists, U, I), iters=10),
-                "plain_ms": time_cuda(lambda: attention_cuda.affinity_finish_ref(
-                    *parts[:3], exists, U, I), iters=5),
-                "library_ms": None,
+                **timed(lambda: attention_cuda.affinity_finish(*parts[:3], exists, U, I),
+                        lambda: attention_cuda.affinity_finish_ref(*parts[:3], exists, U, I),
+                        None, iters=10, plain_iters=5),
                 "bound_ms": k8_bound[0], "bound_by": k8_bound[1]}}
         del out_buf, T, parts, U, I, M
         torch.cuda.empty_cache()
         for name, t in timing[label].items():
             if name == "shape":
                 continue
-            lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-            print(f"{name} at {shape}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-                  f"library {lib}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+            lib = ("none" if name == "affinity_finish" else
+                   f"{_ms(t['library_ms'])}, device {_ms(t['library_device_ms'])}")
+            print(f"{name} at {shape}: {t['ms']:.4f} ms, device {_ms(t['device_ms'])} (plain "
+                  f"{t['plain_ms']:.4f}, library {lib}), bound {t['bound_ms']:.4f} by "
+                  f"{t['bound_by']}")
 
     for shape in saturated:
         U, I, M, exists = attention_case(device, *shape, seed=1, scale=10.0)
@@ -1223,29 +1309,20 @@ def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20)
     return launches
 
 
+def port_kernel_names():
+    """The names of the port's CUDA kernels, read from csrc/*.cu."""
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    return {name for src in _build.CSRC.glob("*.cu")
+            for name in pattern.findall(src.read_text())}
+
+
 def device_breakdown(fn, what, steps=10, top=10):
     """Device time by kernel over `steps` calls of fn (torch.profiler), and
-    the device's busy share of the host wall time of those calls."""
+    the device's busy share of the host wall time of those calls: the
+    `top` kernels, then the port's own kernels wherever they rank."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device-side kernel events only: the CPU ops that launched them carry
-    # the same time again, and a user annotation's device span (the
-    # optimizer's "Optimizer.step#...") covers kernels counted already
-    events = prof.key_averages()
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
-                      for e in events
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0
-                      and not getattr(e, "is_user_annotation", False)
-                      and not e.key.startswith("Optimizer.")),
+    kernels, wall_ms, events = profile_device(fn, steps)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps) for e in kernels),
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in kernels)
     if not kernels:
@@ -1257,6 +1334,10 @@ def device_breakdown(fn, what, steps=10, top=10):
           f"{1 - busy / wall_ms:.1%}), {len(kernels)} kernels")
     for name, ms in kernels[:top]:
         print(f"  {ms:8.4f} ms  {ms / busy:6.1%}  {name[:90]}")
+    ours = port_kernel_names()
+    for name, ms in kernels[top:]:
+        if any(k in name for k in ours):
+            print(f"  {ms:8.4f} ms  {ms / busy:6.1%}  {name[:90]}")
     host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count // steps)
                    for e in events if e.device_type == DeviceType.CPU),
                   key=lambda kv: -kv[1])

@@ -323,3 +323,40 @@ def test_kernel_operands_are_cached_without_autograd_and_follow_updates():
     # with autograd the operands are packed anew and carry the graph
     w_ih = gru.kernel_operands()[0]
     assert w_ih.requires_grad and w_ih is not again[0]
+
+
+@pytest.mark.parametrize("M", [0, 1, 31, 32, 33, 5000, 51200, 107008, 107009, 1048576,
+                               4198343])
+def test_proj_bwd_chunks_depend_on_m_alone_and_cover_every_row_once(M):
+    """K4's split-K chunks: rows per chunk a multiple of the stage, at most
+    PROJ_BWD_MAX_ROWS; the chunks [c * rows, (c + 1) * rows) cut [0, M) into
+    disjoint pieces, none empty; nothing but M goes in (the bits of the
+    fixed-order sum must not depend on the card)."""
+    import inspect
+    assert list(inspect.signature(gru_cuda.proj_bwd_chunks).parameters) == ["M"]
+    rows, chunks = gru_cuda.proj_bwd_chunks(M)
+    assert gru_cuda.proj_bwd_chunks(M) == (rows, chunks)
+    assert rows % gru_cuda.PROJ_BWD_STEP == 0
+    assert 0 < rows <= gru_cuda.PROJ_BWD_MAX_ROWS
+    assert chunks >= 1
+    if M == 0:
+        assert chunks == 1  # one block writes the zero partial
+        return
+    assert (chunks - 1) * rows < M <= chunks * rows  # the last chunk is not empty
+    covered = np.zeros(M, dtype=np.int64)
+    for c in range(chunks):
+        covered[c * rows:min(M, (c + 1) * rows)] += 1
+    assert (covered == 1).all()
+
+
+def test_proj_bwd_chunks_fill_the_card_and_bound_the_partials():
+    """At the UMPR-R shapes (M = 51,200, E = 50, 6H = 384: 3 column tiles
+    of 128) K4's grid fills an H100's 132 SMs, at most 2 blocks each; at
+    the long-history 1,048,576 rows the partials stay under 10% of dxg's
+    bytes."""
+    E, G = 50, 384
+    col_tiles = -(-G // 128)
+    _, chunks = gru_cuda.proj_bwd_chunks(51200)
+    assert 132 <= chunks * col_tiles <= 2 * 132
+    _, chunks = gru_cuda.proj_bwd_chunks(1_048_576)
+    assert chunks * E * G <= 0.10 * 1_048_576 * G

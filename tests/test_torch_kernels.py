@@ -21,16 +21,43 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("M,E,N", [(1, 50, 384), (130, 17, 100), (51200, 50, 384)])
+@pytest.mark.parametrize("M,E,N", [(1, 50, 384), (130, 17, 100), (130, 17, 102),
+                                   (51200, 50, 384), (1000, 300, 384), (1000, 400, 384),
+                                   (3000, 520, 102), (1048576, 50, 384)])
 def test_gru_input_proj_matches_plain(cuda, M, E, N):
+    """N = 102 (odd H): an odd row length, stored one float at a time;
+    E = 300 and 400 take the mma.sync kernel (word2vec widths), E = 520
+    the one that reads its fragments from global memory; w is scaled so
+    that every case's sums have the spread of E = 50's.  Two launches give
+    the same bits."""
     g = torch.Generator().manual_seed(M)
     x, w, b = (torch.randn(s, generator=g).to(cuda) for s in ((M, E), (E, N), (N,)))
+    w *= min(1.0, (50 / E) ** 0.5)
     before = gru_cuda.gru_input_proj.launches
     out = gru_cuda.gru_input_proj(x, w, b)
     torch.cuda.synchronize()
     assert gru_cuda.gru_input_proj.launches == before + 1
     torch.testing.assert_close(out, gru_cuda.gru_input_proj_ref(x, w, b),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
+
+
+def test_gru_input_proj_past_the_old_grid_cap(cuda):
+    """4,194,240 rows (65,535 x 64) was the old kernel's grid cap; the
+    persistent grid has none.  Sampled row slices against the plain
+    version, the cap's neighbourhood among them."""
+    M, E, N, cap = 4_194_240 + 4_103, 50, 384, 4_194_240
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(M, E, generator=g, device=cuda)
+    w = torch.randn(E, N, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    out = gru_cuda.gru_input_proj(x, w, b)
+    torch.cuda.synchronize()
+    for lo in (0, M // 2, cap - 700, M - 1500):
+        rows = slice(lo, lo + 1500)
+        torch.testing.assert_close(out[rows], gru_cuda.gru_input_proj_ref(x[rows], w, b),
+                                   rtol=1e-5, atol=1e-5)
+    assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
 
 
 @pytest.mark.parametrize("N,L,H", [(1, 1, 64), (37, 5, 32), (300, 20, 64), (50, 9, 128)])
@@ -101,9 +128,13 @@ def test_bigru_backward_matches_plain(cuda, N, L, H, lengths_kind):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("M,E,G", [(1, 50, 384), (130, 17, 100), (0, 17, 192),
-                                   (5000, 17, 192), (51200, 50, 384)])
+@pytest.mark.parametrize("M,E,G", [(1, 50, 384), (130, 17, 100), (130, 17, 102), (0, 17, 192),
+                                   (5000, 17, 192), (51200, 50, 384), (1000, 300, 384),
+                                   (1000, 400, 384), (777, 521, 102), (1048576, 50, 384)])
 def test_gru_input_proj_bwd_matches_plain(cuda, M, E, G):
+    """G = 102: dxg rows copied 4 bytes at a time; E = 300: five E tiles;
+    E = 400 and 521: past the whole-row x copy, each block copies its E
+    tile (521: 4 bytes at a time); 1,048,576 rows: 863 chunks of 1,216."""
     g = torch.Generator().manual_seed(M + E)
     x = torch.randn(M, E, generator=g).to(cuda)
     dxg = torch.randn(M, G, generator=g).to(cuda)

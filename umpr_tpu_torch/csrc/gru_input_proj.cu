@@ -3,11 +3,12 @@
 //   xg (M, 6H) = x (M, E) @ [W_ih_fwd | W_ih_bwd] (E, 6H) + [b_ih_fwd | b_ih_bwd]
 //
 // M = N*L sentence-row tokens in true time; gate order per direction is
-// [r | z | n].  f32 in, f32 out, f32 accumulation.
+// [r | z | n].  f32 in, f32 out, f32-accurate products (3xTF32, see
+// tf32x3.cuh) with f32 accumulation.
 //
 // Replaces two TPU kernels of umpr_tpu/ops/gru_pallas.py:
 //   B3 _pallas_project_fwd / _proj_fwd_kernel (pallas_call at :319), the
-//      projection itself, and
+//      projection itself, whose f32 products run at Precision.HIGHEST, and
 //   B5 _pallas_stack_pad / _stack_pad_kernel (pallas_call at :541), which
 //      built the stacked [x | x time-flipped | 0-pad] (N, L*128) input
 //      stream so one TPU matmul could feed both directions.
@@ -17,96 +18,347 @@
 // are not reproduced.
 //
 // What bounds it on an H100: at the UMPR-R shapes (M=51,200, E=50, 6H=384)
-// it reads 10.2 MB, writes 78.6 MB and does 2.0 GFLOP of f32 FMA -- about
-// 27 us of HBM traffic against 29 us at the 67 TFLOP/s f32 (non-tensor-core)
-// peak, so the two are close and operations bound it by a little.  The
-// design is a plain shared-memory tiled SGEMM: 64x64 output tiles, K in
-// steps of 16, 4x4 outputs per thread, the bias added in the epilogue.
-// Columns are interleaved across threads so that neighbouring threads store
-// neighbouring addresses.  Tensor cores (TF32 would break f32 parity) and
-// TMA are later work.
+// it reads 10.2 MB, writes 78.6 MB (xg) and does 2.0 GFLOP: 26.5 us of HBM
+// traffic at 3.35 TB/s.  On the CUDA cores the products alone would take
+// 29 us at the 67 TFLOP/s f32 peak.  As 3xTF32 they are 6.6 GFLOP of TF32
+// (depth padded to 56): 13 us at wgmma's 495 TFLOP/s, about twice that
+// with mma.sync, which reaches about half of wgmma's TF32 rate on Hopper.
+// So the products run as wgmma and the kernel streams, bound by its xg
+// stores:
+//   - persistent blocks, one per SM, of two warpgroups; block (c, j) keeps
+//     column tile c (128 columns) of W, and each warpgroup walks its own
+//     64-row tiles (no grid cap on M, no block-wide barrier in the loop);
+//   - W's column slice is loaded once per block, split into TF32 big and
+//     small parts, as the K-major B tiles of wgmma in shared memory;
+//   - a row tile of x is one contiguous span of 64*E floats, copied with
+//     16-byte cp.async into the warpgroup's two-stage ring: the next tile's
+//     copy overlaps this tile's products and stores.  The shared copy keeps
+//     x's own row stride E (a 16-byte copy cannot pad rows of 200 bytes);
+//   - each thread loads its A fragment from the x tile and splits it in
+//     registers; the depth is a loop over k-steps of 8 (any E), columns
+//     past E zeroed by selects, W's by zero fill; two register sets let
+//     step ks + 1 be split while step ks runs on the tensor core;
+//   - wgmma m64n128k8 TF32, three per k-step: the two small cross terms
+//     into one f32 accumulator, big*big into another (the tensor core's
+//     accumulation, coarser than an f32 add, then errs at 7 steps, not 21);
+//   - the epilogue adds the two and the bias in f32 and stores 8-byte
+//     pairs: the 4 lanes of a row group write one whole 32-byte sector.
+//     (Staging the tile in shared memory and writing whole rows, by
+//     threads or as bulk copies, measured no faster on the card.)
+// E > 112 does not fit that shared memory; there a plain mma.sync kernel
+// on 32 x 32 tiles takes over (word2vec's 300 runs there), and past E = 452,
+// where its W slice and x ring outgrow the shared memory too, a kernel that
+// reads its fragments from global memory (any E).  Each output element is
+// computed by one thread in a fixed order, so the bits do not depend on the
+// grid (the SM count) or on the run.
 
-#include <cuda_runtime.h>
+#include <algorithm>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // rows per block tile
-constexpr int BN = 64;  // columns per block tile
-constexpr int BK = 16;  // depth per shared-memory stage
-constexpr int TM = 4;   // rows per thread
-constexpr int TN = 4;   // columns per thread
-constexpr int TX = BN / TN;  // 16 column lanes
-constexpr int TY = BM / TM;  // 16 row lanes
-constexpr int THREADS = TX * TY;
+using namespace tf32x3;
+
+constexpr size_t SMEM_LIMIT = 232448;  // a block's shared memory on Hopper (227 KB)
+
+// ---- the wgmma kernel (E <= 112): two warpgroups per block, one block per SM
+
+constexpr int WG = 128;    // threads of a warpgroup
+constexpr int WGS = 2;     // warpgroups per block, each walking its own row tiles
+constexpr int BM = 64;     // rows of a warpgroup's tile
+constexpr int BN = 128;    // columns of a block (wgmma n)
+constexpr int WT = BN * 8;  // floats of one k-step's W tile (big or small)
+
+size_t wide_smem(int K) {
+  return ((size_t)(K + 7) / 8 * 2 * WT + BN + (size_t)WGS * 2 * BM * K) * sizeof(float);
+}
+
+// the A fragment of k-step ks (columns 8 ks + tig, + 4) of rows p0, p8 of
+// an x tile in shared memory, split; zeros past K
+__device__ __forceinline__ void split_a(const float* p0, const float* p8, int ks, int K, int tig,
+                                        uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const int k0 = ks * 8 + tig, k1 = k0 + 4;
+  const bool v0 = k0 < K, v1 = k1 < K;
+  split(v0 ? p0[k0] : 0.f, ah[0], al[0]);
+  split(v0 ? p8[k0] : 0.f, ah[1], al[1]);
+  split(v1 ? p0[k1] : 0.f, ah[2], al[2]);
+  split(v1 ? p8[k1] : 0.f, ah[3], al[3]);
+}
+
+__global__ void __launch_bounds__(WG * WGS, 1)
+gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
+                     bool vec) {
+  extern __shared__ float4 smem4[];
+  const int KS = (K + 7) / 8;
+  float* wt = reinterpret_cast<float*>(smem4);  // [KS][big, small][WT]
+  float* bias = wt + KS * 2 * WT;                 // [BN]
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
+  float* ring = bias + BN + wg * 2 * BM * K;      // this warpgroup's [2][BM * K]
+  const int col0 = blockIdx.x * BN;
+  const int walkers = gridDim.y * WGS;
+  const int m_tiles = (M + BM - 1) / BM;
+
+  // the first x tile's copy goes out before W is read
+  int tile = blockIdx.y * WGS + wg;
+  if (tile < m_tiles)
+    copy_span(ring, x + (size_t)tile * BM * K, min(BM, M - tile * BM) * K, vec, t, WG);
+  cp_async_commit();
+
+  // W's column slice, split once into its big and small B tiles; zeros
+  // past K and past N.  Lane (kq, nr) of item i: k = 8 ks + 4 kh + kq,
+  // n = 8 ng + nr.
+  for (int i = tid; i < KS * 2 * (BN / 8) * 32; i += WG * WGS) {
+    const int l = i & 31, ng = (i >> 5) % (BN / 8), kh = (i >> 5) / (BN / 8) % 2;
+    const int ks = (i >> 5) / (BN / 4);
+    const int k = ks * 8 + kh * 4 + (l & 3), n = ng * 8 + (l >> 2);
+    uint32_t big, small;
+    split(k < K && col0 + n < N ? w[(size_t)k * N + col0 + n] : 0.f, big, small);
+    float* tb = wt + ks * 2 * WT + b_offset(n, k & 7);
+    tb[0] = __uint_as_float(big);
+    tb[WT] = __uint_as_float(small);
+  }
+  if (tid < BN) bias[tid] = col0 + tid < N ? b[col0 + tid] : 0.f;
+  fence_proxy_async();
+  __syncthreads();
+
+  const int r0 = warp * 16 + gid;  // this thread's rows of a tile: r0, r0 + 8
+  for (int it = 0; tile < m_tiles; ++it, tile += walkers) {
+    cp_async_wait<0>();  // this tile's copy has landed ...
+    named_barrier(1 + wg, WG);  // ... for the warpgroup; it is done with the last tile
+    const int next = tile + walkers;  // into the buffer the last tile used
+    if (next < m_tiles)
+      copy_span(ring + ((it + 1) & 1) * BM * K, x + (size_t)next * BM * K,
+                min(BM, M - next * BM) * K, vec, t, WG);
+    cp_async_commit();
+
+    // rows past M hold stale values: they reach only their own outputs,
+    // which are not stored
+    const float* p0 = ring + (it & 1) * BM * K + r0 * K;
+    const float* p8 = p0 + 8 * K;
+    // hi sums big*big, lo the two small cross terms: the tensor core's
+    // accumulation error then follows the 7 big*big steps only
+    float hi[BN / 2], lo[BN / 2];
+    if (KS == 0) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) hi[i] = lo[i] = 0.f;
+    }
+    // two A register sets: step ks + 1's fragment is split while step ks
+    // runs; a set is rewritten only once the step that read it is done
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    auto issue = [&](int ks, const uint32_t(&ah)[4], const uint32_t(&al)[4]) {
+      const float* tb = wt + ks * 2 * WT;
+      const int add = ks > 0;
+      wgmma_fence();
+      Wgmma<BN>::run(lo, al, b_desc(tb), add);
+      Wgmma<BN>::run(hi, ah, b_desc(tb), add);
+      Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
+      wgmma_commit();
+    };
+    split_a(p0, p8, 0, K, tig, ah0, al0);
+    for (int ks = 0; ks < KS; ks += 2) {
+      issue(ks, ah0, al0);
+      wgmma_wait<1>();  // step ks - 1 is done with set 1
+      split_a(p0, p8, ks + 1, K, tig, ah1, al1);
+      if (ks + 1 < KS) {
+        issue(ks + 1, ah1, al1);
+        wgmma_wait<1>();  // step ks is done with set 0
+        split_a(p0, p8, ks + 2, K, tig, ah0, al0);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(hi);
+    fence_regs(lo);
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tile * BM + r0 + 8 * h;
+      if (r >= M) continue;
+      float* row = out + (size_t)r * N + col0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = j * 8 + 2 * tig;
+        const float o0 = hi[4 * j + 2 * h] + lo[4 * j + 2 * h] + bias[c];
+        const float o1 = hi[4 * j + 2 * h + 1] + lo[4 * j + 2 * h + 1] + bias[c + 1];
+        if ((N & 1) == 0) {  // c even, so col0 + c < N implies col0 + c + 1 < N
+          if (col0 + c < N) *reinterpret_cast<float2*>(row + c) = make_float2(o0, o1);
+        } else {
+          if (col0 + c < N) row[c] = o0;
+          if (col0 + c + 1 < N) row[c + 1] = o1;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the last committed group is empty; leave none behind
+}
+
+// ---- the mma.sync kernel (large E, word2vec's 300): 32 x 32 tiles
+
+constexpr int THREADS = 256;  // 8 warps: 2 x 4 warps of 16 x 8
+constexpr int NBM = 32, NBN = 32;
+
+size_t narrow_smem(int K) {
+  return (size_t)(K + 7) / 8 * (NBN / 8) * 32 * sizeof(uint4) + 2 * (size_t)NBM * K * sizeof(float);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+gru_input_proj_mma(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
+                   bool vec) {
+  constexpr int NT = NBN / 8;
+  extern __shared__ uint4 smem[];
+  const int KS = (K + 7) / 8;
+  uint4* wf = smem;                                           // [KS][NT][32]
+  float* ring = reinterpret_cast<float*>(wf + KS * NT * 32);  // [2][NBM * K]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp / NT, wn = warp % NT;
+  const int col0 = blockIdx.x * NBN;
+  const int walkers = gridDim.y;
+  const int m_tiles = (M + NBM - 1) / NBM;
+
+  int tile = blockIdx.y;
+  if (tile < m_tiles)
+    copy_span(ring, x + (size_t)tile * NBM * K, min(NBM, M - tile * NBM) * K, vec, tid, THREADS);
+  cp_async_commit();
+  // W's column slice, split once: lane's (b0, b1) big and small parts of
+  // fragment (k-step ks, column tile nt); zeros past K and past N
+  for (int i = tid; i < KS * NT * 32; i += THREADS) {
+    const int l = i & 31, nt = (i >> 5) % NT, ks = (i >> 5) / NT;
+    const int n = col0 + nt * 8 + (l >> 2);
+    const int k0 = ks * 8 + (l & 3), k1 = k0 + 4;
+    uint32_t b0h, b0l, b1h, b1l;
+    split(n < N && k0 < K ? w[(size_t)k0 * N + n] : 0.f, b0h, b0l);
+    split(n < N && k1 < K ? w[(size_t)k1 * N + n] : 0.f, b1h, b1l);
+    wf[i] = make_uint4(b0h, b1h, b0l, b1l);
+  }
+  const int c = col0 + wn * 8 + 2 * tig;
+  const float bias0 = c < N ? b[c] : 0.f, bias1 = c + 1 < N ? b[c + 1] : 0.f;
+
+  for (int it = 0; tile < m_tiles; ++it, tile += walkers) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const int next = tile + walkers;
+    if (next < m_tiles)
+      copy_span(ring + ((it + 1) & 1) * NBM * K, x + (size_t)next * NBM * K,
+                min(NBM, M - next * NBM) * K, vec, tid, THREADS);
+    cp_async_commit();
+    const float* p0 = ring + (it & 1) * NBM * K + (wm * 16 + gid) * K;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[4], al[4];
+      split_a(p0, p0 + 8 * K, ks, K, tig, ah, al);
+      const uint4 f = wf[(ks * NT + wn) * 32 + lane];
+      mma3_add(acc, ah, al, f.x, f.y, f.z, f.w);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tile * NBM + wm * 16 + gid + 8 * h;
+      if (r >= M) continue;
+      if (c < N) out[(size_t)r * N + c] = acc[2 * h] + bias0;
+      if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[2 * h + 1] + bias1;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- the deep kernel (E > 452, past the mma.sync kernel's shared memory):
+// fragments straight from global memory (L2), no shared memory, so any E;
+// 64 x 64 tiles, 4 x 2 warps of 16 rows x 32 columns
+
+constexpr int DBM = 64, DBN = 64;
 
 __global__ void __launch_bounds__(THREADS)
-gru_input_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, float* __restrict__ out,
-                      int M, int K, int N) {
-  __shared__ float xs[BK][BM + 1];  // x tile, transposed; +1 avoids bank conflicts on the store
-  __shared__ float ws[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
+gru_input_proj_deep(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
+                    bool) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp % 4, wn = warp / 4;
+  const int n0 = blockIdx.x * DBN + wn * 32;  // this warp's 4 column groups of 8
+  const int m_tiles = (M + DBM - 1) / DBM;
+  for (int tile = blockIdx.y; tile < m_tiles; tile += gridDim.y) {
+    const int r0 = tile * DBM + wm * 16 + gid, r8 = r0 + 8;
+    // rows past M read row 0 (zero rows would do as well): their outputs
+    // are not stored
+    const float* p0 = x + (size_t)(r0 < M ? r0 : 0) * K;
+    const float* p8 = x + (size_t)(r8 < M ? r8 : 0) * K;
+    float acc[4][4] = {};
+    for (int ks = 0; ks < (K + 7) / 8; ++ks) {
+      const int k0 = ks * 8 + tig, k1 = k0 + 4;
+      const bool v0 = k0 < K, v1 = k1 < K;
+      uint32_t ah[4], al[4];
+      split(v0 ? p0[k0] : 0.f, ah[0], al[0]);
+      split(v0 ? p8[k0] : 0.f, ah[1], al[1]);
+      split(v1 ? p0[k1] : 0.f, ah[2], al[2]);
+      split(v1 ? p8[k1] : 0.f, ah[3], al[3]);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      xs[c][r] = (gr < M && gc < K) ? x[(size_t)gr * K + gc] : 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + 8 * j + gid;
+        uint32_t b0h, b0l, b1h, b1l;
+        split(n < N && v0 ? w[(size_t)k0 * N + n] : 0.f, b0h, b0l);
+        split(n < N && v1 ? w[(size_t)k1 * N + n] : 0.f, b1h, b1l);
+        mma3_add(acc[j], ah, al, b0h, b1h, b0l, b1l);
+      }
     }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < K && gc < N) ? w[(size_t)gr * N + gc] : 0.f;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bv[TN];
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 8 * j + 2 * tig;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = ws[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + i * TY;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + j * TX;
-      if (c < N) out[(size_t)r * N + c] = acc[i][j] + b[c];
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r8 : r0;
+        if (r >= M) continue;
+        if (c < N) out[(size_t)r * N + c] = acc[j][2 * h] + b[c];
+        if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[j][2 * h + 1] + b[c + 1];
+      }
     }
   }
+}
+
+template <class Kernel>
+int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_block,
+           const float* x, const float* w, const float* b, float* out, int M, int K, int N,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const int col_tiles = (N + bn - 1) / bn;
+  const int m_tiles = (M + bm - 1) / bm;
+  const int resident = std::max(per_sm, 1) * sms;
+  // blocks per column tile; each block walks `per_block` row tiles at once
+  const int walkers = std::max(1, std::min((m_tiles + per_block - 1) / per_block,
+                                           (resident + col_tiles - 1) / col_tiles));
+  // 16-byte copies need x 16-byte aligned; each tile starts bm*K floats
+  // (a multiple of 4) further on
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  kernel<<<dim3(col_tiles, walkers), threads, smem, stream>>>(x, w, b, out, M, K, N, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x (M, K), w (K, N), b (N,), out (M, N): f32, contiguous, on the device.
 // Launches on `stream` and returns the launch's cudaError_t (0 = success).
-extern "C" int gru_input_proj(const float* x, const float* w, const float* b,
-                              float* out, int M, int K, int N, void* stream) {
+extern "C" int gru_input_proj(const float* x, const float* w, const float* b, float* out,
+                              int M, int K, int N, void* stream) {
   if (M == 0 || N == 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gru_input_proj_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, out, M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide_smem(K) <= SMEM_LIMIT)
+    return launch(gru_input_proj_wgmma, WG * WGS, wide_smem(K), BM, BN, WGS, x, w, b, out, M,
+                  K, N, s);
+  if (narrow_smem(K) <= SMEM_LIMIT)
+    return launch(gru_input_proj_mma, THREADS, narrow_smem(K), NBM, NBN, 1, x, w, b, out, M, K,
+                  N, s);
+  return launch(gru_input_proj_deep, THREADS, 0, DBM, DBN, 1, x, w, b, out, M, K, N, s);
 }
 
 extern "C" const char* error_string(int code) {

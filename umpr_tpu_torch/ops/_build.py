@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exports a plain C function ``<name>`` (and
 ``error_string``).  At first use it is compiled by ``nvcc`` for ``sm_90a``
 into a shared library under ``build/kernels/`` at the repository root (a
-directory git ignores), named by a hash of the source and the flags, and
+directory git ignores), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, and
 loaded with ctypes.  Nothing is compiled while a module is imported, and a
 failed build raises.
 """
@@ -43,8 +44,9 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 

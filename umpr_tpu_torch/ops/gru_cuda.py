@@ -6,7 +6,9 @@ umpr_tpu/ops/gru_pallas.py).
 Forward:
 
 - K1 ``gru_input_proj`` (csrc/gru_input_proj.cu) replaces B5 (stack-pad)
-  and B3 (input projection): xg = x @ [W_ih_f | W_ih_b] + b_ih in true time;
+  and B3 (input projection): xg = x @ [W_ih_f | W_ih_b] + b_ih in true time,
+  a persistent streaming kernel with 3xTF32 products on the tensor cores
+  (f32-accurate, as B3's Precision.HIGHEST; csrc/tf32x3.cuh);
 - K2 ``bigru_recurrence`` (csrc/bigru_recurrence.cu) replaces B1 (the
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
   time, exact zeros past each length.
@@ -17,7 +19,9 @@ Backward:
   the two output cotangents) and B2 (the reverse sweep): dxg in true time,
   dW_hh and db_hh; the states come from y, so K2 emits no ``hs``;
 - K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
-  with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg);
+  with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg), 3xTF32
+  over a fixed split of the rows into chunks, whose partials a second
+  kernel of the same launch sums in a fixed order;
 - K9 ``gru_input_proj_dx`` (csrc/gru_input_proj_dx.cu) replaces B4's
   ``emit_dxc=True`` branch: the input gradient dx = dxg @ W_ih^T, launched
   only when x requires grad (every UMPR config feeds the frozen
@@ -170,8 +174,6 @@ def gru_input_proj(x, w, b):
     if w.shape[0] != E or b.shape[0] != w.shape[1]:
         raise ValueError(f"gru_input_proj: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)} disagree")
-    if M > 65535 * 64:
-        raise ValueError(f"gru_input_proj: {M} rows exceed the grid")
     out = torch.empty(M, w.shape[1], device=x.device, dtype=torch.float32)
     _launch("gru_input_proj", [_P] * 4 + [_I] * 3 + [_P],
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -263,14 +265,35 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
 
 bigru_backward.launches = 0
 
-PROJ_BWD_ROWS = 1024  # x/dxg rows per K4 block (its split-K chunk)
+PROJ_BWD_STEP = 32  # rows per K4 pipeline stage (csrc/gru_input_proj_bwd.cu STEP)
+# K4 splits the rows into chunks, each one block per 128-column tile of 6H
+# and one dW/db partial.  Up to PROJ_BWD_CHUNKS chunks: 88 x 3 column tiles
+# (6H = 384) fill 132 SMs twice.  A chunk has at most PROJ_BWD_MAX_ROWS
+# rows: the tensor core accumulates a chunk's products in chains of rows/8
+# steps, and its accumulation rounds more coarsely than an f32 add, so the
+# chains stay short (at 1,048,576 rows: 863 chunks, partials 4.1% of dxg's
+# bytes).
+PROJ_BWD_CHUNKS = 88
+PROJ_BWD_MAX_ROWS = 1216
+
+
+def proj_bwd_chunks(M):
+    """K4's split of M rows: (rows per chunk, a multiple of PROJ_BWD_STEP;
+    chunk count).  A function of M alone, never of the card, so the
+    partials and their fixed-order sum give the same bits on every card."""
+    per = -(-M // PROJ_BWD_CHUNKS)
+    rows = max(PROJ_BWD_STEP, -(-per // PROJ_BWD_STEP) * PROJ_BWD_STEP)
+    rows = min(rows, PROJ_BWD_MAX_ROWS)
+    return rows, max(1, -(-M // rows))
 
 
 def gru_input_proj_bwd(x, dxg):
     """K4: x (M, E) f32, dxg (M, 6H) f32 -> (dw_ih (E, 6H), db_ih (6H,)).
 
-    Each block reduces one chunk of PROJ_BWD_ROWS rows into a partial;
-    the partials are summed here in a fixed order (no atomics)."""
+    One launch of the C entry point runs two kernels: the first reduces
+    each chunk of rows (``proj_bwd_chunks``) into a dW and a db partial,
+    the second sums the partials in a fixed order (no atomics, the same
+    bits on every run)."""
     if x.device.type == "cpu":
         return gru_input_proj_bwd_ref(x, dxg)
     _device_kernel("gru_input_proj_bwd", x, dxg)
@@ -281,16 +304,16 @@ def gru_input_proj_bwd(x, dxg):
     if dxg.shape[0] != M:
         raise ValueError(f"gru_input_proj_bwd: x {tuple(x.shape)} and dxg "
                          f"{tuple(dxg.shape)} differ in rows")
-    chunks = max(1, -(-M // PROJ_BWD_ROWS))
-    if chunks > 65535 or -(-E // 64) > 65535:
-        raise ValueError(f"gru_input_proj_bwd: M={M}, E={E} exceed the grid")
-    dw_part = torch.empty(chunks, E, G, device=x.device, dtype=torch.float32)
-    db_part = torch.empty(chunks, G, device=x.device, dtype=torch.float32)
-    _launch("gru_input_proj_bwd", [_P] * 4 + [_I] * 4 + [_P],
-            x.data_ptr(), dxg.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-            M, E, G, PROJ_BWD_ROWS)
+    rows, chunks = proj_bwd_chunks(M)
+    # scratch: the dW partials (chunks, E, G), then db's (chunks, G)
+    part = torch.empty((E * G + G) * chunks, device=x.device, dtype=torch.float32)
+    out = torch.empty(E * G + G, device=x.device, dtype=torch.float32)
+    _launch("gru_input_proj_bwd", [_P] * 6 + [_I] * 4 + [_P],
+            x.data_ptr(), dxg.data_ptr(), part.data_ptr(),
+            part.data_ptr() + 4 * E * G * chunks, out.data_ptr(),
+            out.data_ptr() + 4 * E * G, M, E, G, rows)
     gru_input_proj_bwd.launches += 1
-    return dw_part.sum(0), db_part.sum(0)
+    return out[:E * G].view(E, G), out[E * G:]
 
 
 gru_input_proj_bwd.launches = 0
