@@ -15,7 +15,10 @@
    VGG16 blocks they close at B=64, 224 px, bit for bit; K7 and K8 (the
    affinity attention) at the long-history shape (B=64, P=8192, D=128)
    and at B10's (P=400), on saturated inputs where every max is a tie,
-   and on NaN inputs.
+   and on NaN inputs.  K1-K4 and K9 also at H = 8, 100 and 256 (other
+   --gru_size values: K2/K3's wide routes), each launched twice for the
+   same bits; K9 past the old grid cap of 4,194,240 rows; K7/K8 at D = 16,
+   200 and 512 and a ragged P.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -46,7 +49,10 @@
    held against a CPU Predictor of batch 4, which takes the composite
    attention; training as in 4, with K7/K8 in every train step and
    evaluation batch and one step's gradients against the CPU's.
-8. Print each phase's seconds and a ``{"kernels": [...]}`` line (launches:
+8. UMPR-R training at ``--gru_size 100`` as in 4 (K2 with a ragged block,
+   K3's wide route, K9-free: the embedding is frozen), launch counts and
+   one step's gradients against the CPU.
+9. Print each phase's seconds and a ``{"kernels": [...]}`` line (launches:
    each kernel's main path -- the full-UMPR run for K1-K6, the long-history
    training for K7/K8, the input-gradient run for K9 -- and the other runs'
    beside them), then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -491,7 +497,9 @@ def input_grad_kernel_phase(device, M=51200, E=50, H=64):
           f"(tolerance {K9_TOL:.0e}); second launch same bits {same}")
     if not (rel <= K9_TOL and same):
         raise AssertionError("K9 disagrees with its plain version")
-    t_bound, by = bound(4 * (dxg.numel() + w.numel() + dx.numel()), 2 * M * 6 * H * E)
+    # 3xTF32 products on the tensor cores, the two chains' adds on the CUDA cores
+    t_bound, by = bound(4 * (dxg.numel() + w.numel() + dx.numel()), M * E,
+                        tf32_flops=3 * 2 * M * 6 * H * E)
     row = {
         "name": "gru_input_proj_dx", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/gru_input_proj_dx.cu",
@@ -504,7 +512,102 @@ def input_grad_kernel_phase(device, M=51200, E=50, H=64):
         "bound_ms": t_bound, "bound_by": by,
         "library_call": "torch.mm(dxg, w_ih.t())"}
     print_row(row)
+    del dxg, dx, ref
+    row["past_old_grid_cap"] = input_grad_past_cap(device, E, H)
     return [row]
+
+
+K9_OLD_CAP = 65535 * 64  # rows: the grid cap of the SGEMM K9 replaced
+
+
+def input_grad_past_cap(device, E=50, H=64):
+    """K9 past the old kernel's grid cap (4,194,240 rows): sampled row
+    slices, the cap's neighbourhood among them, against the plain version;
+    a second launch the same bits.  Returns the largest relative error."""
+    M = K9_OLD_CAP + 4103
+    g = torch.Generator(device=device).manual_seed(12)
+    dxg = torch.randn(M, 6 * H, generator=g, device=device)
+    w = torch.randn(E, 6 * H, generator=g, device=device) / (6 * H) ** 0.5
+    dx = gru_cuda.gru_input_proj_dx(dxg, w)
+    torch.cuda.synchronize()
+    rel = max(_rel_err(dx[lo:lo + 1500], gru_cuda.gru_input_proj_dx_ref(dxg[lo:lo + 1500], w))
+              for lo in (0, M // 2, K9_OLD_CAP - 700, M - 1500))
+    same = torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
+    print(f"K9 at {M} rows (past the old grid cap of {K9_OLD_CAP}): sampled slices "
+          f"max relative {rel:.3e} (tolerance {K9_TOL:.0e}); second launch same bits {same}")
+    if not (rel <= K9_TOL and same):
+        raise AssertionError("K9 disagrees with its plain version past the old grid cap")
+    del dxg, dx
+    torch.cuda.empty_cache()
+    return rel
+
+
+GRU_WIDTHS = (8, 100, 256)  # --gru_size values off K3's shared-memory kernel
+
+
+def gru_width_phase(device, widths=GRU_WIDTHS, N=640, L=20, E=50):
+    """K1-K4 and K9 against their plain versions at other --gru_size values
+    (H = 8 and 100: the shared-memory K2 with a ragged block, K3's wide
+    route; H = 256: both wide), each launched twice for the same bits.
+    Returns {H: {kernel: device ms}} for K2 and K3."""
+    times = {}
+    for H in widths:
+        g = torch.Generator().manual_seed(H)
+        x = (torch.randn(N, L, E, generator=g) * 0.5).to(device)
+        lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+        lengths[0], lengths[1] = 1, L
+        lengths = lengths.to(device)
+        gru = BiGRU(E, H, generator=g).to(device)
+        w_ih, b_ih, w_hh, b_hh = gru.kernel_operands()
+        x2 = x.reshape(N * L, E)
+        dy_sent = torch.randn(N, L, 2 * H, generator=g).to(device)
+        dy_pos = torch.randn(N // 20, 20 * L, 2 * H, generator=g).to(device)
+        xg = gru_cuda.gru_input_proj(x2, w_ih, b_ih)
+        y = gru_cuda.bigru_recurrence(xg.view(N, L, 6 * H), lengths, w_hh, b_hh)
+        dxg, dw_hh, db_hh = gru_cuda.bigru_backward(xg.view(N, L, 6 * H), y, dy_sent, dy_pos,
+                                                     lengths, w_hh, b_hh)
+        dw_ih, db_ih = gru_cuda.gru_input_proj_bwd(x2, dxg.view(N * L, 6 * H))
+        dx = gru_cuda.gru_input_proj_dx(dxg.view(N * L, 6 * H), w_ih)
+        torch.cuda.synchronize()
+        outs = (xg, y, dxg, dw_hh, db_hh, dw_ih, db_ih, dx)
+        again = (gru_cuda.gru_input_proj(x2, w_ih, b_ih),
+                 gru_cuda.bigru_recurrence(xg.view(N, L, 6 * H), lengths, w_hh, b_hh),
+                 *gru_cuda.bigru_backward(xg.view(N, L, 6 * H), y, dy_sent, dy_pos, lengths,
+                                          w_hh, b_hh),
+                 *gru_cuda.gru_input_proj_bwd(x2, dxg.view(N * L, 6 * H)),
+                 gru_cuda.gru_input_proj_dx(dxg.view(N * L, 6 * H), w_ih))
+        same = all(torch.equal(a, b) for a, b in zip(again, outs))
+        del again
+        # each kernel against its plain version on the kernels' own inputs
+        ref_y = gru_cuda.bigru_recurrence_ref(xg.view(N, L, 6 * H), lengths, w_hh, b_hh)
+        ref3 = gru_cuda.bigru_backward_ref(xg.view(N, L, 6 * H), y, dy_sent, dy_pos, lengths,
+                                           w_hh, b_hh)
+        ref4 = gru_cuda.gru_input_proj_bwd_ref(x2, dxg.view(N * L, 6 * H))
+        errs = {
+            "K1": (xg - gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih)).abs().max().item(),
+            "K2": (y - ref_y).abs().max().item(),
+            "K3 dxg": (dxg - ref3[0]).abs().max().item(),
+            "K3 dW/db": max(_rel_err(dw_hh, ref3[1]), _rel_err(db_hh, ref3[2])),
+            "K4": max(_rel_err(dw_ih, ref4[0]), _rel_err(db_ih, ref4[1])),
+            "K9": _rel_err(dx, gru_cuda.gru_input_proj_dx_ref(dxg.view(N * L, 6 * H), w_ih))}
+        tols = {"K1": K1_TOL, "K2": K2_TOL, "K3 dxg": K3_DXG_TOL, "K3 dW/db": SUM_RTOL,
+                "K4": SUM_RTOL, "K9": K9_TOL}
+        xg3 = xg.view(N, L, 6 * H)
+        times[H] = {
+            "bigru_recurrence": device_ms(
+                lambda: gru_cuda.bigru_recurrence(xg3, lengths, w_hh, b_hh), steps=5),
+            "bigru_backward": device_ms(
+                lambda: gru_cuda.bigru_backward(xg3, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
+                steps=5)}
+        print(f"bi-GRU kernels at H={H} (N={N}, L={L}, E={E}): max|kernel - plain| "
+              + ", ".join(f"{k} {v:.3e} (tolerance {tols[k]:.0e})" for k, v in errs.items())
+              + f"; second launches same bits {same}; device ms K2 "
+              f"{_ms(times[H]['bigru_recurrence'])}, K3 {_ms(times[H]['bigru_backward'])}")
+        if not (same and all(errs[k] <= tols[k] for k in errs)):
+            raise AssertionError(f"a bi-GRU kernel disagrees with its plain version at H={H}")
+        del outs, ref_y, ref3, ref4, xg, y, dxg, dx
+        torch.cuda.empty_cache()
+    return times
 
 
 # the VGG16 blocks that close with K5/K6 at B=64, 224 px (conv output H >=
@@ -694,12 +797,20 @@ def _attention_check(U, I, M, exists, label, exact_argmax=False):
     return T, parts, (err7, err8), n_col + n_row
 
 
+# small-B cases at other widths: D = 2 * gru_size 8, 100 and 256 (16: the
+# wgmma kernel; 200, 512: the CUDA-core kernel), and a P that fills neither
+# a 128-row nor a 64-column tile
+ATT_WIDTH_CASES = ((4, 1000, 16), (4, 1000, 200), (2, 1000, 512), (4, 333, 128))
+
+
 def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
-                           saturated=((8, 8192, 128), B10_SHAPE), nan=(4, 1000, 128)):
+                           saturated=((8, 8192, 128), B10_SHAPE), nan=(4, 1000, 128),
+                           widths=ATT_WIDTH_CASES):
     """K7 and K8 against their plain versions at the long-history shape
     (B=64, P=8192, D=128, 90% of positions existing) and at B10's
     (P=400); saturated inputs, where every max is an exact tie and the
-    first index must win; NaN inputs.  Times both of `shapes`."""
+    first index must win; NaN inputs; small-B cases at other widths and a
+    ragged P.  Times both of `shapes`."""
     timing, errs, near = {}, [0.0, 0.0], 0
     for label, shape in zip(("long history", "B10 shape"), shapes):
         B, P, D = shape
@@ -712,7 +823,10 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
         # every entry with its row or its column existing is needed (the
         # maxima of masked columns and rows are residuals too)
         needed = B * (P * P - (P - n_ex) ** 2)
-        k7_bound = bound(4 * (2 * B * P * D + B * R * P * 2 + B * P * 2) + P, 2 * needed * D)
+        # 3xTF32 products on the tensor cores, the two chains' adds on the
+        # CUDA cores
+        k7_bound = bound(4 * (2 * B * P * D + B * R * P * 2 + B * P * 2) + P, needed,
+                         tf32_flops=3 * 2 * needed * D)
         k8_bound = bound(4 * (B * R * P * 2 + B * P + 2 * B * P * D + 4 * B * P + 2 * B * D) + P,
                          B * R * P + 2 * B * P * (2 * D + 4))
         out_buf = torch.empty(B, P, P, device=device)
@@ -751,6 +865,10 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
     U[-1, -1, 0] = float("nan")  # a masked column: its column max only
     _attention_check(U, I, M, exists, "NaN", exact_argmax=True)
     del U, I, M
+    for shape in widths:
+        U, I, M, exists = attention_case(device, *shape, seed=3, scale=0.005)
+        _attention_check(U, I, M, exists, "width case")
+        del U, I, M
     torch.cuda.empty_cache()
 
     main = timing["long history"]
@@ -1384,6 +1502,7 @@ def main():
 
     with torch.no_grad():
         kernels = phase("gru kernels", kernel_phase, device)
+        widths = phase("gru kernels at other widths", gru_width_phase, device)
         kernels += phase("input-gradient kernel", input_grad_kernel_phase, device)
         kernels += phase("pool kernels", pool_kernel_phase, device)
         kernels += phase("attention kernels", attention_kernel_phase, device)
@@ -1395,6 +1514,10 @@ def main():
                         WORK / "long_serve", LONG_FLAGS, LONG_CORPUS)
     long_trained = phase("long-history UMPR-R training", train_phase, card,
                          "long_train", LONG_FLAGS, LONG_CORPUS)
+    # seed 5: at init the ReLU head is above 0 on this corpus at gru_size
+    # 100 (the default seed clamps every prediction to 0: nothing trains)
+    gru100 = phase("UMPR-R training at --gru_size 100", train_phase, card, "gru100",
+                   ("--gru_size", "100", "--seed", "5"))
     # each kernel's launches come from the main path that runs it
     main_path = {"gru_input_proj_dx": input_grad, "affinity_tiles": long_trained,
                  "affinity_finish": long_trained}
@@ -1402,8 +1525,11 @@ def main():
         k["launches"] = main_path.get(k["name"], full)[k["name"]]
         for run, counts in (("umpr_r_training", trained), ("serving", served),
                             ("long_history_serving", long_served),
-                            ("long_history_training", long_trained)):
+                            ("long_history_training", long_trained),
+                            ("gru_size_100_training", gru100)):
             k[f"launches_{run}"] = counts[k["name"]]
+        if k["name"] in ("bigru_recurrence", "bigru_backward"):
+            k["device_ms_at_gru_size"] = {H: t[k["name"]] for H, t in widths.items()}
     print(f"phase seconds: {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,8 +60,14 @@ def test_gru_input_proj_past_the_old_grid_cap(cuda):
     assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
 
 
-@pytest.mark.parametrize("N,L,H", [(1, 1, 64), (37, 5, 32), (300, 20, 64), (50, 9, 128)])
+@pytest.mark.parametrize("N,L,H", [(1, 1, 64), (37, 5, 32), (300, 20, 64), (50, 9, 128),
+                                   (37, 5, 8), (50, 9, 100), (40, 7, 256), (20, 4, 192),
+                                   (3, 2, 1900)])
 def test_bigru_recurrence_matches_plain(cuda, N, L, H):
+    """H = 8 and 100 (gru_size 8 and 100) run the shared-memory kernel with
+    a ragged block; H = 192 and 256 the wide kernel, W_hh from L2; H =
+    1900 keeps the wide kernel's state in global scratch.  Two launches
+    give the same bits."""
     g = torch.Generator().manual_seed(N)
     xg = torch.randn(N, L, 6 * H, generator=g).to(cuda)
     lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
@@ -77,6 +83,7 @@ def test_bigru_recurrence_matches_plain(cuda, N, L, H):
         rtol=1e-5, atol=1e-5)
     past = torch.arange(L, device=cuda)[None, :] >= lengths[:, None]
     assert (y[past] == 0).all()
+    assert torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
 
 
 def _backward_inputs(cuda, N, L, H, lengths_kind, E=17, S=1):
@@ -109,8 +116,14 @@ def _close_rel(got, want, rtol):
 @pytest.mark.parametrize("N,L,H,lengths_kind", [
     (1, 1, 64, "mixed"), (1, 7, 32, "all_L"), (37, 5, 32, "mixed"),
     (300, 20, 64, "mixed"), (64, 20, 64, "all_1"), (64, 20, 64, "all_L"),
-    (50, 9, 128, "mixed"), (33, 6, 96, "mixed")])
+    (50, 9, 128, "mixed"), (33, 6, 96, "mixed"), (37, 5, 8, "mixed"), (50, 9, 100, "mixed"),
+    (64, 20, 100, "all_L"), (40, 7, 256, "mixed"), (20, 4, 48, "mixed"), (20, 4, 192, "all_1"),
+    (130, 20, 100, "mixed"), (9, 3, 800, "mixed")])
 def test_bigru_backward_matches_plain(cuda, N, L, H, lengths_kind):
+    """H outside 32, 64, 96, 128 (8, 48, 100, 192, 256, 800) takes the wide
+    route: a sweep with W_hh in L2 and a split-K reduction of dW_hh/db_hh
+    (N*L = 2,600 rows: three chunks); at H = 800 the sweep's state lies in
+    global scratch."""
     _, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _backward_inputs(
         cuda, N, L, H, lengths_kind)
     before = gru_cuda.bigru_backward.launches
@@ -175,21 +188,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gru_cuda.gru_input_proj(x.bfloat16(), w.bfloat16(), b.bfloat16())
     with pytest.raises(ValueError):
         gru_cuda.gru_input_proj(x, w.t().contiguous().t(), b)
-    H = 192
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # w_hh of another H than xg's
         gru_cuda.bigru_recurrence(
-            torch.zeros(2, 3, 6 * H, device=cuda),
+            torch.zeros(2, 3, 6 * 192, device=cuda),
             torch.ones(2, dtype=torch.int32, device=cuda),
-            torch.zeros(2, H, 3 * H, device=cuda), torch.zeros(2, 3 * H, device=cuda))
+            torch.zeros(2, 191, 3 * 191, device=cuda), torch.zeros(2, 3 * 191, device=cuda))
     with pytest.raises(TypeError):
         gru_cuda.bigru_recurrence(
             torch.zeros(2, 3, 6, device=cuda), torch.ones(2, device=cuda),
             torch.zeros(2, 1, 3, device=cuda), torch.zeros(2, 3, device=cuda))
-    H = 48  # K3 is compiled for H in 32, 64, 96, 128
+    H = 48
     z = torch.zeros(2, 3, 2 * H, device=cuda)
-    with pytest.raises(ValueError, match="H=48"):
+    with pytest.raises(ValueError, match="H=48"):  # dy_sent of another length
         gru_cuda.bigru_backward(
-            torch.zeros(2, 3, 6 * H, device=cuda), z, z, z,
+            torch.zeros(2, 3, 6 * H, device=cuda), z, z[:, :2].contiguous(), z,
             torch.ones(2, dtype=torch.int32, device=cuda),
             torch.zeros(2, H, 3 * H, device=cuda), torch.zeros(2, 3 * H, device=cuda))
     with pytest.raises(ValueError):
@@ -272,8 +284,15 @@ def test_pool_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("M,G,E", [(1, 384, 50), (130, 100, 17), (0, 192, 17),
-                                   (5000, 192, 70), (51200, 384, 50)])
+                                   (5000, 192, 70), (51200, 384, 50), (3000, 384, 400),
+                                   (777, 102, 521), (51200, 600, 50), (20000, 1536, 50),
+                                   (4000, 48, 50), (1000, 384, 64), (1000, 386, 57)])
 def test_gru_input_proj_dx_matches_plain(cuda, M, G, E):
+    """6H = 384 at E <= 64: the wgmma kernel (n = 56 or 64), 6H = 192 at E
+    = 70: its n = 128 form; 6H = 600 and 1,536 (gru_size 100 and 256), E
+    = 400 and 521: past its shared memory, the mma.sync kernel; 6H = 48
+    (gru_size 8) and 386: ragged depth.  Two launches give the same
+    bits."""
     g = torch.Generator().manual_seed(M + G)
     dxg = torch.randn(M, G, generator=g).to(cuda)
     w = torch.randn(E, G, generator=g).to(cuda)
@@ -284,6 +303,22 @@ def test_gru_input_proj_dx_matches_plain(cuda, M, G, E):
     assert dx.shape == (M, E)
     if M:
         _close_rel(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w), 1e-5)
+    assert torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
+
+
+def test_gru_input_proj_dx_past_the_old_grid_cap(cuda):
+    """4,194,240 rows (65,535 x 64) was the old kernel's grid cap; the
+    persistent grid has none.  Sampled row slices against the plain
+    version, the cap's neighbourhood among them."""
+    M, G, E, cap = 4_194_240 + 4_103, 384, 50, 4_194_240
+    g = torch.Generator(device=cuda).manual_seed(12)
+    dxg = torch.randn(M, G, generator=g, device=cuda)
+    w = torch.randn(E, G, generator=g, device=cuda) / G ** 0.5
+    dx = gru_cuda.gru_input_proj_dx(dxg, w)
+    torch.cuda.synchronize()
+    for lo in (0, M // 2, cap - 700, M - 1500):
+        rows = slice(lo, lo + 1500)
+        _close_rel(dx[rows], gru_cuda.gru_input_proj_dx_ref(dxg[rows], w), 1e-5)
     assert torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
 
 
@@ -334,12 +369,16 @@ def _same(a, b):
 @pytest.mark.parametrize("B,P,D,kind", [
     (1, 1, 128, "all"), (1, 1, 128, "none"), (2, 130, 128, "rand"), (3, 300, 100, "rand"),
     (2, 257, 16, "all"), (1, 1000, 128, "rand"), (2, 200, 128, "none"), (2, 300, 128, "tie"),
-    (2, 260, 100, "tie"), (2, 150, 128, "nan"), (1, 129, 100, "nan")])
+    (2, 260, 100, "tie"), (2, 150, 128, "nan"), (1, 129, 100, "nan"), (2, 300, 16, "rand"),
+    (2, 257, 200, "rand"), (1, 300, 512, "rand"), (3, 77, 128, "rand"), (2, 450, 128, "rand"),
+    (2, 333, 50, "rand"), (2, 200, 16, "tie"), (1, 260, 512, "nan"), (2, 63, 200, "all")])
 def test_affinity_kernels_match_plain(cuda, B, P, D, kind):
     """K7, then K8 on K7's partials, against their plain versions on the same
-    card inputs: P not a multiple of the 128-row tile, P = 1, B = 1, D = 100
-    and 16, every position masked, exact ties, NaN; two launches give the
-    same bits."""
+    card inputs: P not a multiple of the 128-row tile or the 64-column
+    tile, P < 128, P = 1, B = 1; D = 16, 50, 100, 128 (the wgmma kernel;
+    50: U's rows copied 4 bytes at a time) and 200, 512 (gru_size 100 and
+    256: the CUDA-core kernel); every position masked, exact ties, NaN;
+    two launches give the same bits."""
     from umpr_tpu_torch.ops import attention_cuda as ac
     U, I, M, exists = (t.to(cuda) for t in _attention_inputs(B, P, D, kind))
     T = I @ M

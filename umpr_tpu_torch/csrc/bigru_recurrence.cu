@@ -38,6 +38,11 @@
 // W_hh bound it: the design spreads the rows over all SMs (320 blocks, 256
 // threads each) so those latencies overlap across blocks.  Keeping W_hh in
 // registers and tensor-core (wgmma) steps are later work.
+//
+// Any H: this shared-memory kernel takes H <= 128 (W_hh fits: 192 KB at
+// H = 128, and 4H threads); past that a wide kernel (below) keeps W_hh in
+// L2 and lets each thread own whole hidden units of all 16 rows, as the
+// JAX package's bigru_scan takes any gru_size.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +51,7 @@ namespace {
 constexpr int ROWS = 16;            // sentence rows per block
 constexpr int RPT = 4;              // rows per thread
 constexpr int GROUPS = ROWS / RPT;  // row groups; block = GROUPS * H threads
+constexpr int MAX_SMEM_H = 128;     // the largest H of the shared-memory kernel
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -144,23 +150,150 @@ bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ le
   }
 }
 
+// ---- the wide kernel (H > 128, past the shared-memory kernel's W_hh and
+// its 4H threads): 256 threads own the hidden units j = tid, tid + 256, ...
+// of all 16 rows of the tile, so each W_hh element read feeds 16 rows'
+// FMAs.  W_hh (3H^2 f32, 786 KB per direction at H = 256) is read from
+// global memory, where both directions' 1.5 MB stay in L2; neighbouring
+// threads read neighbouring units, so the reads are coalesced.  The state
+// is double-buffered, transposed (h[k][row], so a k's 16 rows are four
+// 16-byte loads), in shared memory, or in a global scratch buffer where
+// 2 x 16 x H floats exceed it (H > 1814); one barrier per step.
+
+constexpr int WTHREADS = 256;
+// a block's shared memory on Hopper (227 KB), less the static arrays
+constexpr size_t SMEM_LIMIT = 232448 - 256;
+
+size_t wide_state_bytes(int H) { return (size_t)2 * ROWS * H * sizeof(float); }
+
+__global__ void __launch_bounds__(WTHREADS)
+bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ lengths,
+                      const float* __restrict__ w_hh, const float* __restrict__ b_hh,
+                      float* __restrict__ y, float* __restrict__ scratch, int N, int L, int H) {
+  extern __shared__ float4 smem4[];
+  __shared__ int len_s[ROWS];
+  __shared__ int maxlen_s;
+  const int d = blockIdx.y;
+  const int G = 3 * H;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * ROWS;
+  float* state = scratch == nullptr
+                     ? reinterpret_cast<float*>(smem4)
+                     : scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * ROWS * H;
+  const float* W = w_hh + (size_t)d * H * G;
+
+  for (int i = tid; i < ROWS * H; i += WTHREADS) state[i] = 0.f;
+  if (tid < ROWS) {
+    const int n = row0 + tid;
+    len_s[tid] = n < N ? min(lengths[n], L) : 0;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int m = 0;
+    for (int r = 0; r < ROWS; ++r) m = max(m, len_s[r]);
+    maxlen_s = m;
+  }
+  __syncthreads();
+  const int maxlen = maxlen_s;
+  const size_t y_stride = 2 * (size_t)H;
+  const size_t xg_stride = 6 * (size_t)H;
+
+  // positions past the tile's longest row: exact zeros
+  for (int t = maxlen; t < L; ++t)
+    for (int i = tid; i < ROWS * H; i += WTHREADS) {
+      const int n = row0 + i / H;
+      if (n < N) y[((size_t)n * L + t) * y_stride + d * H + i % H] = 0.f;
+    }
+
+  for (int s = 0; s < maxlen; ++s) {
+    const int t = d == 0 ? s : maxlen - 1 - s;
+    const float* hc = state + (s & 1) * ROWS * H;  // h[k][row] before the step
+    float* hn = state + ((s + 1) & 1) * ROWS * H;  // after it
+    for (int j = tid; j < H; j += WTHREADS) {
+      float a_r[ROWS], a_z[ROWS], a_n[ROWS];
+      const float b_r = b_hh[d * G + j], b_z = b_hh[d * G + H + j], b_n = b_hh[d * G + 2 * H + j];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        a_r[r] = b_r;
+        a_z[r] = b_z;
+        a_n[r] = b_n;
+      }
+      for (int k = 0; k < H; ++k) {
+        const float w_r = __ldg(W + (size_t)k * G + j);
+        const float w_z = __ldg(W + (size_t)k * G + H + j);
+        const float w_n = __ldg(W + (size_t)k * G + 2 * H + j);
+        const float4* h4 = reinterpret_cast<const float4*>(hc + k * ROWS);
+#pragma unroll
+        for (int q = 0; q < ROWS / 4; ++q) {
+          const float4 h = h4[q];
+          const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a_r[4 * q + e] = fmaf(hv[e], w_r, a_r[4 * q + e]);
+            a_z[4 * q + e] = fmaf(hv[e], w_z, a_z[4 * q + e]);
+            a_n[4 * q + e] = fmaf(hv[e], w_n, a_n[4 * q + e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int n = row0 + r;
+        const float h_prev = hc[j * ROWS + r];
+        const bool valid = t < len_s[r];
+        float h_new = h_prev;
+        if (valid) {
+          const float* x = xg + ((size_t)n * L + t) * xg_stride + d * G;
+          const float rg = sigmoid(x[j] + a_r[r]);
+          const float z = sigmoid(x[H + j] + a_z[r]);
+          const float c = tanhf(x[2 * H + j] + rg * a_n[r]);
+          h_new = (1.f - z) * c + z * h_prev;
+        }
+        hn[j * ROWS + r] = h_new;
+        if (n < N) y[((size_t)n * L + t) * y_stride + d * H + j] = valid ? h_new : 0.f;
+      }
+    }
+    __syncthreads();  // the new state is complete, and every read of the old one done
+  }
+}
+
 }  // namespace
 
 // xg (N, L, 6H), lengths (N,) int32, w_hh (2, H, 3H), b_hh (2, 3H),
-// y (N, L, 2H): contiguous, on the device.  Needs H <= 128 (threads and
-// shared memory).  Launches on `stream`; returns the cudaError_t.
+// y (N, L, 2H): contiguous, on the device; any H >= 1.  scratch: 2 x
+// ceil(N/16) x 2 x 16 x H floats where bigru_recurrence_scratch says so,
+// else unused (may be null).  Launches on `stream`; returns the
+// cudaError_t.
 extern "C" int bigru_recurrence(const float* xg, const int* lengths, const float* w_hh,
-                                const float* b_hh, float* y, int N, int L, int H,
-                                void* stream) {
+                                const float* b_hh, float* y, float* scratch, int N, int L,
+                                int H, void* stream) {
   if (N == 0 || L == 0) return 0;
-  const size_t smem = (size_t)(3 * H * H + ROWS * H) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bigru_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + ROWS - 1) / ROWS, 2);
-  bigru_recurrence_kernel<<<grid, GROUPS * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      xg, lengths, w_hh, b_hh, y, N, L, H);
+  if (H <= MAX_SMEM_H) {
+    const size_t smem = (size_t)(3 * H * H + ROWS * H) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        bigru_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bigru_recurrence_kernel<<<grid, GROUPS * H, smem, s>>>(xg, lengths, w_hh, b_hh, y, N, L, H);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool shared = wide_state_bytes(H) <= SMEM_LIMIT;
+  if (!shared && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = shared ? wide_state_bytes(H) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      bigru_recurrence_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bigru_recurrence_wide<<<grid, WTHREADS, smem, s>>>(xg, lengths, w_hh, b_hh, y,
+                                                     shared ? nullptr : scratch, N, L, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// floats of the scratch the wide kernel needs at (N, H): 0 where its state
+// fits the shared memory (and for H <= 128, the shared-memory kernel)
+extern "C" long long bigru_recurrence_scratch(int N, int H) {
+  if (H <= MAX_SMEM_H || wide_state_bytes(H) <= SMEM_LIMIT) return 0;
+  return (long long)((N + ROWS - 1) / ROWS) * 2 * 2 * ROWS * H;
 }
 
 extern "C" const char* error_string(int code) {

@@ -6,7 +6,8 @@
 // directions' gate gradients side by side, zeros at invalid steps) and
 // W_ih the packed projection of BiGRU.kernel_operands.  Both directions
 // projected the same x, so one product over all 6H columns sums their
-// contributions.  f32 in, f32 out, f32 accumulation.
+// contributions.  f32 in, f32 out, f32-accurate products (3xTF32, see
+// tf32x3.cuh) with f32 accumulation.
 //
 // Replaces the emit_dxc=True branch of the TPU kernel B4,
 // umpr_tpu/ops/gru_pallas.py _pallas_project_bwd / _proj_bwd_kernel
@@ -17,85 +18,300 @@
 // other half of B4, splits over rows to reduce dW_ih, while this product
 // is row-parallel with nothing to reduce across blocks.
 //
-// What bounds it on an H100: operations, by a little.  At the UMPR-R
-// shapes (M=51,200, 6H=384, E=50) it does 2*M*6H*E = 1.97 GFLOP (29 us at
-// the 67 TFLOP/s f32 CUDA-core peak) and moves 88.9 MB (27 us at
-// 3.35 TB/s): one read of dxg, one write of dx, W_ih from cache.
-//
-// Design: K1's shared-memory tiled SGEMM with the second operand read
-// transposed: 64 x 64 output tiles, depth in steps of 16, 4 x 4 outputs
-// per thread, columns interleaved across threads so that neighbouring
-// threads store neighbouring addresses.  W_ih^T's tile is loaded along
-// W_ih's rows (contiguous in 6H) and stored transposed into shared memory.
-// Tensor cores (TF32 would break f32 parity) and TMA are later work.
+// What bounds it on an H100: at the UMPR-R shapes (M=51,200, 6H=384,
+// E=50) it reads dxg (78.6 MB) and writes dx (10.2 MB): 26.5 us of HBM
+// traffic at 3.35 TB/s.  The products, 2*M*6H*E = 1.97 GFLOP, would take
+// 29 us on the CUDA cores at 67 TFLOP/s; as 3xTF32 on wgmma (n padded to
+// 56) they are 6.6 GFLOP of TF32, 13 us at 495 TFLOP/s.  So it is K1's
+// design transposed, bound by its dxg reads:
+//   - persistent blocks, one per SM, of two warpgroups; block (c, j) keeps
+//     column tile c of dx (E padded to n = 56 or 64, else tiles of 128)
+//     and each warpgroup walks its own 64-row tiles (no grid cap on M);
+//   - B is W_ih's slice, whose rows are K-major already (6H contiguous):
+//     loaded once per block, split into TF32 big and small parts, as
+//     wgmma's B tiles in shared memory (172 KB at 6H = 384, n = 56);
+//   - A is dxg, loaded by its own thread straight from global memory, each
+//     element once: the depth is taken in chunks of 16 columns (two
+//     k-steps), a lane loads one float4 of a chunk per row (the quad's four
+//     lanes read one row's 64 contiguous bytes), and k is permuted inside
+//     the chunk to match (W's tiles likewise); 6 chunks are in flight
+//     ahead of the one on the tensor core, the next tile's first ones
+//     issued before this tile's stores (and the first tile's before W is
+//     read);
+//   - the depth (6H, any value: columns past it zeroed by selects) is a
+//     loop over k-steps of 8, each three wgmma m64nNk8: the two small
+//     cross terms into one f32 accumulator, big*big into another, so the
+//     tensor core's coarse accumulation errs along each chain's own terms;
+//   - the epilogue adds the two in f32 and stores 8-byte pairs.
+// Where the W slice does not fit the shared memory (6H past 512 at E <= 56,
+// 448 at E <= 64, 224 past that: gru_size 100 and 256 among them), a
+// kernel on mma.sync reads its fragments of both operands from global
+// memory (L2), any shape, each k-step's 3xTF32 sum added to its
+// accumulator in f32.  Each output element is one thread's sum in a fixed
+// order: the bits do not depend on the grid or on the run.
 
-#include <cuda_runtime.h>
+#include <algorithm>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // rows per block tile
-constexpr int BN = 64;  // columns (E) per block tile
-constexpr int BK = 16;  // depth (6H) per shared-memory stage
-constexpr int TM = 4;   // rows per thread
-constexpr int TN = 4;   // columns per thread
-constexpr int TX = BN / TN;
-constexpr int TY = BM / TM;
-constexpr int THREADS = TX * TY;
+using namespace tf32x3;
+
+constexpr size_t SMEM_LIMIT = 232448;  // a block's shared memory on Hopper (227 KB)
+
+constexpr int WG = 128;  // threads of a warpgroup
+constexpr int WGS = 2;   // warpgroups per block, each walking its own row tiles
+constexpr int BM = 64;   // rows of a warpgroup's tile
+constexpr int PFC_NARROW = 6;  // 16-column chunks of dxg loaded ahead (n <= 64)
+constexpr int PFC_WIDE = 4;    // the same at n = 128 (fewer free registers)
+
+// W's split slice: two k-steps per 16-column chunk of the depth
+size_t wide_smem(int G, int bn) { return (size_t)(G + 15) / 16 * 2 * 2 * bn * 8 * sizeof(float); }
+
+// The depth is taken in chunks of 16 columns, each two k-steps.  A thread
+// loads one float4 of a chunk per row (columns 16 c + 4 tig .. + 3), so k
+// is permuted within the chunk: slot kk (0..7) of step s reads column
+// 16 c + 4 (kk % 4) + 2 s + kk / 4, and W's B tiles are laid out the same.
+
+// row p's float4 of chunk c for lane tig; zeros past G
+__device__ __forceinline__ float4 load_chunk(const float* p, int c, int G, int tig, bool vec) {
+  const int k = c * 16 + 4 * tig;
+  if (vec && k < G) return __ldcs(reinterpret_cast<const float4*>(p + k));
+  return make_float4(k < G ? __ldcs(p + k) : 0.f, k + 1 < G ? __ldcs(p + k + 1) : 0.f,
+                     k + 2 < G ? __ldcs(p + k + 2) : 0.f, k + 3 < G ? __ldcs(p + k + 3) : 0.f);
+}
+
+__device__ __forceinline__ void split4(float a, float b, float c, float d, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  split(a, ah[0], al[0]);
+  split(b, ah[1], al[1]);
+  split(c, ah[2], al[2]);
+  split(d, ah[3], al[3]);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(WG * WGS, 1)
+gru_input_proj_dx_wgmma(const float* __restrict__ dxg, const float* __restrict__ w,
+                        float* __restrict__ dx, int M, int G, int E, bool vec) {
+  constexpr int WT = BN * 8;  // floats of one k-step's W tile (big or small)
+  extern __shared__ float4 smem4[];
+  const int NC = (G + 15) / 16;  // chunks of the depth
+  float* wt = reinterpret_cast<float*>(smem4);  // [2 NC][big, small][WT]
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * BN;
+  const int walkers = gridDim.y * WGS;
+  const int m_tiles = (M + BM - 1) / BM;
+
+  constexpr int PFC = BN <= 64 ? PFC_NARROW : PFC_WIDE;
+  const int r0 = warp * 16 + gid;  // this thread's rows of a tile: r0, r0 + 8
+  // rows past M read row M - 1: their outputs are not stored
+  auto rows = [&](int tile, const float*& p0, const float*& p8) {
+    p0 = dxg + (size_t)min(tile * BM + r0, M - 1) * G;
+    p8 = dxg + (size_t)min(tile * BM + r0 + 8, M - 1) * G;
+  };
+  // the first tile's first chunks go out before W is read
+  int tile = blockIdx.y * WGS + wg;
+  const float *p0, *p8;
+  rows(min(tile, m_tiles - 1), p0, p8);
+  float4 v0[PFC], v8[PFC];
+#pragma unroll
+  for (int u = 0; u < PFC; ++u) {
+    v0[u] = load_chunk(p0, u, G, tig, vec);
+    v8[u] = load_chunk(p8, u, G, tig, vec);
+  }
+
+  // W's slice, split once: B element (n, slot kk) of step ks = W_ih[col0 +
+  // n][the permuted column of (ks, kk)]; zeros past G and past E.  Item i reads
+  // the float4 m of chunk c of row n (neighbouring threads, neighbouring
+  // float4s of a row), whose element j goes to step 2 c + j / 2, slot m +
+  // 4 (j % 2); WB of them in flight per thread.
+  const bool vec_w = vec && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  constexpr int WB = 8;  // float4s of W in flight per thread
+  const int items = BN * NC * 4;
+  for (int base = tid; base < items; base += WB * WG * WGS) {
+    float4 wv[WB];
+#pragma unroll
+    for (int u = 0; u < WB; ++u) {
+      const int i = base + u * WG * WGS;
+      const int m = i % 4, c = i / 4 % NC, n = i / (4 * NC);
+      const int k = c * 16 + 4 * m;
+      const float* src = w + (size_t)(col0 + n) * G + k;
+      wv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < items && col0 + n < E) {
+        if (vec_w && k < G) {
+          wv[u] = __ldg(reinterpret_cast<const float4*>(src));
+        } else {
+          wv[u].x = k < G ? src[0] : 0.f;
+          wv[u].y = k + 1 < G ? src[1] : 0.f;
+          wv[u].z = k + 2 < G ? src[2] : 0.f;
+          wv[u].w = k + 3 < G ? src[3] : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WB; ++u) {
+      const int i = base + u * WG * WGS;
+      if (i >= items) continue;
+      const int m = i % 4, c = i / 4 % NC, n = i / (4 * NC);
+      const float e4[4] = {wv[u].x, wv[u].y, wv[u].z, wv[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t big, small;
+        split(e4[j], big, small);
+        float* tb = wt + (2 * c + j / 2) * 2 * WT + b_offset(n, m + 4 * (j % 2));
+        tb[0] = __uint_as_float(big);
+        tb[WT] = __uint_as_float(small);
+      }
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  for (; tile < m_tiles; tile += walkers) {
+    rows(tile, p0, p8);
+    // hi sums big*big, lo the two small cross terms
+    float hi[BN / 2], lo[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) hi[i] = lo[i] = 0.f;
+    fence_regs(hi);  // the zeros stay before the first fence
+    fence_regs(lo);
+    // two A register sets, one per chunk (its two k-steps): a set is
+    // rewritten only once the chunk that read it is done (wgmma_wait<1>
+    // after the next chunk is issued); one fence per chunk
+    uint32_t ah[2][2][4], al[2][2][4];
+    for (int c0 = 0; c0 < NC; c0 += PFC) {
+#pragma unroll
+      for (int u = 0; u < PFC; ++u) {
+        const int c = c0 + u, set = u & 1;  // PFC is even: c0 + u has u's parity
+        if (c < NC) {
+          split4(v0[u].x, v8[u].x, v0[u].y, v8[u].y, ah[set][0], al[set][0]);
+          split4(v0[u].z, v8[u].z, v0[u].w, v8[u].w, ah[set][1], al[set][1]);
+          v0[u] = load_chunk(p0, c + PFC, G, tig, vec);
+          v8[u] = load_chunk(p8, c + PFC, G, tig, vec);
+          wgmma_fence();
+#pragma unroll
+          for (int st = 0; st < 2; ++st) {
+            const float* tb = wt + (2 * c + st) * 2 * WT;
+            Wgmma<BN>::run(lo, al[set][st], b_desc(tb), 1);
+            Wgmma<BN>::run(hi, ah[set][st], b_desc(tb), 1);
+            Wgmma<BN>::run(lo, ah[set][st], b_desc(tb + WT), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(hi);
+    fence_regs(lo);
+    // the next tile's first chunks go out before this one's stores
+    const float *n0, *n8;
+    rows(min(tile + walkers, m_tiles - 1), n0, n8);
+#pragma unroll
+    for (int u = 0; u < PFC; ++u) {
+      v0[u] = load_chunk(n0, u, G, tig, vec);
+      v8[u] = load_chunk(n8, u, G, tig, vec);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tile * BM + r0 + 8 * h;
+      if (r >= M) continue;
+      float* row = dx + (size_t)r * E + col0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = j * 8 + 2 * tig;
+        const float o0 = hi[4 * j + 2 * h] + lo[4 * j + 2 * h];
+        const float o1 = hi[4 * j + 2 * h + 1] + lo[4 * j + 2 * h + 1];
+        if ((E & 1) == 0) {  // c even, so col0 + c < E implies col0 + c + 1 < E
+          if (col0 + c < E) *reinterpret_cast<float2*>(row + c) = make_float2(o0, o1);
+        } else {
+          if (col0 + c < E) row[c] = o0;
+          if (col0 + c + 1 < E) row[c + 1] = o1;
+        }
+      }
+    }
+  }
+}
+
+// ---- the deep kernel (any shape): fragments of both operands straight
+// from global memory (L2), mma.sync 3xTF32, 64 x 64 tiles, 4 x 2 warps of
+// 16 rows x 32 columns
+
+constexpr int THREADS = 256;
+constexpr int DBM = 64, DBN = 64;
 
 __global__ void __launch_bounds__(THREADS)
-gru_input_proj_dx_kernel(const float* __restrict__ dxg, const float* __restrict__ w,
-                         float* __restrict__ dx, int M, int G, int E) {
-  __shared__ float gs[BK][BM + 1];  // dxg tile, depth-major
-  __shared__ float ws[BK][BN + 1];  // W_ih^T tile, depth-major
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
+gru_input_proj_dx_deep(const float* __restrict__ dxg, const float* __restrict__ w,
+                       float* __restrict__ dx, int M, int G, int E, bool) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp % 4, wn = warp / 4;
+  const int n0 = blockIdx.x * DBN + wn * 32;  // this warp's 4 column groups of 8
+  const int m_tiles = (M + DBM - 1) / DBM;
+  for (int tile = blockIdx.y; tile < m_tiles; tile += gridDim.y) {
+    const int r0 = tile * DBM + wm * 16 + gid, r8 = r0 + 8;
+    // rows past M read row 0: their outputs are not stored
+    const float* p0 = dxg + (size_t)(r0 < M ? r0 : 0) * G;
+    const float* p8 = dxg + (size_t)(r8 < M ? r8 : 0) * G;
+    float acc[4][4] = {};
+    for (int ks = 0; ks < (G + 7) / 8; ++ks) {
+      const int k0 = ks * 8 + tig, k1 = k0 + 4;
+      const bool v0 = k0 < G, v1 = k1 < G;
+      uint32_t ah[4], al[4];
+      split(v0 ? p0[k0] : 0.f, ah[0], al[0]);
+      split(v0 ? p8[k0] : 0.f, ah[1], al[1]);
+      split(v1 ? p0[k1] : 0.f, ah[2], al[2]);
+      split(v1 ? p8[k1] : 0.f, ah[3], al[3]);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < G; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;  // row r of the tile, depth c
-      const int gr = row0 + r, gc = k0 + c;
-      gs[c][r] = (gr < M && gc < G) ? dxg[(size_t)gr * G + gc] : 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + 8 * j + gid;  // B (k, n) = W_ih[n][k]
+        uint32_t b0h, b0l, b1h, b1l;
+        split(n < E && v0 ? w[(size_t)n * G + k0] : 0.f, b0h, b0l);
+        split(n < E && v1 ? w[(size_t)n * G + k1] : 0.f, b1h, b1l);
+        mma3_add(acc[j], ah, al, b0h, b1h, b0l, b1l);
+      }
     }
-    for (int i = tid; i < BN * BK; i += THREADS) {
-      const int n = i / BK, c = i % BK;  // W_ih row col0 + n, depth c
-      const int gn = col0 + n, gc = k0 + c;
-      ws[c][n] = (gn < E && gc < G) ? w[(size_t)gn * G + gc] : 0.f;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bv[TN];
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 8 * j + 2 * tig;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = gs[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = ws[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + i * TY;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + j * TX;
-      if (c < E) dx[(size_t)r * E + c] = acc[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r8 : r0;
+        if (r >= M) continue;
+        if (c < E) dx[(size_t)r * E + c] = acc[j][2 * h];
+        if (c + 1 < E) dx[(size_t)r * E + c + 1] = acc[j][2 * h + 1];
+      }
     }
   }
+}
+
+template <class Kernel>
+int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_block,
+           const float* dxg, const float* w, float* dx, int M, int G, int E,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const int col_tiles = (E + bn - 1) / bn;
+  const int m_tiles = (M + bm - 1) / bm;
+  const int resident = std::max(per_sm, 1) * sms;
+  // blocks per column tile; each block walks `per_block` row tiles at once
+  const int walkers = std::max(1, std::min((m_tiles + per_block - 1) / per_block,
+                                           (resident + col_tiles - 1) / col_tiles));
+  // float4 loads of dxg's rows: G a multiple of 4 and dxg 16-byte aligned
+  const bool vec = G % 4 == 0 && (reinterpret_cast<uintptr_t>(dxg) & 15) == 0;
+  kernel<<<dim3(col_tiles, walkers), threads, smem, stream>>>(dxg, w, dx, M, G, E, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -105,10 +321,17 @@ gru_input_proj_dx_kernel(const float* __restrict__ dxg, const float* __restrict_
 extern "C" int gru_input_proj_dx(const float* dxg, const float* w, float* dx, int M, int G,
                                  int E, void* stream) {
   if (M == 0 || E == 0) return 0;
-  const dim3 grid((E + BN - 1) / BN, (M + BM - 1) / BM);
-  gru_input_proj_dx_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dxg, w, dx, M, G, E);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E <= 56 && wide_smem(G, 56) <= SMEM_LIMIT)
+    return launch(gru_input_proj_dx_wgmma<56>, WG * WGS, wide_smem(G, 56), BM, 56, WGS, dxg,
+                  w, dx, M, G, E, s);
+  if (E <= 64 && wide_smem(G, 64) <= SMEM_LIMIT)
+    return launch(gru_input_proj_dx_wgmma<64>, WG * WGS, wide_smem(G, 64), BM, 64, WGS, dxg,
+                  w, dx, M, G, E, s);
+  if (E > 64 && wide_smem(G, 128) <= SMEM_LIMIT)
+    return launch(gru_input_proj_dx_wgmma<128>, WG * WGS, wide_smem(G, 128), BM, 128, WGS,
+                  dxg, w, dx, M, G, E, s);
+  return launch(gru_input_proj_dx_deep, THREADS, 0, DBM, DBN, 1, dxg, w, dx, M, G, E, s);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,5 +1,6 @@
-// Building blocks shared by K1 (gru_input_proj.cu) and K4
-// (gru_input_proj_bwd.cu): f32-accurate products on the tensor cores
+// Building blocks shared by K1 (gru_input_proj.cu), K4
+// (gru_input_proj_bwd.cu), K7 (affinity_tiles.cu) and K9
+// (gru_input_proj_dx.cu): f32-accurate products on the tensor cores
 // (3xTF32) with mma.sync and wgmma, and cp.async copies into shared
 // memory.
 //
@@ -226,6 +227,20 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1..15) over `threads` threads of the block
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// cp.async of `bytes` (16 or 0) from src, the rest of the 16 zero-filled
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// cp.async of `bytes` (4 or 0) from src, the rest of the 4 zero-filled
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
 }
 
 }  // namespace tf32x3

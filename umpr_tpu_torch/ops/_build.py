@@ -79,18 +79,25 @@ def build(names=SOURCES):
     return logs
 
 
-def kernel_function(name, argtypes):
-    """The C function ``name`` of ``csrc/<name>.cu``, built and loaded at
-    first use, with its argument types set.  Returns (function,
-    error_string function)."""
+def library(name):
+    """The ctypes library of ``csrc/<name>.cu``, built and loaded at first
+    use."""
     with _lock:
         if name not in _libs:
             build([name])
             lib = ctypes.CDLL(str(_target(name)[1]))
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
-        lib = _libs[name]
-    return getattr(lib, name), lib.error_string
+        return _libs[name]
+
+
+def kernel_function(name, argtypes):
+    """The C function ``name`` of ``csrc/<name>.cu``, built and loaded at
+    first use, with its argument types set.  Returns (function,
+    error_string function)."""
+    lib = library(name)
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn, lib.error_string

@@ -11,7 +11,9 @@ whole-tile kernel of ``use_pallas=True``):
   tile, T = gru_i @ M; per row its masked max over existing columns and
   the first column reaching it (final), per 128-row tile and column the
   masked max over the tile's existing rows and the first row reaching it
-  (partials).  A never reaches device memory;
+  (partials).  A never reaches device memory.  Up to D = 128 the products
+  run on the tensor cores as 3xTF32 wgmma (f32-accurate), U's column
+  tiles streamed through a cp.async ring; past it a CUDA-core kernel;
 - K8 ``affinity_finish`` (csrc/affinity_finish.cu): the partials combined
   in a fixed order into colmax / amax_u, both masked softmaxes, and the
   attended vectors atte_u = soft_u^T U, atte_i = soft_i^T I.

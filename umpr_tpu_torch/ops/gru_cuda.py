@@ -11,19 +11,23 @@ Forward:
   (f32-accurate, as B3's Precision.HIGHEST; csrc/tf32x3.cuh);
 - K2 ``bigru_recurrence`` (csrc/bigru_recurrence.cu) replaces B1 (the
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
-  time, exact zeros past each length.
+  time, exact zeros past each length; W_hh in shared memory up to H = 128,
+  in L2 past that (any H).
 
 Backward:
 
 - K3 ``bigru_backward`` (csrc/bigru_backward.cu) replaces B7 (the sum of
   the two output cotangents) and B2 (the reverse sweep): dxg in true time,
-  dW_hh and db_hh; the states come from y, so K2 emits no ``hs``;
+  dW_hh and db_hh; the states come from y, so K2 emits no ``hs``; any H
+  (past the shared-memory kernel's four, a wide sweep and a split-K
+  reduction of dW_hh);
 - K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
   with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg), 3xTF32
   over a fixed split of the rows into chunks, whose partials a second
   kernel of the same launch sums in a fixed order;
 - K9 ``gru_input_proj_dx`` (csrc/gru_input_proj_dx.cu) replaces B4's
-  ``emit_dxc=True`` branch: the input gradient dx = dxg @ W_ih^T, launched
+  ``emit_dxc=True`` branch: the input gradient dx = dxg @ W_ih^T, K1's
+  persistent 3xTF32 wgmma design transposed (no grid cap), launched
   only when x requires grad (every UMPR config feeds the frozen
   embedding, and pays nothing for it).
 
@@ -202,6 +206,15 @@ def _check_recurrence(name, xg, lengths, w_hh, b_hh):
     return N, L, H
 
 
+def _scratch(name, N, H, device):
+    """The global scratch buffer the wide K2/K3 kernels need at (N, H),
+    as the library's ``<name>_scratch`` sizes it: empty where their state
+    fits the shared memory (every H up to 725 for K3, 1814 for K2)."""
+    fn = getattr(_build.library(name), f"{name}_scratch")
+    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
+    return torch.empty(fn(N, H), device=device, dtype=torch.float32)
+
+
 def bigru_recurrence(xg, lengths, w_hh, b_hh):
     """K2: xg (N, L, 6H) f32, lengths (N,) int32, w_hh (2, H, 3H) f32,
     b_hh (2, 3H) f32 -> y (N, L, 2H) f32."""
@@ -209,13 +222,11 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
         return bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
     _device_kernel("bigru_recurrence", xg, w_hh, b_hh)
     N, L, H = _check_recurrence("bigru_recurrence", xg, lengths, w_hh, b_hh)
-    if H > 128:
-        raise ValueError(f"bigru_recurrence: H={H} > 128 does not fit the "
-                         "block's shared memory")
     y = torch.empty(N, L, 2 * H, device=xg.device, dtype=torch.float32)
-    _launch("bigru_recurrence", [_P] * 5 + [_I] * 3 + [_P],
+    scratch = _scratch("bigru_recurrence", N, H, xg.device)
+    _launch("bigru_recurrence", [_P] * 6 + [_I] * 3 + [_P],
             xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            b_hh.data_ptr(), y.data_ptr(), N, L, H)
+            b_hh.data_ptr(), y.data_ptr(), scratch.data_ptr(), N, L, H)
     bigru_recurrence.launches += 1
     return y
 
@@ -223,7 +234,21 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
 bigru_recurrence.launches = 0
 
 BWD_ROWS = 16  # sentence rows per K3 block (csrc/bigru_backward.cu ROWS)
-BWD_H = (32, 64, 96, 128)  # hidden sizes K3 is compiled for
+BWD_H = (32, 64, 96, 128)  # the H of K3's shared-memory kernel; any other
+                           # H takes its wide route
+# The wide route reduces dW_hh / db_hh over a fixed split of the N*L rows:
+# at least BWD_MIN_ROWS rows a chunk, at most BWD_MAX_CHUNKS chunks (the
+# partials, chunks x 2 x 3H^2 floats, stay under 201 MB at H = 256).
+BWD_MIN_ROWS = 1024
+BWD_MAX_CHUNKS = 128
+
+
+def bwd_chunks(M):
+    """K3's wide-route split of M rows: (rows per chunk, chunk count).  A
+    function of M alone, so the partials and their fixed-order sum give
+    the same bits on every card."""
+    rows = max(BWD_MIN_ROWS, -(-M // BWD_MAX_CHUNKS))
+    return rows, max(1, -(-M // rows))
 
 
 def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
@@ -232,7 +257,8 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
     w_hh (2, H, 3H), b_hh (2, 3H), f32 -> (dxg (N, L, 6H), dw_hh
     (2, H, 3H), db_hh (2, 3H)).
 
-    The kernel writes one dW_hh/db_hh partial per 16-row tile; they are
+    The kernel writes dW_hh/db_hh partials, one per 16-row tile (H in
+    BWD_H) or per chunk of ``bwd_chunks(N*L)`` (any other H); they are
     summed here in a fixed order (no atomics), so the result is the same
     on every run."""
     if xg.device.type == "cpu":
@@ -248,17 +274,23 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
             f"bigru_backward: shapes y {tuple(y.shape)}, dy_sent "
             f"{tuple(dy_sent.shape)}, dy_pos {tuple(dy_pos.shape)} do not "
             f"fit N={N}, L={L}, H={H}")
-    if H not in BWD_H:
-        raise ValueError(f"bigru_backward: H={H}; the kernel is built for "
-                         f"H in {BWD_H}")
-    tiles = -(-N // BWD_ROWS)
+    empty = torch.empty(0, device=xg.device, dtype=torch.float32)
+    if H in BWD_H:
+        rows, parts = 0, -(-N // BWD_ROWS)
+        w_hh_t, ghn, scratch = empty, empty, empty
+    else:
+        rows, parts = bwd_chunks(N * L)
+        w_hh_t = w_hh.transpose(1, 2).contiguous()
+        ghn = torch.empty(N, L, 2 * H, device=xg.device, dtype=torch.float32)
+        scratch = _scratch("bigru_backward", N, H, xg.device)
     dxg = torch.empty(N, L, 6 * H, device=xg.device, dtype=torch.float32)
-    dw_part = torch.empty(tiles, 2, H, 3 * H, device=xg.device, dtype=torch.float32)
-    db_part = torch.empty(tiles, 2, 3 * H, device=xg.device, dtype=torch.float32)
-    _launch("bigru_backward", [_P] * 10 + [_I] * 3 + [_P],
+    dw_part = torch.empty(parts, 2, H, 3 * H, device=xg.device, dtype=torch.float32)
+    db_part = torch.empty(parts, 2, 3 * H, device=xg.device, dtype=torch.float32)
+    _launch("bigru_backward", [_P] * 13 + [_I] * 4 + [_P],
             xg.data_ptr(), y.data_ptr(), dy_sent.data_ptr(), dy_pos.data_ptr(),
-            lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            dxg.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), N, L, H)
+            lengths.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+            dxg.data_ptr(), ghn.data_ptr(), scratch.data_ptr(), dw_part.data_ptr(),
+            db_part.data_ptr(), N, L, H, rows)
     bigru_backward.launches += 1
     return dxg, dw_part.sum(0), db_part.sum(0)
 
@@ -332,8 +364,6 @@ def gru_input_proj_dx(dxg, w):
     if w.shape[1] != G:
         raise ValueError(f"gru_input_proj_dx: dxg {tuple(dxg.shape)} and w "
                          f"{tuple(w.shape)} differ in 6H")
-    if M > 65535 * 64:
-        raise ValueError(f"gru_input_proj_dx: {M} rows exceed the grid")
     dx = torch.empty(M, E, device=dxg.device, dtype=torch.float32)
     _launch("gru_input_proj_dx", [_P] * 3 + [_I] * 3 + [_P],
             dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M, G, E)

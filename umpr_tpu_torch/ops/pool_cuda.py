@@ -2,7 +2,8 @@
 
 Two CUDA C++ kernels for Hopper carry the Pallas fused bias + ReLU + 2x2/2
 max-pool of the JAX package (umpr_tpu/ops/pool_pallas.py), which closes
-VGG16 blocks 1 and 2 at ``--vgg_fused_pool True``:
+the VGG16 blocks whose conv output is at least 56 pixels high and even
+(models/visual_net.py: blocks 1-3 at 224 px) at ``--vgg_fused_pool True``:
 
 - K5 ``bias_relu_pool`` (csrc/bias_relu_pool.cu) replaces B8a: the
   pooled relu(x + b) and the window's first argmax, from one read of the
