@@ -15,10 +15,12 @@
    VGG16 blocks they close at B=64, 224 px, bit for bit; K7 and K8 (the
    affinity attention) at the long-history shape (B=64, P=8192, D=128)
    and at B10's (P=400), on saturated inputs where every max is a tie,
-   and on NaN inputs.  K1-K4 and K9 also at H = 8, 100 and 256 (other
-   --gru_size values: K2/K3's wide routes), each launched twice for the
-   same bits; K9 past the old grid cap of 4,194,240 rows; K7/K8 at D = 16,
-   200 and 512 and a ragged P.
+   and on NaN inputs.  K3's time by kernel (hg pass, row order, sweep, dW
+   pass, reduce) beside two bounds.  K1-K4 and K9 also at H = 8, 100 and
+   256 (other --gru_size values; K2 and K3's L2 routes at 256), each
+   launched twice for the same bits; K3 at the long-history 1,048,576
+   rows; K9 past the old grid cap of 4,194,240 rows; K7/K8 at D = 16, 200
+   and 512 and a ragged P.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -50,8 +52,8 @@
    attention; training as in 4, with K7/K8 in every train step and
    evaluation batch and one step's gradients against the CPU's.
 8. UMPR-R training at ``--gru_size 100`` as in 4 (K2 with a ragged block,
-   K3's wide route, K9-free: the embedding is frozen), launch counts and
-   one step's gradients against the CPU.
+   K3 at a width off the 64-multiples, K9-free: the embedding is frozen),
+   launch counts and one step's gradients against the CPU.
 9. Print each phase's seconds and a ``{"kernels": [...]}`` line (launches:
    each kernel's main path -- the full-UMPR run for K1-K6, the long-history
    training for K7/K8, the input-gradient run for K9 -- and the other runs'
@@ -233,10 +235,9 @@ def profile_device(fn, steps):
     return kernels, wall_ms, events
 
 
-def device_ms(fn, steps=20):
-    """Device time per call of fn: its kernels' time under torch.profiler,
-    without the host's share that time_cuda's back-to-back calls may
-    measure.  None where the profiler recorded no device time.
+def device_split(fn, steps=20):
+    """{kernel name: device ms per call} of fn under torch.profiler, {}
+    where it recorded no device time.
 
     Each kernel counts its mean duration times its launches per call, its
     count over the window / `steps` rounded: every call of fn launches the
@@ -244,10 +245,61 @@ def device_ms(fn, steps=20):
     one launch's record (K7 timed 5 times read as 4 launches' time), which
     a total / `steps` would count as time the kernel did not take."""
     kernels, _, _ = profile_device(fn, steps)
-    if not kernels:
-        return None
-    return sum(e.self_device_time_total / e.count / 1e3 * max(1, round(e.count / steps))
-               for e in kernels)
+    return {e.key: e.self_device_time_total / e.count / 1e3 * max(1, round(e.count / steps))
+            for e in kernels}
+
+
+def device_ms(fn, steps=20):
+    """Device time per call of fn: its kernels' time under torch.profiler
+    (``device_split`` summed), without the host's share that time_cuda's
+    back-to-back calls may measure.  None where the profiler recorded no
+    device time."""
+    split = device_split(fn, steps)
+    return sum(split.values()) if split else None
+
+
+# K3's kernels by part, as csrc/bigru_backward*.cu* name them
+K3_PARTS = (("hg pass", ("bigru_backward_hg",)), ("row order", ("bigru_backward_order",)),
+            ("sweep", ("bigru_backward_sweep", "bigru_backward_wide")),
+            ("dW pass", ("bigru_backward_dw",)), ("reduce", ("bigru_backward_reduce",)))
+
+
+def k3_split(fn, steps=10):
+    """K3's device ms per call by part (hg pass, row order, sweep, dW
+    pass, reduce); None for a part the profiler did not see."""
+    split = device_split(fn, steps)
+    out = {}
+    for part, kernels in K3_PARTS:
+        ms = [t for name, t in split.items()
+              if any(re.search(rf"\b{k}\s*[(<]", name) for k in kernels)]
+        out[part] = sum(ms) if ms else None
+    return out
+
+
+def k3_bound(lengths, H, dxg_numel):
+    """K3's bound at this run's lengths, both accountings: each direction
+    reads xg, h_prev (y) and both cotangents only at valid steps, dxg is
+    written in full, and three (H x 3H) products run per valid step and
+    direction.  "bound_ms": the hg and dW products as 3xTF32 at the TF32
+    tensor-core rate (three products each), the sweep's ghh @ W^T in f32;
+    "bound_ms_f32": all three in f32 (PR 6's yardstick)."""
+    valid = int(lengths.sum())
+    n_bytes = 4 * (2 * valid * (3 * H + H + 2 * H) + dxg_numel + 2 * 2 * H * 3 * H
+                   + 2 * 2 * 3 * H + lengths.numel())
+    product = 2 * valid * 2 * H * 3 * H  # one (H x 3H) product, both directions
+    t_bound, by = bound(n_bytes, product, tf32_flops=3 * 2 * product)
+    t_f32, by_f32 = bound(n_bytes, 3 * product)
+    return {"bound_ms": t_bound, "bound_by": by, "bound_ms_f32": t_f32,
+            "bound_by_f32": by_f32,
+            "bound_accounting": "bytes: xg, y, dy_sent, dy_pos at valid steps, dxg "
+                                "written in full; operations: hg and dW products "
+                                "3xTF32 at the TF32 rate, the sweep's in f32 "
+                                "(bound_ms_f32: all three in f32)"}
+
+
+def k3_print_split(parts, where=""):
+    print(f"K3 bigru_backward{where} by kernel (device ms per call): "
+          + ", ".join(f"{part} {_ms(ms)}" for part, ms in parts.items()))
 
 
 def timed(kernel, plain, library, iters=20, plain_iters=20, lib_iters=20):
@@ -440,24 +492,22 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
               f"{cudnn_rel:.3e}")
         lib_ms, lib_device_ms = time_cuda(library), device_ms(library)
 
-    # this run's lengths: each direction reads xg, h_prev (y) and both
-    # cotangents only at valid steps and does three (H x 3H) products there
-    valid = int(lengths.sum())
-    t_bound, by = bound(
-        4 * (2 * valid * (3 * H + H + 2 * H) + dxg.numel() + 2 * w_hh.numel()
-             + 2 * b_hh.numel() + lengths.numel()),
-        2 * valid * 3 * 2 * H * 3 * H)
+    k3 = lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh,  # noqa: E731
+                                         b_hh)
+    parts = k3_split(k3)
+    k3_print_split(parts)
     rows.append({
         "name": "bigru_backward", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/bigru_backward.cu",
         "replaces": "umpr_tpu/ops/gru_pallas.py:698",
         "also_replaces": ["umpr_tpu/ops/gru_pallas.py:501"],
         "max_abs_err": err, "max_rel_err_dw_db": rel,
-        **timed(lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
-                lambda: gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh,
-                                                    b_hh), None, plain_iters=3),
+        **timed(k3, lambda: gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh,
+                                                        b_hh), None, plain_iters=3),
         "library_ms": lib_ms, "library_device_ms": lib_device_ms,
-        "bound_ms": t_bound, "bound_by": by,
+        **k3_bound(lengths, H, dxg.numel()),
+        "device_ms_by_kernel": parts,
+        "partials": gru_cuda.bwd_chunks(N * L)[1],
         "library_call": "torch.autograd.grad of nn.GRU(bidirectional) on "
                         "pack_padded_sequence w.r.t. its weights (projection "
                         "backward included)"})
@@ -542,14 +592,15 @@ def input_grad_past_cap(device, E=50, H=64):
     return rel
 
 
-GRU_WIDTHS = (8, 100, 256)  # --gru_size values off K3's shared-memory kernel
+GRU_WIDTHS = (8, 100, 256)  # --gru_size values off the default 64
 
 
 def gru_width_phase(device, widths=GRU_WIDTHS, N=640, L=20, E=50):
     """K1-K4 and K9 against their plain versions at other --gru_size values
-    (H = 8 and 100: the shared-memory K2 with a ragged block, K3's wide
-    route; H = 256: both wide), each launched twice for the same bits.
-    Returns {H: {kernel: device ms}} for K2 and K3."""
+    (H = 8 and 100: the shared-memory K2 with a ragged block, K3's sweep
+    at a runtime H; H = 256: both L2 routes), each launched twice for the
+    same bits.  Returns {H: {kernel: device ms}} for K2 and K3, and K3's
+    by kernel."""
     times = {}
     for H in widths:
         g = torch.Generator().manual_seed(H)
@@ -598,16 +649,68 @@ def gru_width_phase(device, widths=GRU_WIDTHS, N=640, L=20, E=50):
                 lambda: gru_cuda.bigru_recurrence(xg3, lengths, w_hh, b_hh), steps=5),
             "bigru_backward": device_ms(
                 lambda: gru_cuda.bigru_backward(xg3, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
+                steps=5),
+            "bigru_backward_by_kernel": k3_split(
+                lambda: gru_cuda.bigru_backward(xg3, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
                 steps=5)}
         print(f"bi-GRU kernels at H={H} (N={N}, L={L}, E={E}): max|kernel - plain| "
               + ", ".join(f"{k} {v:.3e} (tolerance {tols[k]:.0e})" for k, v in errs.items())
               + f"; second launches same bits {same}; device ms K2 "
               f"{_ms(times[H]['bigru_recurrence'])}, K3 {_ms(times[H]['bigru_backward'])}")
+        k3_print_split(times[H]["bigru_backward_by_kernel"], f" at H={H}")
         if not (same and all(errs[k] <= tols[k] for k in errs)):
             raise AssertionError(f"a bi-GRU kernel disagrees with its plain version at H={H}")
         del outs, ref_y, ref3, ref4, xg, y, dxg, dx
         torch.cuda.empty_cache()
     return times
+
+
+LONG_K3_SHAPE = (16384, 64, 50, 64)  # N = 2*B*S (user and item), L, E, H: 1,048,576 rows
+
+
+def long_history_backward_phase(device, shape=LONG_K3_SHAPE):
+    """K3 against its plain version at the long-history shape (N*L =
+    1,048,576 token rows, two full rows side by side), a second launch the
+    same bits, exact zeros past each length; its device time by kernel.
+    Returns {part: device ms per call, "partials": chunk count}."""
+    N, L, E, H = shape
+    g = torch.Generator().manual_seed(13)
+    x = (torch.randn(N * L, E, generator=g) * 0.5).to(device)
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    lengths[0], lengths[1] = L, L
+    lengths = lengths.to(device)
+    gru = BiGRU(E, H, generator=g).to(device)
+    w_ih, b_ih, w_hh, b_hh = gru.kernel_operands()
+    xg = gru_cuda.gru_input_proj(x, w_ih, b_ih).view(N, L, 6 * H)
+    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
+    dy_sent = torch.randn(N, L, 2 * H, generator=g).to(device)
+    dy_pos = torch.randn(N // 128, 128 * L, 2 * H, generator=g).to(device)
+    del x
+    out = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    ref = gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    err = (out[0] - ref[0]).abs().max().item()
+    rel = max(_rel_err(out[1], ref[1]), _rel_err(out[2], ref[2]))
+    del ref
+    past = torch.arange(L, device=device)[None, :] >= lengths[:, None]
+    zeros = bool((out[0][past] == 0).all())
+    again = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    same = all(torch.equal(a, b) for a, b in zip(again, out))
+    del again, out
+    print(f"K3 bigru_backward at the long-history shape (N={N}, L={L}, H={H}, "
+          f"{N * L} rows): dxg max|kernel - plain| = {err:.3e} (tolerance "
+          f"{K3_DXG_TOL:.0e}); dW_hh, db_hh max relative {rel:.3e} (tolerance "
+          f"{SUM_RTOL:.0e}); zeros past each length {zeros}; second launch same bits "
+          f"{same}")
+    if not (err <= K3_DXG_TOL and rel <= SUM_RTOL and zeros and same):
+        raise AssertionError("K3 disagrees with its plain version at the long-history shape")
+    parts = k3_split(lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh,
+                                                     b_hh), steps=5)
+    k3_print_split(parts, " at the long-history shape")
+    del xg, y, dy_sent, dy_pos
+    torch.cuda.empty_cache()
+    return {**parts, "partials": gru_cuda.bwd_chunks(N * L)[1], "max_abs_err": err,
+            "max_rel_err_dw_db": rel}
 
 
 # the VGG16 blocks that close with K5/K6 at B=64, 224 px (conv output H >=
@@ -1430,7 +1533,7 @@ def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20)
 def port_kernel_names():
     """The names of the port's CUDA kernels, read from csrc/*.cu."""
     pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
-    return {name for src in _build.CSRC.glob("*.cu")
+    return {name for src in _build.CSRC.glob("*.cu*")
             for name in pattern.findall(src.read_text())}
 
 
@@ -1503,6 +1606,7 @@ def main():
     with torch.no_grad():
         kernels = phase("gru kernels", kernel_phase, device)
         widths = phase("gru kernels at other widths", gru_width_phase, device)
+        k3_long = phase("K3 at the long-history shape", long_history_backward_phase, device)
         kernels += phase("input-gradient kernel", input_grad_kernel_phase, device)
         kernels += phase("pool kernels", pool_kernel_phase, device)
         kernels += phase("attention kernels", attention_kernel_phase, device)
@@ -1530,6 +1634,10 @@ def main():
             k[f"launches_{run}"] = counts[k["name"]]
         if k["name"] in ("bigru_recurrence", "bigru_backward"):
             k["device_ms_at_gru_size"] = {H: t[k["name"]] for H, t in widths.items()}
+        if k["name"] == "bigru_backward":
+            k["device_ms_by_kernel_at_gru_size"] = {
+                H: t["bigru_backward_by_kernel"] for H, t in widths.items()}
+            k["at_long_history_shape"] = k3_long
     print(f"phase seconds: {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

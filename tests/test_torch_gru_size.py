@@ -61,8 +61,8 @@ def test_bigru_split_matches_the_jax_scan_route(seed):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_bigru_split_grads_match_jax_grad_of_the_scan_route(seed):
-    """dx and every weight's gradient: K3's wide route, K4 and K9 at H =
-    100 on the card; their plain versions here."""
+    """dx and every weight's gradient: K3, K4 and K9 at H = 100 on the
+    card; their plain versions here."""
     jparams, gru, x, lengths, S, c_pos, c_sent = _setup(seed)
 
     def loss(p, xj):
@@ -112,10 +112,17 @@ def test_umpr_r_train_step_at_gru_size_100_matches_jax(seed):
 
 @pytest.mark.parametrize("M", [1, 1023, 1024, 1025, 2600, 51200, 131072, 131073, 1048576])
 def test_bwd_chunks_depend_on_m_alone_and_cover_every_row_once(M):
-    """K3's wide route splits the N*L rows into chunks that depend on M
-    alone (the same partials, so the same bits, on every card), at most
-    BWD_MAX_CHUNKS of at least BWD_MIN_ROWS rows."""
+    """K3's dW pass splits the N*L rows into chunks that depend on M alone
+    (the same partials, so the same bits, on every card): rows a multiple
+    of the K4 stage it shares, at most PROJ_BWD_MAX_ROWS (the tensor
+    core's chains as short as K4's), about BWD_CHUNKS chunks while that
+    cap allows, the last one not empty."""
+    import inspect
+    assert list(inspect.signature(gru_cuda.bwd_chunks).parameters) == ["M"]
     rows, chunks = gru_cuda.bwd_chunks(M)
     assert (rows, chunks) == gru_cuda.bwd_chunks(M)
     assert (chunks - 1) * rows < M <= chunks * rows
-    assert rows >= gru_cuda.BWD_MIN_ROWS and chunks <= gru_cuda.BWD_MAX_CHUNKS
+    assert rows % gru_cuda.PROJ_BWD_STEP == 0
+    assert 0 < rows <= gru_cuda.PROJ_BWD_MAX_ROWS
+    if rows < gru_cuda.PROJ_BWD_MAX_ROWS:
+        assert chunks <= gru_cuda.BWD_CHUNKS

@@ -94,6 +94,8 @@ def _backward_inputs(cuda, N, L, H, lengths_kind, E=17, S=1):
         lengths[:] = 1
     elif lengths_kind == "all_L":
         lengths[:] = L
+    elif lengths_kind == "adjacent_L":  # two full rows side by side
+        lengths[0], lengths[1], lengths[-1] = L, L, 1
     else:
         lengths[0], lengths[-1] = L, 1
     lengths = lengths.to(cuda)
@@ -118,12 +120,20 @@ def _close_rel(got, want, rtol):
     (300, 20, 64, "mixed"), (64, 20, 64, "all_1"), (64, 20, 64, "all_L"),
     (50, 9, 128, "mixed"), (33, 6, 96, "mixed"), (37, 5, 8, "mixed"), (50, 9, 100, "mixed"),
     (64, 20, 100, "all_L"), (40, 7, 256, "mixed"), (20, 4, 48, "mixed"), (20, 4, 192, "all_1"),
-    (130, 20, 100, "mixed"), (9, 3, 800, "mixed")])
+    (130, 20, 100, "mixed"), (9, 3, 800, "mixed"), (40, 9, 64, "adjacent_L"),
+    (40, 9, 100, "adjacent_L"), (40, 9, 256, "adjacent_L"), (65600, 16, 64, "mixed"),
+    (30, 7, 33, "mixed"), (20, 5, 1, "mixed")])
 def test_bigru_backward_matches_plain(cuda, N, L, H, lengths_kind):
-    """H outside 32, 64, 96, 128 (8, 48, 100, 192, 256, 800) takes the wide
-    route: a sweep with W_hh in L2 and a split-K reduction of dW_hh/db_hh
-    (N*L = 2,600 rows: three chunks); at H = 800 the sweep's state lies in
-    global scratch."""
+    """Every H runs the hg pass (wgmma, depth chunks of 128 past H = 128),
+    the row order, a sweep and the dW pass (3xTF32 split-K, then a
+    fixed-order sum).  Up to H = 128 the sweep keeps W_hh in shared memory
+    (KS slices: 16 at H = 8, 1 at H = 128); past it (192, 256, 800) the
+    wide sweep reads W_hh^T from L2, and at H = 800 its state lies in
+    global scratch.  Two full rows side by side (adjacent_L) fail unless
+    the dW pass masks h_prev at each direction's first step; 65,600 x 16 =
+    1,049,600 rows pass 2^20 and 2^16 - 1 blocks of 16 rows, in 864
+    chunks; H = 33 and 1 take the 4-byte copies and single stores of widths
+    that are not multiples of 4."""
     _, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _backward_inputs(
         cuda, N, L, H, lengths_kind)
     before = gru_cuda.bigru_backward.launches

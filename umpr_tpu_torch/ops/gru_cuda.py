@@ -18,9 +18,12 @@ Backward:
 
 - K3 ``bigru_backward`` (csrc/bigru_backward.cu) replaces B7 (the sum of
   the two output cotangents) and B2 (the reverse sweep): dxg in true time,
-  dW_hh and db_hh; the states come from y, so K2 emits no ``hs``; any H
-  (past the shared-memory kernel's four, a wide sweep and a split-K
-  reduction of dW_hh);
+  dW_hh and db_hh; the states come from y, so K2 emits no ``hs``.  One
+  launch runs three passes: hg = y @ W_hh on the tensor cores, a sweep
+  that keeps only the product on the carried gradient, and dW_hh / db_hh
+  on the tensor cores over a fixed split of the rows (any H; the plain
+  versions of the parts are ``bigru_backward_hg_ref``,
+  ``bigru_backward_sweep_ref`` and ``bigru_backward_dw_ref``);
 - K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
   with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg), 3xTF32
   over a fixed split of the rows into chunks, whose partials a second
@@ -123,6 +126,77 @@ def bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
             db_hh[d] += ghh.sum(0)
             g = torch.where(valid, g * z + ghh @ w_hh[d].t(), g)
     return dxg, dw_hh, db_hh
+
+
+def bigru_backward_hg_ref(y, w_hh):
+    """Plain version of K3's hg pass: y (N, L, 2H), w_hh (2, H, 3H) ->
+    Z (N, L, 6H), Z[..., 3H d:3H (d+1)] = y_d @ w_hh[d] (no bias), the
+    gate pre-activations of the state y holds, for both directions."""
+    H = w_hh.shape[1]
+    return torch.cat([y[..., H * d:H * (d + 1)] @ w_hh[d] for d in (0, 1)], -1)
+
+
+def bigru_backward_sweep_ref(xg, y, z, dy_sent, dy_pos, lengths, w_hh, b_hh):
+    """Plain version of K3's sweep: ``bigru_backward_ref`` with hg read
+    from the hg pass's Z (N, L, 6H) at the step where y holds h_prev, and
+    no dW.  Where h_prev is known to be zero (tp outside [0, length)) hg
+    is b_hh alone.  -> (dxg (N, L, 6H), ghn (N, L, 2H) = dn * r, the
+    third part of ghh; both zero at invalid steps)."""
+    N, L, _ = xg.shape
+    H = w_hh.shape[1]
+    dy = dy_sent + dy_pos.reshape(N, L, 2 * H)
+    dxg = xg.new_zeros(N, L, 6 * H)
+    ghn = xg.new_zeros(N, L, 2 * H)
+    for d, steps in ((0, range(L - 1, -1, -1)), (1, range(L))):
+        g = xg.new_zeros(N, H)
+        for t in steps:
+            valid = (t < lengths)[:, None]
+            tp = t - 1 if d == 0 else t + 1
+            if 0 <= tp < L:
+                prev = (tp < lengths)[:, None]
+                hg = torch.where(prev, z[:, tp, 3 * H * d:3 * H * (d + 1)], 0.0) + b_hh[d]
+                hp = torch.where(prev, y[:, tp, H * d:H * (d + 1)], 0.0)
+            else:
+                hg, hp = b_hh[d].expand(N, 3 * H), xg.new_zeros(N, H)
+            x = xg[:, t, 3 * H * d:3 * H * (d + 1)]
+            r = torch.sigmoid(x[:, :H] + hg[:, :H])
+            zg = torch.sigmoid(x[:, H:2 * H] + hg[:, H:2 * H])
+            n = torch.tanh(x[:, 2 * H:] + r * hg[:, 2 * H:])
+            g = g + torch.where(valid, dy[:, t, H * d:H * (d + 1)], 0.0)
+            dn = torch.where(valid, g * (1.0 - zg) * (1.0 - n * n), 0.0)
+            dz = torch.where(valid, g * (hp - n) * zg * (1.0 - zg), 0.0)
+            dr = torch.where(valid, dn * hg[:, 2 * H:] * r * (1.0 - r), 0.0)
+            dxg[:, t, 3 * H * d:3 * H * (d + 1)] = torch.cat([dr, dz, dn], 1)
+            ghn[:, t, H * d:H * (d + 1)] = dn * r
+            ghh = torch.cat([dr, dz, dn * r], 1)
+            g = torch.where(valid, g * zg + ghh @ w_hh[d].t(), g)
+    return dxg, ghn
+
+
+def bigru_backward_dw_ref(y, dxg, ghn):
+    """Plain version of K3's dW pass over the N*L rows m = n L + t:
+    dW_hh[d] = sum_m h_prev[m]^T ghh[m], db_hh[d] = sum_m ghh[m], with ghh
+    = [dr | dz | dn r] from dxg and ghn and h_prev the row m - 1 (fwd) or
+    m + 1 (bwd) of y, zero at each direction's first step (t = 0 fwd,
+    t = L - 1 bwd), where the shifted row belongs to another sentence.
+    -> (dw_hh (2, H, 3H), db_hh (2, 3H))."""
+    N, L, H2 = y.shape
+    H, M = H2 // 2, N * L
+    yf, dxf, gnf = y.reshape(M, H2), dxg.reshape(M, 3 * H2), ghn.reshape(M, H2)
+    t = torch.arange(M, device=y.device) % L
+    dw, db = [], []
+    for d in (0, 1):
+        ghh = torch.cat([dxf[:, 3 * H * d:3 * H * d + 2 * H], gnf[:, H * d:H * (d + 1)]], 1)
+        hp = y.new_zeros(M, H)
+        if d == 0:
+            hp[1:] = yf[:-1, :H]
+            hp[t == 0] = 0.0
+        else:
+            hp[:-1] = yf[1:, H:]
+            hp[t == L - 1] = 0.0
+        dw.append(hp.t() @ ghh)
+        db.append(ghh.sum(0))
+    return torch.stack(dw), torch.stack(db)
 
 
 def gru_input_proj_bwd_ref(x, dxg):
@@ -233,22 +307,42 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
 
 bigru_recurrence.launches = 0
 
-BWD_ROWS = 16  # sentence rows per K3 block (csrc/bigru_backward.cu ROWS)
-BWD_H = (32, 64, 96, 128)  # the H of K3's shared-memory kernel; any other
-                           # H takes its wide route
-# The wide route reduces dW_hh / db_hh over a fixed split of the N*L rows:
-# at least BWD_MIN_ROWS rows a chunk, at most BWD_MAX_CHUNKS chunks (the
-# partials, chunks x 2 x 3H^2 floats, stay under 201 MB at H = 256).
-BWD_MIN_ROWS = 1024
-BWD_MAX_CHUNKS = 128
+PROJ_BWD_STEP = 32  # rows per K4 pipeline stage (csrc/gru_input_proj_bwd.cu STEP)
+# K4 splits the rows into chunks, each one block per 128-column tile of 6H
+# and one dW/db partial.  Up to PROJ_BWD_CHUNKS chunks: 88 x 3 column tiles
+# (6H = 384) fill 132 SMs twice.  A chunk has at most PROJ_BWD_MAX_ROWS
+# rows: the tensor core accumulates a chunk's products in chains of rows/8
+# steps, and its accumulation rounds more coarsely than an f32 add, so the
+# chains stay short (at 1,048,576 rows: 863 chunks, partials 4.1% of dxg's
+# bytes).
+PROJ_BWD_CHUNKS = 88
+PROJ_BWD_MAX_ROWS = 1216
+
+
+def _row_chunks(M, target):
+    """About `target` chunks of M rows for a split-K pass: (rows per chunk,
+    a multiple of PROJ_BWD_STEP, at most PROJ_BWD_MAX_ROWS; chunk count)."""
+    per = -(-M // target)
+    rows = max(PROJ_BWD_STEP, -(-per // PROJ_BWD_STEP) * PROJ_BWD_STEP)
+    rows = min(rows, PROJ_BWD_MAX_ROWS)
+    return rows, max(1, -(-M // rows))
+
+
+BWD_SWEEP_MAX_H = 128  # K3's sweep keeps W_hh in shared memory up to here;
+                       # past it the wide sweep reads W_hh^T from L2
+# K3's dW pass splits the N*L rows into chunks, each a dW_hh/db_hh partial
+# of both directions (K4's kernels): about BWD_CHUNKS of them (2 column
+# tiles x 2 directions x 66 blocks at H = 64 fill 132 SMs twice), capped
+# as K4's are, so the tensor core's accumulation chains stay as short.
+BWD_CHUNKS = 66
 
 
 def bwd_chunks(M):
-    """K3's wide-route split of M rows: (rows per chunk, chunk count).  A
+    """K3's split of M = N*L rows for its dW pass: (rows per chunk, a
+    multiple of PROJ_BWD_STEP, at most PROJ_BWD_MAX_ROWS; chunk count).  A
     function of M alone, so the partials and their fixed-order sum give
     the same bits on every card."""
-    rows = max(BWD_MIN_ROWS, -(-M // BWD_MAX_CHUNKS))
-    return rows, max(1, -(-M // rows))
+    return _row_chunks(M, BWD_CHUNKS)
 
 
 def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
@@ -257,10 +351,10 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
     w_hh (2, H, 3H), b_hh (2, 3H), f32 -> (dxg (N, L, 6H), dw_hh
     (2, H, 3H), db_hh (2, 3H)).
 
-    The kernel writes dW_hh/db_hh partials, one per 16-row tile (H in
-    BWD_H) or per chunk of ``bwd_chunks(N*L)`` (any other H); they are
-    summed here in a fixed order (no atomics), so the result is the same
-    on every run."""
+    One launch of the C entry point runs the hg pass, the sweep (its rows
+    ordered by length) and the dW pass, whose partials
+    (``bwd_chunks(N*L)``) a last kernel sums in a fixed order (no float
+    atomics), so the result is the same on every run."""
     if xg.device.type == "cpu":
         return bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
     _device_kernel("bigru_backward", xg, y, dy_sent, dy_pos, w_hh, b_hh)
@@ -274,49 +368,35 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
             f"bigru_backward: shapes y {tuple(y.shape)}, dy_sent "
             f"{tuple(dy_sent.shape)}, dy_pos {tuple(dy_pos.shape)} do not "
             f"fit N={N}, L={L}, H={H}")
-    empty = torch.empty(0, device=xg.device, dtype=torch.float32)
-    if H in BWD_H:
-        rows, parts = 0, -(-N // BWD_ROWS)
-        w_hh_t, ghn, scratch = empty, empty, empty
-    else:
-        rows, parts = bwd_chunks(N * L)
-        w_hh_t = w_hh.transpose(1, 2).contiguous()
-        ghn = torch.empty(N, L, 2 * H, device=xg.device, dtype=torch.float32)
-        scratch = _scratch("bigru_backward", N, H, xg.device)
-    dxg = torch.empty(N, L, 6 * H, device=xg.device, dtype=torch.float32)
-    dw_part = torch.empty(parts, 2, H, 3 * H, device=xg.device, dtype=torch.float32)
-    db_part = torch.empty(parts, 2, 3 * H, device=xg.device, dtype=torch.float32)
-    _launch("bigru_backward", [_P] * 13 + [_I] * 4 + [_P],
+    dev, f32 = xg.device, torch.float32
+    w_hh_t = (w_hh.transpose(1, 2).contiguous() if H > BWD_SWEEP_MAX_H
+              else torch.empty(0, device=dev, dtype=f32))
+    rows, chunks = bwd_chunks(N * L)
+    dxg = torch.empty(N, L, 6 * H, device=dev, dtype=f32)  # holds the hg pass's Z first
+    ghn = torch.empty(N, L, 2 * H, device=dev, dtype=f32)
+    order = torch.empty(N, device=dev, dtype=torch.int32)  # the sweep's rows by length
+    scratch = _scratch("bigru_backward", N, H, dev)
+    part = torch.empty(chunks * 2 * (H + 1) * 3 * H, device=dev, dtype=f32)
+    out = torch.empty(2 * (H + 1) * 3 * H, device=dev, dtype=f32)
+    n_dw = 2 * H * 3 * H
+    _launch("bigru_backward", [_P] * 16 + [_I] * 4 + [_P],
             xg.data_ptr(), y.data_ptr(), dy_sent.data_ptr(), dy_pos.data_ptr(),
             lengths.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-            dxg.data_ptr(), ghn.data_ptr(), scratch.data_ptr(), dw_part.data_ptr(),
-            db_part.data_ptr(), N, L, H, rows)
+            dxg.data_ptr(), ghn.data_ptr(), order.data_ptr(), scratch.data_ptr(),
+            part.data_ptr(), part.data_ptr() + 4 * n_dw * chunks, out.data_ptr(),
+            out.data_ptr() + 4 * n_dw, N, L, H, rows)
     bigru_backward.launches += 1
-    return dxg, dw_part.sum(0), db_part.sum(0)
+    return dxg, out[:n_dw].view(2, H, 3 * H), out[n_dw:].view(2, 3 * H)
 
 
 bigru_backward.launches = 0
-
-PROJ_BWD_STEP = 32  # rows per K4 pipeline stage (csrc/gru_input_proj_bwd.cu STEP)
-# K4 splits the rows into chunks, each one block per 128-column tile of 6H
-# and one dW/db partial.  Up to PROJ_BWD_CHUNKS chunks: 88 x 3 column tiles
-# (6H = 384) fill 132 SMs twice.  A chunk has at most PROJ_BWD_MAX_ROWS
-# rows: the tensor core accumulates a chunk's products in chains of rows/8
-# steps, and its accumulation rounds more coarsely than an f32 add, so the
-# chains stay short (at 1,048,576 rows: 863 chunks, partials 4.1% of dxg's
-# bytes).
-PROJ_BWD_CHUNKS = 88
-PROJ_BWD_MAX_ROWS = 1216
 
 
 def proj_bwd_chunks(M):
     """K4's split of M rows: (rows per chunk, a multiple of PROJ_BWD_STEP;
     chunk count).  A function of M alone, never of the card, so the
     partials and their fixed-order sum give the same bits on every card."""
-    per = -(-M // PROJ_BWD_CHUNKS)
-    rows = max(PROJ_BWD_STEP, -(-per // PROJ_BWD_STEP) * PROJ_BWD_STEP)
-    rows = min(rows, PROJ_BWD_MAX_ROWS)
-    return rows, max(1, -(-M // rows))
+    return _row_chunks(M, PROJ_BWD_CHUNKS)
 
 
 def gru_input_proj_bwd(x, dxg):
