@@ -15,12 +15,13 @@
    VGG16 blocks they close at B=64, 224 px, bit for bit; K7 and K8 (the
    affinity attention) at the long-history shape (B=64, P=8192, D=128)
    and at B10's (P=400), on saturated inputs where every max is a tie,
-   and on NaN inputs.  K3's time by kernel (hg pass, row order, sweep, dW
-   pass, reduce) beside two bounds.  K1-K4 and K9 also at H = 8, 100 and
-   256 (other --gru_size values; K2 and K3's L2 routes at 256), each
-   launched twice for the same bits; K3 at the long-history 1,048,576
-   rows; K9 past the old grid cap of 4,194,240 rows; K7/K8 at D = 16, 200
-   and 512 and a ragged P.
+   and on NaN inputs; K8 also timed at B=8, P=8192.  K2's time by kernel
+   (row order, recurrence) and K3's (hg pass, row order, sweep, dW pass,
+   reduce) beside their bounds.  K1-K4 and K9 also at H = 8, 100 and 256
+   (other --gru_size values; K2 and K3's L2 routes at 256), each launched
+   twice for the same bits; K2 and K3 at the long-history 1,048,576 rows
+   (K2 timed there beside its bound); K9 past the old grid cap of
+   4,194,240 rows; K7/K8 at D = 16, 200 and 512 and a ragged P.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -68,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import json
 import re
@@ -258,22 +260,53 @@ def device_ms(fn, steps=20):
     return sum(split.values()) if split else None
 
 
-# K3's kernels by part, as csrc/bigru_backward*.cu* name them
-K3_PARTS = (("hg pass", ("bigru_backward_hg",)), ("row order", ("bigru_backward_order",)),
+# K2's and K3's kernels by part, as csrc/bigru_*.cu* and csrc/row_order.cuh
+# name them
+K2_PARTS = (("row order", ("bigru_row_order",)),
+            ("recurrence", ("bigru_recurrence_kernel", "bigru_recurrence_wide")))
+K3_PARTS = (("hg pass", ("bigru_backward_hg",)), ("row order", ("bigru_row_order",)),
             ("sweep", ("bigru_backward_sweep", "bigru_backward_wide")),
             ("dW pass", ("bigru_backward_dw",)), ("reduce", ("bigru_backward_reduce",)))
 
 
-def k3_split(fn, steps=10):
-    """K3's device ms per call by part (hg pass, row order, sweep, dW
-    pass, reduce); None for a part the profiler did not see."""
+def part_split(fn, parts, steps=10):
+    """A kernel's device ms per call by part (K2_PARTS: row order,
+    recurrence; K3_PARTS: hg pass, row order, sweep, dW pass, reduce);
+    None for a part the profiler did not see."""
     split = device_split(fn, steps)
     out = {}
-    for part, kernels in K3_PARTS:
+    for part, kernels in parts:
         ms = [t for name, t in split.items()
               if any(re.search(rf"\b{k}\s*[(<]", name) for k in kernels)]
         out[part] = sum(ms) if ms else None
     return out
+
+
+def k2_bound(lengths, y_numel, H):
+    """K2's bound at this run's lengths: both directions read xg only at
+    valid steps and do one (H x 3H) product per valid step; y is written
+    in full."""
+    valid = int(lengths.sum())
+    return bound(4 * (2 * valid * 3 * H + y_numel + 2 * H * 3 * H + 2 * 3 * H
+                      + lengths.numel()),
+                 2 * valid * 2 * H * 3 * H)
+
+
+def k2_check(xg, lengths, w_hh, b_hh, where=""):
+    """K2 against its plain version, exact zeros past each length and the
+    same bits on a second launch; raises where one fails.  Returns (y, max
+    abs error)."""
+    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    err = (y - gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh)).abs().max().item()
+    past = torch.arange(xg.shape[1], device=xg.device)[None, :] >= lengths[:, None]
+    zeros = bool((y[past] == 0).all())
+    same = torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
+    print(f"K2 bigru_recurrence{where}: max|kernel - plain| = {err:.3e} (tolerance "
+          f"{K2_TOL:.0e}); zeros past each length {zeros}; second launch same bits {same}")
+    if not (err <= K2_TOL and zeros and same):
+        raise AssertionError(f"K2 disagrees with its plain version{where}")
+    return y, err
 
 
 def k3_bound(lengths, H, dxg_numel):
@@ -297,8 +330,8 @@ def k3_bound(lengths, H, dxg_numel):
                                 "(bound_ms_f32: all three in f32)"}
 
 
-def k3_print_split(parts, where=""):
-    print(f"K3 bigru_backward{where} by kernel (device ms per call): "
+def print_split(kernel, parts):
+    print(f"{kernel} by kernel (device ms per call): "
           + ", ".join(f"{part} {_ms(ms)}" for part, ms in parts.items()))
 
 
@@ -367,12 +400,7 @@ def kernel_phase(device, N=2560, L=20, E=50, H=64):
         "library_call": "torch.addmm"})
 
     xg = xg.view(N, L, 6 * H)
-    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
-    torch.cuda.synchronize()
-    err = (y - gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh)).abs().max().item()
-    print(f"K2 bigru_recurrence: max|kernel - plain| = {err:.3e} (tolerance {K2_TOL:.0e})")
-    if not err <= K2_TOL:
-        raise AssertionError("K2 disagrees with its plain version")
+    y, err = k2_check(xg, lengths, w_hh, b_hh)
     # yardstick: cuDNN's bidirectional GRU over a packed batch (it projects
     # the input too); it also checks the masking semantics end to end
     lib = torch.nn.GRU(E, H, batch_first=True, bidirectional=True).to(device)
@@ -386,23 +414,19 @@ def kernel_phase(device, N=2560, L=20, E=50, H=64):
     y_lib = torch.nn.utils.rnn.pad_packed_sequence(
         library(), batch_first=True, total_length=L)[0]
     print(f"K1+K2 vs cuDNN packed GRU: max abs diff {(y - y_lib).abs().max().item():.3e}")
-    # bytes and operations of the valid steps this run's lengths need, both
-    # directions: xg is read only there, y is written in full
-    valid = int(lengths.sum())
-    t_bound, by = bound(
-        4 * (2 * valid * 3 * H + y.numel() + w_hh.numel() + b_hh.numel()
-             + lengths.numel()),
-        2 * valid * 2 * H * 3 * H)
+    t_bound, by = k2_bound(lengths, y.numel(), H)
+    k2 = lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)  # noqa: E731
+    k2_parts = part_split(k2, K2_PARTS)
+    print_split("K2 bigru_recurrence", k2_parts)
     rows.append({
         "name": "bigru_recurrence", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/bigru_recurrence.cu",
         "replaces": "umpr_tpu/ops/gru_pallas.py:205",
         "also_replaces": ["umpr_tpu/ops/gru_pallas.py:463"],
         "max_abs_err": err,
-        **timed(lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh),
-                lambda: gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), library,
+        **timed(k2, lambda: gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), library,
                 plain_iters=5),
-        "bound_ms": t_bound, "bound_by": by,
+        "bound_ms": t_bound, "bound_by": by, "device_ms_by_kernel": k2_parts,
         "library_call": "torch.nn.GRU(bidirectional) on pack_padded_sequence"})
     rows += backward_kernel_phase(x, xg, y, lengths, gru, lib)
     for r in rows:
@@ -494,8 +518,8 @@ def backward_kernel_phase(x, xg, y, lengths, gru, lib, S=20):
 
     k3 = lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh,  # noqa: E731
                                          b_hh)
-    parts = k3_split(k3)
-    k3_print_split(parts)
+    parts = part_split(k3, K3_PARTS)
+    print_split("K3 bigru_backward", parts)
     rows.append({
         "name": "bigru_backward", "route": "cuda",
         "source": "umpr_tpu_torch/csrc/bigru_backward.cu",
@@ -650,14 +674,14 @@ def gru_width_phase(device, widths=GRU_WIDTHS, N=640, L=20, E=50):
             "bigru_backward": device_ms(
                 lambda: gru_cuda.bigru_backward(xg3, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
                 steps=5),
-            "bigru_backward_by_kernel": k3_split(
+            "bigru_backward_by_kernel": part_split(
                 lambda: gru_cuda.bigru_backward(xg3, y, dy_sent, dy_pos, lengths, w_hh, b_hh),
-                steps=5)}
+                K3_PARTS, steps=5)}
         print(f"bi-GRU kernels at H={H} (N={N}, L={L}, E={E}): max|kernel - plain| "
               + ", ".join(f"{k} {v:.3e} (tolerance {tols[k]:.0e})" for k, v in errs.items())
               + f"; second launches same bits {same}; device ms K2 "
               f"{_ms(times[H]['bigru_recurrence'])}, K3 {_ms(times[H]['bigru_backward'])}")
-        k3_print_split(times[H]["bigru_backward_by_kernel"], f" at H={H}")
+        print_split(f"K3 bigru_backward at H={H}", times[H]["bigru_backward_by_kernel"])
         if not (same and all(errs[k] <= tols[k] for k in errs)):
             raise AssertionError(f"a bi-GRU kernel disagrees with its plain version at H={H}")
         del outs, ref_y, ref3, ref4, xg, y, dxg, dx
@@ -669,10 +693,11 @@ LONG_K3_SHAPE = (16384, 64, 50, 64)  # N = 2*B*S (user and item), L, E, H: 1,048
 
 
 def long_history_backward_phase(device, shape=LONG_K3_SHAPE):
-    """K3 against its plain version at the long-history shape (N*L =
-    1,048,576 token rows, two full rows side by side), a second launch the
-    same bits, exact zeros past each length; its device time by kernel.
-    Returns {part: device ms per call, "partials": chunk count}."""
+    """K2 and K3 against their plain versions at the long-history shape
+    (N*L = 1,048,576 token rows, two full rows side by side), a second
+    launch the same bits, exact zeros past each length; their device times
+    by kernel beside K2's bound.  Returns (K2's {device_ms, bound_ms, ...},
+    K3's {part: device ms per call, "partials": chunk count, ...})."""
     N, L, E, H = shape
     g = torch.Generator().manual_seed(13)
     x = (torch.randn(N * L, E, generator=g) * 0.5).to(device)
@@ -682,7 +707,18 @@ def long_history_backward_phase(device, shape=LONG_K3_SHAPE):
     gru = BiGRU(E, H, generator=g).to(device)
     w_ih, b_ih, w_hh, b_hh = gru.kernel_operands()
     xg = gru_cuda.gru_input_proj(x, w_ih, b_ih).view(N, L, 6 * H)
-    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
+    where = " at the long-history shape"
+    y, k2_err = k2_check(xg, lengths, w_hh, b_hh, where)
+    k2_parts = part_split(lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh),
+                          K2_PARTS, steps=5)
+    k2_bound_ms, k2_by = k2_bound(lengths, y.numel(), H)
+    k2_long = {"shape": [N, L, H], "max_abs_err": k2_err,
+               "device_ms": (sum(ms for ms in k2_parts.values() if ms is not None)
+                             if any(k2_parts.values()) else None),
+               "device_ms_by_kernel": k2_parts, "bound_ms": k2_bound_ms, "bound_by": k2_by}
+    print(f"bigru_recurrence{where}: device {_ms(k2_long['device_ms'])} ms (row order "
+          f"{_ms(k2_long['device_ms_by_kernel']['row order'])}); bound {k2_bound_ms:.4f} by "
+          f"{k2_by}")
     dy_sent = torch.randn(N, L, 2 * H, generator=g).to(device)
     dy_pos = torch.randn(N // 128, 128 * L, 2 * H, generator=g).to(device)
     del x
@@ -704,13 +740,136 @@ def long_history_backward_phase(device, shape=LONG_K3_SHAPE):
           f"{same}")
     if not (err <= K3_DXG_TOL and rel <= SUM_RTOL and zeros and same):
         raise AssertionError("K3 disagrees with its plain version at the long-history shape")
-    parts = k3_split(lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh,
-                                                     b_hh), steps=5)
-    k3_print_split(parts, " at the long-history shape")
+    parts = part_split(lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh,
+                                                       b_hh), K3_PARTS, steps=5)
+    print_split("K3 bigru_backward at the long-history shape", parts)
     del xg, y, dy_sent, dy_pos
     torch.cuda.empty_cache()
-    return {**parts, "partials": gru_cuda.bwd_chunks(N * L)[1], "max_abs_err": err,
-            "max_rel_err_dw_db": rel}
+    return k2_long, {**parts, "partials": gru_cuda.bwd_chunks(N * L)[1], "max_abs_err": err,
+                     "max_rel_err_dw_db": rel}
+
+
+# xg loaded at the step, after the product, not ahead of it
+K2_AFTER = [
+    ("bigru_recurrence.cu", "  if (maxlen > 0) fetch(d == 0 ? 0 : maxlen - 1);\n", ""),
+    ("bigru_recurrence.cu", "    if (s + 1 < maxlen) fetch(d == 0 ? t + 1 : t - 1);\n", ""),
+    ("bigru_recurrence.cu", "    // the gates: a valid step",
+     "    fetch(t);\n    // the gates: a valid step")]
+# K2's redesign, one step at a time taken back out of the final source
+# (csrc/bigru_recurrence.cu, csrc/row_order.cuh): (label, [(file, text,
+# replacement), ...]); python3 chip_smoke.py --steps builds and times each
+K2_STEPS = (
+    ("final", []),
+    ("rows in their own order", [("row_order.cuh", "row = k < N ? order[k] : -1;",
+                                  "row = k < N ? k : -1;")]),
+    ("W_hh copied a float at a time", [(
+        "bigru_recurrence.cu",
+        "for (int i = tid; i < H * G / 4; i += blockDim.x) smem4[i] = __ldg(src + i);",
+        "for (int i = tid; i < H * G; i += blockDim.x) w_s[i] = W[i];")]),
+    ("xg loaded after the product", K2_AFTER),
+    ("a second barrier a step", [(
+        "bigru_recurrence.cu",
+        "      if (row[i] >= 0) store_y(i, t, out);\n    }\n",
+        "      if (row[i] >= 0) store_y(i, t, out);\n    }\n    __syncthreads();\n")]),
+    ("2 units x 4 rows a thread", [(
+        "bigru_recurrence.cu",
+        "Tile tile_shape(int H) { return 4 * H <= MAX_THREADS ? Tile{1, 4} : Tile{2, 4}; }",
+        "Tile tile_shape(int H) { return Tile{2, 4}; }")]),
+    ("2 units x 8 rows a thread", [
+        ("bigru_recurrence.cu",
+         "Tile tile_shape(int H) { return 4 * H <= MAX_THREADS ? Tile{1, 4} : Tile{2, 4}; }",
+         "Tile tile_shape(int H) { return Tile{2, 8}; }"),
+        ("bigru_recurrence.cu", ": bigru_recurrence_kernel<2, 4>;",
+         ": bigru_recurrence_kernel<2, 8>;")]),
+    ("k unrolled by 4", [("bigru_recurrence.cu",
+                          "#pragma unroll 8\n    for (int k = 0; k < H; ++k) {",
+                          "#pragma unroll 4\n    for (int k = 0; k < H; ++k) {")]),
+    ("at most 85 registers (3 blocks an SM)", [
+        ("bigru_recurrence.cu", "__launch_bounds__(MAX_THREADS)",
+         "__launch_bounds__(MAX_THREADS, 3)")]),
+)
+
+
+def build_steps(name, steps, argtypes):
+    """csrc/<name>.cu (and the headers) with each entry of `steps` (label,
+    [(file, text, replacement), ...]) applied, built side by side into
+    build/chip_smoke/steps/<name>/ (one nvcc each, all at once) and loaded.
+    Prints each kernel's registers and spills.  Returns {label: the C
+    function `name`}."""
+    root = WORK / "steps" / name
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for i, (label, edits) in enumerate(steps):
+        src = root / str(i)
+        src.mkdir(parents=True)
+        for f in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / f"{name}.cu"]:
+            text = f.read_text()
+            for file, old, new in edits:
+                if file == f.name:
+                    if old not in text:
+                        raise AssertionError(f"step {label!r}: {old!r} is not in {file}")
+                    text = text.replace(old, new)
+            (src / f.name).write_text(text)
+        procs[label] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(src / "lib.so"),
+             str(src / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    fns = {}
+    for i, (label, proc) in enumerate(procs.items()):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} step {label!r} did not build:\n{out}")
+        lines = out.splitlines()
+        report = [f"{lines[j].split('for')[-1].strip()[:60]}: {lines[j + 1].strip()}; "
+                  f"{lines[j + 2].strip()}" for j, line in enumerate(lines[:-2])
+                  if "Function properties" in line]
+        print(f"{name} step {label!r}: built; " + " | ".join(report))
+        fn = getattr(ctypes.CDLL(str(root / str(i) / "lib.so")), name)
+        fn.argtypes = argtypes
+        fns[label] = fn
+    return fns
+
+
+def k2_steps_phase(device, shapes=((2560, 20, 64), LONG_K3_SHAPE[:2] + LONG_K3_SHAPE[3:])):
+    """K2's source with one step of its redesign taken back out at a time
+    (K2_STEPS), each built beside the final one and timed (device ms under
+    torch.profiler) at the UMPR-R and the long-history shapes, its output
+    held against the final kernel's within K2_TOL.  Returns {label:
+    {shape: device ms}}."""
+    fns = build_steps("bigru_recurrence", K2_STEPS,
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    times = {label: {} for label in fns}
+    for N, L, H in shapes:
+        g = torch.Generator().manual_seed(N)
+        xg = torch.randn(N, L, 6 * H, generator=g).to(device)
+        lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32).to(device)
+        w_hh = (torch.rand(2, H, 3 * H, generator=g) / H ** 0.5).to(device)
+        b_hh = (torch.rand(2, 3 * H, generator=g) / H ** 0.5).to(device)
+        order = torch.empty(N, device=device, dtype=torch.int32)
+        stream = torch.cuda.current_stream().cuda_stream
+        outs = {}
+        for label, fn in fns.items():
+            y = torch.empty(N, L, 2 * H, device=device)
+
+            def call(fn=fn, y=y):
+                err = fn(xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                         y.data_ptr(), order.data_ptr(), None, N, L, H, stream)
+                if err:
+                    raise AssertionError(f"K2 step {label!r} failed to launch: {err}")
+
+            call()
+            torch.cuda.synchronize()
+            outs[label] = y
+            times[label][f"{N}x{L}x{H}"] = device_ms(call, steps=10)
+        err = max((y - outs["final"]).abs().max().item() for y in outs.values())
+        print(f"K2 steps at (N, L, H) = {(N, L, H)}: device ms "
+              + ", ".join(f"{label} {_ms(t[f'{N}x{L}x{H}'])}" for label, t in times.items())
+              + f"; max|variant - final| {err:.3e}")
+        if not err <= K2_TOL:
+            raise AssertionError("a K2 step variant disagrees with the final kernel")
+        del xg, outs
+        torch.cuda.empty_cache()
+    return times
 
 
 # the VGG16 blocks that close with K5/K6 at B=64, 224 px (conv output H >=
@@ -906,14 +1065,23 @@ def _attention_check(U, I, M, exists, label, exact_argmax=False):
 ATT_WIDTH_CASES = ((4, 1000, 16), (4, 1000, 200), (2, 1000, 512), (4, 333, 128))
 
 
+def k8_bound(B, P, D, R):
+    """K8's bound: the partials, row_val, U and I read once, the (B, P)
+    and (B, D) outputs written once; the merge's compares, the exps and the
+    two attends' FMAs."""
+    return bound(4 * (B * R * P * 2 + B * P + 2 * B * P * D + 4 * B * P + 2 * B * D) + P,
+                 B * R * P + 2 * B * P * (2 * D + 4))
+
+
 def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
                            saturated=((8, 8192, 128), B10_SHAPE), nan=(4, 1000, 128),
-                           widths=ATT_WIDTH_CASES):
+                           widths=ATT_WIDTH_CASES, small_batch=(8, 8192, 128)):
     """K7 and K8 against their plain versions at the long-history shape
     (B=64, P=8192, D=128, 90% of positions existing) and at B10's
     (P=400); saturated inputs, where every max is an exact tie and the
     first index must win; NaN inputs; small-B cases at other widths and a
-    ragged P.  Times both of `shapes`."""
+    ragged P.  Times both of `shapes`, and K8 at `small_batch` (a serving
+    batch of 8 long histories: 64 blocks of K8's clusters)."""
     timing, errs, near = {}, [0.0, 0.0], 0
     for label, shape in zip(("long history", "B10 shape"), shapes):
         B, P, D = shape
@@ -930,8 +1098,7 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
         # CUDA cores
         k7_bound = bound(4 * (2 * B * P * D + B * R * P * 2 + B * P * 2) + P, needed,
                          tf32_flops=3 * 2 * needed * D)
-        k8_bound = bound(4 * (B * R * P * 2 + B * P + 2 * B * P * D + 4 * B * P + 2 * B * D) + P,
-                         B * R * P + 2 * B * P * (2 * D + 4))
+        k8_b = k8_bound(B, P, D, R)
         out_buf = torch.empty(B, P, P, device=device)
         timing[label] = {
             "shape": list(shape),
@@ -945,7 +1112,7 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
                 **timed(lambda: attention_cuda.affinity_finish(*parts[:3], exists, U, I),
                         lambda: attention_cuda.affinity_finish_ref(*parts[:3], exists, U, I),
                         None, iters=10, plain_iters=5),
-                "bound_ms": k8_bound[0], "bound_by": k8_bound[1]}}
+                "bound_ms": k8_b[0], "bound_by": k8_b[1]}}
         del out_buf, T, parts, U, I, M
         torch.cuda.empty_cache()
         for name, t in timing[label].items():
@@ -956,6 +1123,22 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
             print(f"{name} at {shape}: {t['ms']:.4f} ms, device {_ms(t['device_ms'])} (plain "
                   f"{t['plain_ms']:.4f}, library {lib}), bound {t['bound_ms']:.4f} by "
                   f"{t['bound_by']}")
+
+    B, P, D = small_batch
+    U, I, M, exists = attention_case(device, B, P, D, seed=P + 1, scale=0.005)
+    _, parts, err, n = _attention_check(U, I, M, exists, "small batch")
+    errs = [max(a, b) for a, b in zip(errs, err)]
+    near += n
+    k8_b = k8_bound(B, P, D, parts[0].shape[1])
+    k8_small = {"shape": list(small_batch),
+                **timed(lambda: attention_cuda.affinity_finish(*parts[:3], exists, U, I),
+                        lambda: attention_cuda.affinity_finish_ref(*parts[:3], exists, U, I),
+                        None, iters=10, plain_iters=5),
+                "bound_ms": k8_b[0], "bound_by": k8_b[1]}
+    print(f"affinity_finish at {small_batch}: {k8_small['ms']:.4f} ms, device "
+          f"{_ms(k8_small['device_ms'])} (plain {k8_small['plain_ms']:.4f}), bound "
+          f"{k8_small['bound_ms']:.4f} by {k8_small['bound_by']}")
+    del U, I, M, parts
 
     for shape in saturated:
         U, I, M, exists = attention_case(device, *shape, seed=1, scale=10.0)
@@ -988,7 +1171,68 @@ def attention_kernel_phase(device, shapes=(ATT_SHAPE, B10_SHAPE),
             "max_abs_err": err, **main[name], "library_call": call,
             "shape": main["shape"], "argmax_near_ties": near,
             "at_b10_shape": timing["B10 shape"][name]})
+    out[1]["at_small_batch"] = k8_small
     return out
+
+
+# K8's design with one choice changed at a time (csrc/affinity_finish.cu)
+K8_STEPS = (
+    ("final", []),
+    ("256 threads a block", [("affinity_finish.cu", "constexpr int THREADS = 512;",
+                              "constexpr int THREADS = 256;")]),
+    ("merge loads 16 ahead", [("affinity_finish.cu", "constexpr int MERGE_AHEAD = 8;",
+                               "constexpr int MERGE_AHEAD = 16;")]),
+    ("a floor of 2 blocks an SM", [("affinity_finish.cu", "__launch_bounds__(THREADS)",
+                                    "__launch_bounds__(THREADS, 2)")]),
+    ("attends 8 rows in flight", [("affinity_finish.cu",
+                                   "#pragma unroll 4\n          for (int j = warp; j < wn;",
+                                   "#pragma unroll 8\n          for (int j = warp; j < wn;")]),
+)
+
+
+def k8_steps_phase(device, shapes=(ATT_SHAPE, (8, 8192, 128), B10_SHAPE)):
+    """K8's design with one choice changed at a time (K8_STEPS), each built
+    beside the final one and timed (device ms under torch.profiler) on K7's
+    partials at the long-history shape, at B = 8 and at B10's, its outputs
+    within ATT_TOL of the final kernel's.  Returns {label: {shape: device
+    ms}}."""
+    fns = build_steps("affinity_finish", K8_STEPS,
+                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    times = {label: {} for label in fns}
+    for B, P, D in shapes:
+        U, I, M, exists = attention_case(device, B, P, D, seed=P, scale=0.005)
+        T = (I.view(B * P, D) @ M).view(B, P, D)
+        col_val, col_idx, row_val, _ = attention_cuda.affinity_tiles(T, U, exists)
+        R = col_val.shape[1]
+        outs = {}
+        for label, fn in fns.items():
+            out = [torch.empty(B, P, device=device) for _ in range(2)] + [
+                torch.empty(B, D, device=device) for _ in range(2)] + [
+                torch.empty(B, P, device=device), torch.empty(B, P, device=device,
+                                                             dtype=torch.int32)]
+
+            def call(fn=fn, out=out, label=label):
+                err = fn(col_val.data_ptr(), col_idx.data_ptr(), row_val.data_ptr(),
+                         exists.data_ptr(), U.data_ptr(), I.data_ptr(),
+                         *(o.data_ptr() for o in out), B, R, P, D,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise AssertionError(f"K8 step {label!r} failed to launch: {err}")
+
+            call()
+            torch.cuda.synchronize()
+            outs[label] = out
+            times[label][f"{B}x{P}x{D}"] = device_ms(call, steps=10)
+        err = max(max((a - b).abs().max().item() for a, b in zip(o[:4], outs["final"][:4]))
+                  for o in outs.values())
+        print(f"K8 steps at (B, P, D) = {(B, P, D)}: device ms "
+              + ", ".join(f"{label} {_ms(t[f'{B}x{P}x{D}'])}" for label, t in times.items())
+              + f"; max|variant - final| {err:.3e}")
+        if not err <= ATT_TOL:
+            raise AssertionError("a K8 step variant disagrees with the final kernel")
+        del U, I, M, T, col_val, col_idx, row_val, outs
+        torch.cuda.empty_cache()
+    return times
 
 
 def _post(base, rows):
@@ -1532,7 +1776,7 @@ def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20)
 
 def port_kernel_names():
     """The names of the port's CUDA kernels, read from csrc/*.cu."""
-    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    pattern = re.compile(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(")
     return {name for src in _build.CSRC.glob("*.cu*")
             for name in pattern.findall(src.read_text())}
 
@@ -1576,6 +1820,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
+    if sys.argv[1:] == ["--steps"]:  # K2's and K8's designs choice by choice, then stop
+        _build.build(("affinity_tiles",))
+        with torch.no_grad():
+            print(json.dumps({"k2_steps": k2_steps_phase(torch.device("cuda")),
+                              "k8_steps": k8_steps_phase(torch.device("cuda"))}))
+        return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     serve.set_f32_parity()
     print("numerics: torch.backends.cuda.matmul.allow_tf32 = "
@@ -1606,7 +1856,8 @@ def main():
     with torch.no_grad():
         kernels = phase("gru kernels", kernel_phase, device)
         widths = phase("gru kernels at other widths", gru_width_phase, device)
-        k3_long = phase("K3 at the long-history shape", long_history_backward_phase, device)
+        k2_long, k3_long = phase("K2 and K3 at the long-history shape",
+                                 long_history_backward_phase, device)
         kernels += phase("input-gradient kernel", input_grad_kernel_phase, device)
         kernels += phase("pool kernels", pool_kernel_phase, device)
         kernels += phase("attention kernels", attention_kernel_phase, device)
@@ -1634,6 +1885,8 @@ def main():
             k[f"launches_{run}"] = counts[k["name"]]
         if k["name"] in ("bigru_recurrence", "bigru_backward"):
             k["device_ms_at_gru_size"] = {H: t[k["name"]] for H, t in widths.items()}
+        if k["name"] == "bigru_recurrence":
+            k["at_long_history_shape"] = k2_long
         if k["name"] == "bigru_backward":
             k["device_ms_by_kernel_at_gru_size"] = {
                 H: t["bigru_backward_by_kernel"] for H, t in widths.items()}

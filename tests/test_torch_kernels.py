@@ -86,6 +86,31 @@ def test_bigru_recurrence_matches_plain(cuda, N, L, H):
     assert torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
 
 
+@pytest.mark.parametrize("N,L,H,lengths_kind", [
+    (300, 20, 64, "all_1"), (300, 20, 64, "all_L"), (40, 9, 64, "adjacent_L"),
+    (16385, 20, 64, "mixed"), (2000, 64, 64, "mixed"), (40, 9, 100, "adjacent_L"),
+    (37, 5, 8, "all_1"), (50, 9, 33, "mixed"), (33, 6, 1, "all_L"), (40, 9, 256, "mixed"),
+    (300, 20, 128, "mixed")])
+def test_bigru_recurrence_rows_by_length(cuda, N, L, H, lengths_kind):
+    """K2 walks 16-row tiles of the rows ordered by length (a counting
+    sort whose order within a length varies from run to run): all rows 1
+    or L long, two full rows side by side, 16,385 rows
+    (a ragged last tile after sorting), L = 64 (the long-history length),
+    odd H (33, 1: the padded unit) and the wide kernel (H = 256).  Within
+    1e-5 of the plain version, exact zeros past each length, and the same
+    bits on a second launch."""
+    _, xg, _, _, _, lengths, w_hh, b_hh = _backward_inputs(cuda, N, L, H, lengths_kind)
+    before = gru_cuda.bigru_recurrence.launches
+    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_recurrence.launches == before + 1
+    torch.testing.assert_close(y, gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh),
+                               rtol=1e-5, atol=1e-5)
+    past = torch.arange(L, device=cuda)[None, :] >= lengths[:, None]
+    assert (y[past] == 0).all()
+    assert torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
+
+
 def _backward_inputs(cuda, N, L, H, lengths_kind, E=17, S=1):
     g = torch.Generator().manual_seed(N * 7 + H)
     x = torch.randn(N * L, E, generator=g).to(cuda)
@@ -369,6 +394,11 @@ def _attention_inputs(B, P, D, kind, seed=0):
         exists[P // 2:] = False
         I[0, 0, 0] = float("nan")
         U[-1, P - 1, 0] = float("nan")
+    elif kind == "nan_rank":  # a NaN score inside one of K8's blocks' positions only
+        exists[:] = True
+        exists[P - P // 10:] = False
+        U[0, 5 * P // 8 + 1, 0] = float("nan")  # colmax of sample 0 at one position
+        I[-1, 2 * P // 8 + 1, 0] = float("nan")  # row_val of the last sample at one
     return U, I, M, exists
 
 
@@ -381,14 +411,20 @@ def _same(a, b):
     (2, 257, 16, "all"), (1, 1000, 128, "rand"), (2, 200, 128, "none"), (2, 300, 128, "tie"),
     (2, 260, 100, "tie"), (2, 150, 128, "nan"), (1, 129, 100, "nan"), (2, 300, 16, "rand"),
     (2, 257, 200, "rand"), (1, 300, 512, "rand"), (3, 77, 128, "rand"), (2, 450, 128, "rand"),
-    (2, 333, 50, "rand"), (2, 200, 16, "tie"), (1, 260, 512, "nan"), (2, 63, 200, "all")])
+    (2, 333, 50, "rand"), (2, 200, 16, "tie"), (1, 260, 512, "nan"), (2, 63, 200, "all"),
+    (2, 1003, 128, "rand"), (2, 3, 128, "rand"), (1, 3, 50, "all"), (1, 8192, 128, "rand"),
+    (2, 8192, 128, "tie"), (200, 300, 128, "rand"), (2, 1000, 128, "nan_rank"),
+    (2, 1003, 200, "nan_rank"), (3, 5, 16, "none")])
 def test_affinity_kernels_match_plain(cuda, B, P, D, kind):
     """K7, then K8 on K7's partials, against their plain versions on the same
     card inputs: P not a multiple of the 128-row tile or the 64-column
     tile, P < 128, P = 1, B = 1; D = 16, 50, 100, 128 (the wgmma kernel;
     50: U's rows copied 4 bytes at a time) and 200, 512 (gru_size 100 and
     256: the CUDA-core kernel); every position masked, exact ties, NaN;
-    two launches give the same bits."""
+    two launches give the same bits.  K8 splits a sample's positions over
+    a cluster of 8 blocks: P not a multiple of 8 (1003), P < 8 (1, 3, 5:
+    blocks with no position), P = 8192 at B = 1 and 2, B = 200 (more
+    clusters than SMs), a NaN inside one block's positions only."""
     from umpr_tpu_torch.ops import attention_cuda as ac
     U, I, M, exists = (t.to(cuda) for t in _attention_inputs(B, P, D, kind))
     T = I @ M
@@ -414,7 +450,7 @@ def test_affinity_kernels_match_plain(cuda, B, P, D, kind):
         assert (parts[2] == 1.0).float().mean() > 0.99
     if kind == "none":  # every max is -1e30, reached first at index 0
         assert (parts[3] == 0).all() and (out[5] == 0).all()
-    if kind == "nan":
+    if kind in ("nan", "nan_rank"):
         assert parts[2].isnan().any() and out[4].isnan().any()
     again = ac.affinity_tiles(T, U, exists)
     again_out = ac.affinity_finish(again[0], again[1], again[2], exists, U, I)

@@ -43,9 +43,10 @@
 //       nonzero (0 <= tp < len); elsewhere hg = b_hh.
 //   (b) sweep: the gates, dxg and ghn = dn r (the third part of ghh), and
 //       g = g z + ghh @ W^T, the only product left in it; no dW
-//       accumulators.  One block per (16-row tile, direction), the TPU's
-//       sequential grid axis as the loop inside the block, stopping at the
-//       tile's longest row.  Up to H = 128 (bigru_backward_sweep): W_hh
+//       accumulators.  One block per (16-row tile, direction), the tiles
+//       cut from the rows ordered by length (row_order.cuh, shared with
+//       K2), the TPU's sequential grid axis as the loop inside the block,
+//       stopping at the tile's longest row.  Up to H = 128 (bigru_backward_sweep): W_hh
 //       sits in shared memory in blocks of 4 hidden units, [c][4 units],
 //       the blocks padded to 4 floats mod 32 (a quarter warp's 16-byte
 //       loads on distinct banks); ghh goes through shared memory
@@ -88,49 +89,17 @@
 
 #include "bigru_backward_dw.cuh"
 #include "bigru_backward_hg.cuh"
+#include "row_order.cuh"
 
 namespace {
+
+using row_order::load_tile;
 
 constexpr int ROWS = 16;  // sentence rows per sweep block
 // a block's shared memory on Hopper (227 KB), less the static arrays
 constexpr size_t SMEM_LIMIT = 232448 - 256;
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-// ---- (b) the order of the sweep's rows
-
-// The sweep's rows, longest first: a block's 16 rows then share about one
-// length, and its loop (to its longest row) runs that many steps, where
-// rows in their own order made every block run about L (19.4 of 20 at
-// lengths uniform in 1 .. 20).  A counting sort in one block, by length
-// bucket, positions taken by shared-memory integer atomics: the order
-// within a bucket varies from run to run, and no result does, since every
-// row's steps compute the same whatever rows share its block.
-__global__ void __launch_bounds__(1024)
-bigru_backward_order(const int* __restrict__ lengths, int* __restrict__ order, int N, int L) {
-  extern __shared__ int cursor[];  // [L + 1]: bucket L - length
-  for (int b = threadIdx.x; b <= L; b += blockDim.x) cursor[b] = 0;
-  __syncthreads();
-  auto bucket = [&](int n) { return L - max(0, min(lengths[n], L)); };
-  for (int n = threadIdx.x; n < N; n += blockDim.x) atomicAdd(&cursor[bucket(n)], 1);
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int b = 0, start = 0; b <= L; ++b) {
-      const int count = cursor[b];
-      cursor[b] = start;
-      start += count;
-    }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x) order[atomicAdd(&cursor[bucket(n)], 1)] = n;
-}
-
-// a tile's row k: its sentence row (-1 past N) and length (0 past N)
-__device__ __forceinline__ void load_tile(const int* __restrict__ order,
-                                          const int* __restrict__ lengths, int k, int N, int L,
-                                          int& row, int& len) {
-  row = k < N ? order[k] : -1;
-  len = row >= 0 ? min(lengths[row], L) : 0;
-}
 
 // ---- (b) the sweep up to H = 128
 
@@ -534,14 +503,9 @@ extern "C" int bigru_backward(const float* xg, const float* y, const float* dy_s
     // (a) Z_d = y_d @ W_hh[d] into dxg's direction halves
     const int e = hg::launch(y, w_hh, dxg, M, H, s);
     if (e != 0) return e;
-    // (b) the sweep, its rows longest first
-    const size_t buckets = (L + 1) * sizeof(int);
-    if (buckets > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(bigru_backward_order, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)buckets);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bigru_backward_order<<<1, 1024, buckets, s>>>(lengths, order, N, L);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    // (b) the sweep, its rows longest first (row_order.cuh)
+    const int o = row_order::launch(lengths, order, N, L, s);
+    if (o != 0) return o;
     const SweepShape sh = sweep_shape(H);
     const dim3 grid((N + ROWS - 1) / ROWS, 2);
     if (sh.KS > 0) {

@@ -21,144 +21,263 @@
 //      step stores straight into its true-time slot, so y is already B6's
 //      y_sent and y_pos is a free view of it.
 //
-// Design: one block per (16-row tile, direction).  The TPU's sequential
-// grid axis over time becomes a loop inside the block.  The block keeps
-// that direction's W_hh (H x 3H f32, 48 KB at H=64) and the tile's state h
-// in shared memory; thread (j, g) owns hidden unit j of 4 rows, so each
-// W_hh column element read from shared memory feeds 4 rows' FMAs, and the
-// h reads are warp-wide broadcasts.  The loop stops at the tile's longest
-// row; later positions are stored as zeros.  N=2560 rows give 320 blocks.
+// Design: one block per (16-row tile, direction), the tiles cut from the
+// rows ordered by length (row_order.cuh, shared with K3: a one-block
+// counting sort, longest first), so a tile's rows share about one length.
+// The TPU's sequential grid axis over time becomes a loop inside the block
+// that stops at the tile's longest row; later positions are stored as
+// zeros.  A row's steps compute the same in any tile and slot: the fwd
+// runs t = 0 .. len-1, the bwd state stays 0 until t = len-1, and each sum
+// has a fixed order, so the bits do not depend on the order within a
+// length, which the sort's atomics vary.
 //
-// What bounds it on an H100: at the UMPR-R shapes (N=2560, L=20, H=64) it
-// reads xg only at valid steps (at most 78.6 MB, about 41 MB for lengths
-// uniform in 1..20), writes 26.2 MB of y and does 2.5 GFLOP of f32 FMA at
-// most (about 1.3 at those lengths): ~20 us of HBM traffic and about as
-// much f32 arithmetic at 67 TFLOP/s.  In practice the 20 dependent
-// steps, each ending in a block barrier, and the shared-memory reads of
-// W_hh bound it: the design spreads the rows over all SMs (320 blocks, 256
-// threads each) so those latencies overlap across blocks.  Keeping W_hh in
-// registers and tensor-core (wgmma) steps are later work.
+// Up to H = 128 (bigru_recurrence_kernel) the block keeps that direction's
+// W_hh in shared memory (48 KB at H = 64), copied in 16-byte vectors, as
+// [k][gate][unit], and the tile's state transposed, h^T[k][16 rows] (rows
+// padded to 20 floats against bank conflicts on its stores),
+// double-buffered: one barrier a step.  A thread owns TU hidden units x 4
+// rows x the 3 gates (tile_shape: one unit up to H = 64, 256 threads;
+// two past it): per k TU floats of W per gate and a 16-byte broadcast of
+// h feed 12 TU FMAs.  Each thread keeps its own rows' state in registers
+// and issues the next step's xg loads before the barrier and the product.
+// The steps' effects, each taken back out of this design on an H100
+// (chip_smoke.py --steps; PERF.md section 6): the row order matters most
+// (1.7x at the long-history shape); fewer, larger register tiles (2 units
+// x 8 rows, 64 threads) lost more to the block's longer critical path than
+// they saved in shared-memory reads.
+//
+// What bounds it on an H100: at the UMPR-R shapes (N=2560, L=20, H=64,
+// lengths uniform in 1..20) it reads xg only at valid steps (about 41 MB),
+// writes 26.2 MB of y and does 1.3 GFLOP of f32 FMA at those lengths: ~20
+// us of HBM traffic and about as much f32 arithmetic at 67 TFLOP/s.  A
+// tile's steps are sequential, so the longest tiles (20 steps of 16 x 64 x
+// 192 FMAs) set a floor of their own; sorted, the tiles that end early
+// free their SMs for the rest.  In practice each step's shared-memory
+// reads (4 per 12 FMAs) and the issue slots of the few warps an SM holds
+// bound it.  Tensor-core (mma) steps are later work.
 //
 // Any H: this shared-memory kernel takes H <= 128 (W_hh fits: 192 KB at
-// H = 128, and 4H threads); past that a wide kernel (below) keeps W_hh in
-// L2 and lets each thread own whole hidden units of all 16 rows, as the
-// JAX package's bigru_scan takes any gru_size.
+// H = 128); past that a wide kernel (below) keeps W_hh in L2 and lets each
+// thread own whole hidden units of all 16 rows, as the JAX package's
+// bigru_scan takes any gru_size.
 
-#include <cuda_runtime.h>
+#include "row_order.cuh"
 
 namespace {
 
-constexpr int ROWS = 16;            // sentence rows per block
-constexpr int RPT = 4;              // rows per thread
-constexpr int GROUPS = ROWS / RPT;  // row groups; block = GROUPS * H threads
-constexpr int MAX_SMEM_H = 128;     // the largest H of the shared-memory kernel
+using row_order::load_tile;
+
+constexpr int ROWS = 16;         // sentence rows per block
+constexpr int HS = ROWS + 4;     // floats per k of the state h^T (16 rows, padded)
+constexpr int MAX_SMEM_H = 128;  // the largest H of the shared-memory kernel
+constexpr int MAX_THREADS = 256;  // of the shared-memory kernel
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-__global__ void __launch_bounds__(512)
+// The shared-memory kernel's register tile: a thread owns TU hidden units
+// x TR rows x the 3 gates; HP = H rounded up to TU.  One unit a thread
+// where 4 H threads fit the block (H <= 64), else two.
+struct Tile {
+  int TU, TR;
+};
+Tile tile_shape(int H) { return 4 * H <= MAX_THREADS ? Tile{1, 4} : Tile{2, 4}; }
+
+__host__ __device__ int padded_h(int H, int TU) { return (H + TU - 1) / TU * TU; }
+
+// floats of W_hh in shared memory, [k][gate][HP], rounded up to 4 so that
+// the state after it is 16-byte aligned
+__host__ __device__ int w_floats(int H, int TU) { return (3 * H * padded_h(H, TU) + 3) & ~3; }
+
+size_t smem_bytes(int H, Tile t) {
+  return ((size_t)w_floats(H, t.TU) + (size_t)2 * padded_h(H, t.TU) * HS) * sizeof(float);
+}
+
+int smem_threads(int H, Tile t) { return padded_h(H, t.TU) / t.TU * (ROWS / t.TR); }
+
+template <int TU, int TR>
+__global__ void __launch_bounds__(MAX_THREADS)
 bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ lengths,
                         const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-                        float* __restrict__ y, int N, int L, int H) {
-  extern __shared__ float smem[];
-  __shared__ int len_s[ROWS];
-  __shared__ int maxlen_s;
+                        const int* __restrict__ order, float* __restrict__ y, int N, int L,
+                        int H) {
+  extern __shared__ float4 smem4[];
+  __shared__ int row_s[ROWS], len_s[ROWS];
 
   const int d = blockIdx.y;  // 0: fwd, 1: bwd
-  const int G = 3 * H;
-  float* w_s = smem;          // (H, 3H): this direction's W_hh
-  float* h_s = smem + H * G;  // (ROWS, H): the tile's state
+  const int G = 3 * H, HP = padded_h(H, TU);
+  float* w_s = reinterpret_cast<float*>(smem4);  // [k][gate][HP]: this direction's W_hh
+  float* h_s = w_s + w_floats(H, TU);            // [2][HP][HS]: h^T, double-buffered
   const int tid = threadIdx.x;
-  const int j = tid % H;  // hidden unit
-  const int g = tid / H;  // row group
-  const int row0 = blockIdx.x * ROWS;
+  const int ju = tid % (HP / TU), grp = tid / (HP / TU);
+  const int j0 = TU * ju;    // units j0 .. j0 + TU - 1; those >= H are padding
+  const bool vec = HP == H;  // xg and y rows hold whole TU-float vectors
+  const int r0 = grp * TR;   // this thread's tile rows r0 .. r0 + TR - 1
 
-  const float* w_src = w_hh + (size_t)d * H * G;
-  for (int i = tid; i < H * G; i += blockDim.x) w_s[i] = w_src[i];
-  for (int i = tid; i < ROWS * H; i += blockDim.x) h_s[i] = 0.f;
-  if (tid < ROWS) {
-    const int n = row0 + tid;
-    len_s[tid] = n < N ? min(lengths[n], L) : 0;
+  // W_hh[d]: [k][3H] is [k][gate][H]; 16-byte copies where H % 4 == 0
+  const float* W = w_hh + (size_t)d * H * G;
+  if (H % 4 == 0) {
+    const float4* src = reinterpret_cast<const float4*>(W);
+    for (int i = tid; i < H * G / 4; i += blockDim.x) smem4[i] = __ldg(src + i);
+  } else {
+    for (int i = tid; i < 3 * H * HP; i += blockDim.x) {
+      const int j = i % HP;
+      w_s[i] = j < H ? W[(size_t)(i / HP) * H + j] : 0.f;
+    }
   }
+  for (int i = tid; i < HP * HS; i += blockDim.x) h_s[i] = 0.f;  // buffer 0: h = 0
+  for (int r = tid; r < ROWS; r += blockDim.x)  // fewer threads than rows at H < 4
+    load_tile(order, lengths, blockIdx.x * ROWS + r, N, L, row_s[r], len_s[r]);
   __syncthreads();
-  if (tid == 0) {
-    int m = 0;
-    for (int r = 0; r < ROWS; ++r) m = max(m, len_s[r]);
-    maxlen_s = m;
-  }
-  __syncthreads();
-  const int maxlen = maxlen_s;
-
-  const float b_r = b_hh[d * G + j];
-  const float b_z = b_hh[d * G + H + j];
-  const float b_n = b_hh[d * G + 2 * H + j];
-  int row[RPT], len[RPT];
+  int maxlen = 0;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    row[i] = row0 + g + i * GROUPS;
-    len[i] = len_s[g + i * GROUPS];
+  for (int r = 0; r < ROWS; ++r) maxlen = max(maxlen, len_s[r]);
+
+  float b[3][TU];
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+    for (int u = 0; u < TU; ++u) b[gt][u] = j0 + u < H ? b_hh[d * G + gt * H + j0 + u] : 0.f;
+  int row[TR], len[TR];
+  float h[TR][TU];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    row[i] = row_s[r0 + i];  // -1 past N
+    len[i] = len_s[r0 + i];  // 0 past N: never valid
+#pragma unroll
+    for (int u = 0; u < TU; ++u) h[i][u] = 0.f;
   }
   const size_t y_stride = 2 * (size_t)H;
   const size_t xg_stride = 6 * (size_t)H;
+  auto store_y = [&](int i, int t, const float (&v)[TU]) {
+    float* o = y + ((size_t)row[i] * L + t) * y_stride + d * H + j0;
+    if constexpr (TU == 2) {
+      if (vec) {
+        *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+        return;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TU; ++u)
+      if (j0 + u < H) o[u] = v[u];
+  };
 
   // positions past the tile's longest row: exact zeros
+  const float zero[TU] = {};
   for (int t = maxlen; t < L; ++t)
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      if (row[i] < N) y[((size_t)row[i] * L + t) * y_stride + d * H + j] = 0.f;
+    for (int i = 0; i < TR; ++i)
+      if (row[i] >= 0) store_y(i, t, zero);
+
+  // a step's xg for this thread's rows and units, loaded ahead
+  float x[TR][3][TU];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int u = 0; u < TU; ++u) x[i][gt][u] = 0.f;
+      if (t >= len[i]) continue;
+      const float* p = xg + ((size_t)row[i] * L + t) * xg_stride + d * G + j0;
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        if constexpr (TU == 2) {
+          if (vec) {
+            const float2 v = *reinterpret_cast<const float2*>(p + gt * H);
+            x[i][gt][0] = v.x;
+            x[i][gt][1] = v.y;
+            continue;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < TU; ++u)
+          if (j0 + u < H) x[i][gt][u] = p[gt * H + u];
+      }
+    }
+  };
+  if (maxlen > 0) fetch(d == 0 ? 0 : maxlen - 1);
 
   for (int s = 0; s < maxlen; ++s) {
     const int t = d == 0 ? s : maxlen - 1 - s;
-    float a_r[RPT], a_z[RPT], a_n[RPT];
+    const float* hc = h_s + (s & 1) * HP * HS;  // h^T before the step
+    float* hn = h_s + ((s + 1) & 1) * HP * HS;  // after it
+
+    // hg = b + h @ W for TR rows x TU units x 3 gates
+    float acc[TR][3][TU];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      a_r[i] = b_r;
-      a_z[i] = b_z;
-      a_n[i] = b_n;
-    }
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int u = 0; u < TU; ++u) acc[i][gt][u] = b[gt][u];
+#pragma unroll 8
     for (int k = 0; k < H; ++k) {
-      const float w_r = w_s[k * G + j];
-      const float w_z = w_s[k * G + H + j];
-      const float w_n = w_s[k * G + 2 * H + j];
+      float w[3][TU];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float hk = h_s[(g + i * GROUPS) * H + k];
-        a_r[i] = fmaf(hk, w_r, a_r[i]);
-        a_z[i] = fmaf(hk, w_z, a_z[i]);
-        a_n[i] = fmaf(hk, w_n, a_n[i]);
+      for (int gt = 0; gt < 3; ++gt) {
+        const float* wp = w_s + (k * 3 + gt) * HP + j0;
+        if constexpr (TU == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(wp);
+          w[gt][0] = v.x;
+          w[gt][1] = v.y;
+        } else {
+          w[gt][0] = *wp;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < TR / 4; ++q) {
+        const float4 h4 = *reinterpret_cast<const float4*>(hc + k * HS + r0 + 4 * q);
+        const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+            for (int u = 0; u < TU; ++u)
+              acc[4 * q + a][gt][u] = fmaf(hv[a], w[gt][u], acc[4 * q + a][gt][u]);
       }
     }
-    float h_new[RPT];
+
+    // the gates: a valid step stores h' and carries it, an invalid one
+    // stores 0 and leaves h frozen
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float h_prev = h_s[(g + i * GROUPS) * H + j];
+    for (int i = 0; i < TR; ++i) {
       const bool valid = t < len[i];
-      h_new[i] = h_prev;
-      if (valid) {
-        const float* x = xg + ((size_t)row[i] * L + t) * xg_stride + d * G;
-        const float r = sigmoid(x[j] + a_r[i]);
-        const float z = sigmoid(x[H + j] + a_z[i]);
-        const float c = tanhf(x[2 * H + j] + r * a_n[i]);
-        h_new[i] = (1.f - z) * c + z * h_prev;
-      }
-      if (row[i] < N)
-        y[((size_t)row[i] * L + t) * y_stride + d * H + j] = valid ? h_new[i] : 0.f;
-    }
-    __syncthreads();  // every read of the old state is done
+      float out[TU];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) h_s[(g + i * GROUPS) * H + j] = h_new[i];
-    __syncthreads();  // the new state is visible
+      for (int u = 0; u < TU; ++u) {
+        if (valid) {
+          const float r = sigmoid(x[i][0][u] + acc[i][0][u]);
+          const float z = sigmoid(x[i][1][u] + acc[i][1][u]);
+          const float c = tanhf(x[i][2][u] + r * acc[i][2][u]);
+          h[i][u] = (1.f - z) * c + z * h[i][u];
+        }
+        out[u] = valid ? h[i][u] : 0.f;
+      }
+      if (row[i] >= 0) store_y(i, t, out);
+    }
+#pragma unroll
+    for (int u = 0; u < TU; ++u)
+#pragma unroll
+      for (int q = 0; q < TR / 4; ++q)
+        *reinterpret_cast<float4*>(hn + (j0 + u) * HS + r0 + 4 * q) =
+            make_float4(h[4 * q][u], h[4 * q + 1][u], h[4 * q + 2][u], h[4 * q + 3][u]);
+    if (s + 1 < maxlen) fetch(d == 0 ? t + 1 : t - 1);
+    __syncthreads();  // the new state is complete; every read of the old one done
   }
 }
 
-// ---- the wide kernel (H > 128, past the shared-memory kernel's W_hh and
-// its 4H threads): 256 threads own the hidden units j = tid, tid + 256, ...
-// of all 16 rows of the tile, so each W_hh element read feeds 16 rows'
-// FMAs.  W_hh (3H^2 f32, 786 KB per direction at H = 256) is read from
-// global memory, where both directions' 1.5 MB stay in L2; neighbouring
-// threads read neighbouring units, so the reads are coalesced.  The state
-// is double-buffered, transposed (h[k][row], so a k's 16 rows are four
-// 16-byte loads), in shared memory, or in a global scratch buffer where
-// 2 x 16 x H floats exceed it (H > 1814); one barrier per step.
+// ---- the wide kernel (H > 128, past the shared-memory kernel's W_hh):
+// 256 threads own the hidden units j = tid, tid + 256, ... of all 16 rows
+// of the tile, so each W_hh element read feeds 16 rows' FMAs.  Its tiles
+// keep the rows' own order: given the row order it ran slower on an H100
+// at H = 256 (PERF.md section 6).  W_hh (3H^2 f32, 786 KB per direction at H = 256)
+// is read from global memory, where both directions' 1.5 MB stay in L2;
+// neighbouring threads read neighbouring units, so the reads are
+// coalesced.  The state is double-buffered, transposed (h[k][row], so a
+// k's 16 rows are four 16-byte loads), in shared memory, or in a global
+// scratch buffer where 2 x 16 x H floats exceed it (H > 1814); one barrier
+// per step.
 
 constexpr int WTHREADS = 256;
 // a block's shared memory on Hopper (227 KB), less the static arrays
@@ -259,23 +378,28 @@ bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ leng
 }  // namespace
 
 // xg (N, L, 6H), lengths (N,) int32, w_hh (2, H, 3H), b_hh (2, 3H),
-// y (N, L, 2H): contiguous, on the device; any H >= 1.  scratch: 2 x
-// ceil(N/16) x 2 x 16 x H floats where bigru_recurrence_scratch says so,
-// else unused (may be null).  Launches on `stream`; returns the
-// cudaError_t.
+// y (N, L, 2H): contiguous, on the device; any H >= 1.  Scratch: order
+// (N,) int32, the rows by length (H <= 128); scratch, 2 x ceil(N/16) x 2 x
+// 16 x H floats where bigru_recurrence_scratch says so, else unused (may
+// be null).  Launches the row order and the recurrence (H <= 128), or the
+// wide kernel, on `stream`; returns the first failure's cudaError_t.
 extern "C" int bigru_recurrence(const float* xg, const int* lengths, const float* w_hh,
-                                const float* b_hh, float* y, float* scratch, int N, int L,
-                                int H, void* stream) {
+                                const float* b_hh, float* y, int* order, float* scratch, int N,
+                                int L, int H, void* stream) {
   if (N == 0 || L == 0) return 0;
   if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + ROWS - 1) / ROWS, 2);
   if (H <= MAX_SMEM_H) {
-    const size_t smem = (size_t)(3 * H * H + ROWS * H) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        bigru_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int o = row_order::launch(lengths, order, N, L, s);
+    if (o != 0) return o;
+    const Tile t = tile_shape(H);
+    auto kernel = t.TU == 1 ? bigru_recurrence_kernel<1, 4> : bigru_recurrence_kernel<2, 4>;
+    const size_t smem = smem_bytes(H, t);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    bigru_recurrence_kernel<<<grid, GROUPS * H, smem, s>>>(xg, lengths, w_hh, b_hh, y, N, L, H);
+    kernel<<<grid, smem_threads(H, t), smem, s>>>(xg, lengths, w_hh, b_hh, order, y, N, L, H);
     return static_cast<int>(cudaGetLastError());
   }
   const bool shared = wide_state_bytes(H) <= SMEM_LIMIT;

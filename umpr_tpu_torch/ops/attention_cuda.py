@@ -16,7 +16,11 @@ whole-tile kernel of ``use_pallas=True``):
   tiles streamed through a cp.async ring; past it a CUDA-core kernel;
 - K8 ``affinity_finish`` (csrc/affinity_finish.cu): the partials combined
   in a fixed order into colmax / amax_u, both masked softmaxes, and the
-  attended vectors atte_u = soft_u^T U, atte_i = soft_i^T I.
+  attended vectors atte_u = soft_u^T U, atte_i = soft_i^T I; one thread
+  block cluster of FINISH_CLUSTER blocks per sample, each block a share
+  of the positions, the blocks' maxima, sums and column sums combined in
+  rank order through the cluster's shared memory
+  (``affinity_finish_cluster_ref`` is the plain version of that order).
 
 Max and argmax follow torch.amax and torch.argmax: NaN propagates and is
 the argmax, a tie goes to the lowest index.  Masked entries are -1e30 (the
@@ -43,6 +47,7 @@ from umpr_tpu_torch.ops.masking import NEG_INF, masked_softmax
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 ROW_TILE = 128  # rows p per K7 block: one column partial each (affinity_tiles.cu BR)
+FINISH_CLUSTER = 8  # K8's blocks per sample, one cluster (affinity_finish.cu CLUSTER)
 PLAIN_ELEMENTS = 1 << 26  # entries of A the plain version holds at a time
 
 
@@ -87,6 +92,43 @@ def affinity_finish_ref(col_val, col_idx, row_val, exists, U, I):
     soft_i = masked_softmax(row_val, exists[None, :], dim=-1)
     atte_u = torch.einsum("bpd,bp->bd", U, soft_u)
     atte_i = torch.einsum("bpd,bp->bd", I, soft_i)
+    return soft_u, soft_i, atte_u, atte_i, colmax, amax_u
+
+
+def _max_nan(a, b):
+    """max that is NaN where either side is (torch.amax's rule)."""
+    return torch.where((a > b) | a.isnan(), a, b)
+
+
+def affinity_finish_cluster_ref(col_val, col_idx, row_val, exists, U, I, C=FINISH_CLUSTER):
+    """Plain version of K8's order of work: the positions cut into C
+    chunks [c P / C, (c + 1) P / C), one per block of the sample's
+    cluster; each chunk's masked maximum, folded in chunk order (an empty
+    chunk gives -inf); ex = exp(s - max) where the position exists; each
+    chunk's sum of ex and its column sums ex^T U, ex^T I (masked positions
+    included: 0 * NaN stays NaN), each added in chunk order; soft = ex /
+    sum, atte = (column sums) / sum.  Same outputs as
+    ``affinity_finish_ref``."""
+    B, P, D = U.shape
+    tile = col_val.argmax(1, keepdim=True)  # the merge: as affinity_finish_ref
+    colmax = col_val.gather(1, tile)[:, 0]
+    amax_u = col_idx.gather(1, tile)[:, 0]
+    bounds = [c * P // C for c in range(C + 1)]
+    chunks = [slice(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    out = []
+    for score, X in ((colmax, U), (row_val, I)):
+        s = torch.where(exists, score, NEG_INF)
+        m = s.new_full((B,), float("-inf"))
+        for c in chunks:
+            if c.stop > c.start:
+                m = _max_nan(m, s[:, c].amax(1))
+        ex = torch.where(exists, torch.exp(s - m[:, None]), 0.0)
+        total, cols = s.new_zeros(B), X.new_zeros(B, D)
+        for c in chunks:
+            total = total + ex[:, c].sum(1)
+            cols = cols + torch.einsum("bp,bpd->bd", ex[:, c], X[:, c])
+        out.append((ex / total[:, None], cols / total[:, None]))
+    (soft_u, atte_u), (soft_i, atte_i) = out
     return soft_u, soft_i, atte_u, atte_i, colmax, amax_u
 
 
@@ -150,6 +192,8 @@ def affinity_finish(col_val, col_idx, row_val, exists, U, I):
             f"affinity_finish: col_val {tuple(col_val.shape)}, col_idx "
             f"{tuple(col_idx.shape)}, row_val {tuple(row_val.shape)}, I "
             f"{tuple(I.shape)} do not fit U {tuple(U.shape)}")
+    if B * FINISH_CLUSTER > 2 ** 31 - 1:
+        raise ValueError(f"affinity_finish: B={B} exceeds the grid")
     soft_u, soft_i, colmax = (torch.empty(B, P, device=U.device, dtype=torch.float32)
                               for _ in range(3))
     atte_u, atte_i = (torch.empty(B, D, device=U.device, dtype=torch.float32)

@@ -11,8 +11,9 @@ Forward:
   (f32-accurate, as B3's Precision.HIGHEST; csrc/tf32x3.cuh);
 - K2 ``bigru_recurrence`` (csrc/bigru_recurrence.cu) replaces B1 (the
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
-  time, exact zeros past each length; W_hh in shared memory up to H = 128,
-  in L2 past that (any H).
+  time, exact zeros past each length; up to H = 128 the rows ordered by
+  length (csrc/row_order.cuh, shared with K3) and walked in 16-row tiles
+  with W_hh in shared memory, past it W_hh in L2 (any H).
 
 Backward:
 
@@ -79,6 +80,35 @@ def bigru_recurrence_ref(xg, lengths, w_hh, b_hh):
             valid = (t < lengths)[:, None]
             h = torch.where(valid, h_new, h)
             y[:, t, H * d:H * (d + 1)] = torch.where(valid, h_new, 0.0)
+    return y
+
+
+RECURRENCE_ROWS = 16  # rows per tile of K2 and K3's sweep (csrc/bigru_recurrence.cu ROWS)
+
+
+def bigru_row_order_ref(lengths, L):
+    """Plain version of the row order of K2 and K3 (csrc/row_order.cuh):
+    the rows 0 .. N-1 by length clamped to [0, L], longest first, as int32.
+    Within one length the kernel's order varies from run to run; this one
+    keeps the rows' own order there."""
+    return torch.sort(lengths.clamp(0, L), descending=True, stable=True).indices.int()
+
+
+def bigru_recurrence_tiles_ref(xg, lengths, w_hh, b_hh, order, rows=RECURRENCE_ROWS):
+    """Plain version of K2's walk over its tiles: the rows of ``order`` in
+    tiles of ``rows``, each tile's loop running to its longest row (fwd
+    t = 0 .. maxlen-1, bwd t = maxlen-1 .. 0) and zeros past it.  Equals
+    ``bigru_recurrence_ref`` for any order, since a row's steps do not
+    depend on its tile.  -> y (N, L, 2H)."""
+    N, L, _ = xg.shape
+    H = w_hh.shape[1]
+    y = xg.new_zeros(N, L, 2 * H)
+    for start in range(0, N, rows):
+        tile = order[start:start + rows].long()
+        maxlen = int(lengths[tile].clamp(0, L).max())
+        if maxlen:
+            y[tile, :maxlen] = bigru_recurrence_ref(xg[tile, :maxlen], lengths[tile], w_hh,
+                                                    b_hh)
     return y
 
 
@@ -291,16 +321,22 @@ def _scratch(name, N, H, device):
 
 def bigru_recurrence(xg, lengths, w_hh, b_hh):
     """K2: xg (N, L, 6H) f32, lengths (N,) int32, w_hh (2, H, 3H) f32,
-    b_hh (2, 3H) f32 -> y (N, L, 2H) f32."""
+    b_hh (2, 3H) f32 -> y (N, L, 2H) f32.
+
+    Up to H = 128 one launch of the C entry point orders the rows by
+    length (a counting sort) and runs the recurrence over 16-row tiles of
+    that order; a row's result does not depend on its tile
+    (``bigru_recurrence_tiles_ref`` is the plain version of that walk)."""
     if xg.device.type == "cpu":
         return bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
     _device_kernel("bigru_recurrence", xg, w_hh, b_hh)
     N, L, H = _check_recurrence("bigru_recurrence", xg, lengths, w_hh, b_hh)
     y = torch.empty(N, L, 2 * H, device=xg.device, dtype=torch.float32)
+    order = torch.empty(N, device=xg.device, dtype=torch.int32)  # the rows by length (H <= 128)
     scratch = _scratch("bigru_recurrence", N, H, xg.device)
-    _launch("bigru_recurrence", [_P] * 6 + [_I] * 3 + [_P],
-            xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            b_hh.data_ptr(), y.data_ptr(), scratch.data_ptr(), N, L, H)
+    _launch("bigru_recurrence", [_P] * 7 + [_I] * 3 + [_P],
+            xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            y.data_ptr(), order.data_ptr(), scratch.data_ptr(), N, L, H)
     bigru_recurrence.launches += 1
     return y
 
