@@ -44,6 +44,14 @@
    loss is finite; the fused blocks' biases and C-Net's GRU moved; on 8
    rows with dropout off, the card's predictions and gradients agree with
    the CPU's.  Then the ms per train step and a profiler breakdown.
+   The train step is timed with cuDNN's deterministic algorithms (as the
+   Trainer sets them) and without, in turns.
+5b. Serve full UMPR at 224 px (B=64, ``--vgg_fused_pool True``) from a
+   seeded checkpoint with the resident photo bank: HTTP requests (each
+   one's wall time, its K1/K2/K5 launches, the photos it decoded: the
+   bank decodes each photo once), a CSV pass, the bank against streaming
+   photos (``--device_dataset off``: the same bits), CPU_ROWS rows
+   against a CPU Predictor, and the host and device ms per batch.
 6. A gradient through ``bigru_split`` with x requiring grad at the UMPR-R
    shapes, card (K1-K4, K9) against CPU.
 7. Long-history UMPR-R (``--max_sent_count 128 --max_sent_length 64``,
@@ -55,10 +63,17 @@
 8. UMPR-R training at ``--gru_size 100`` as in 4 (K2 with a ragged block,
    K3 at a width off the 64-multiples, K9-free: the embedding is frozen),
    launch counts and one step's gradients against the CPU.
-9. Print each phase's seconds and a ``{"kernels": [...]}`` line (launches:
-   each kernel's main path -- the full-UMPR run for K1-K6, the long-history
-   training for K7/K8, the input-gradient run for K9 -- and the other runs'
-   beside them), then, as the last line, ``{"ok": true, "device": {...}}``.
+9. Resume, for UMPR-R, full UMPR (224 px) and long-history UMPR-R: an
+   uninterrupted 2-epoch run, a run with ``--save_every_batches 2``
+   stopped after 3 steps, and that run resumed with ``--resume_path``;
+   the resumed run must end with the uninterrupted run's bits
+   (parameters, Adam's state, best/ and last/, the logged values after
+   the resume point).
+10. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, and
+   a ``{"kernels": [...]}`` line (launches: each kernel's main path -- the
+   full-UMPR run for K1-K6, the long-history training for K7/K8, the
+   input-gradient run for K9 -- and the other runs' beside them), then,
+   as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -88,6 +103,7 @@ import torch
 
 from umpr_tpu_torch import main as train_main
 from umpr_tpu_torch.config import Config
+from umpr_tpu_torch.convert import adam_to_jax
 from umpr_tpu_torch.data.dataset import build_dataset
 from umpr_tpu_torch.data.loader import BatchLoader, to_device
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
@@ -1579,17 +1595,23 @@ def _l2_rel(got, want, floor):
     return ((got - want).norm() / want.norm().clamp(min=floor)).item()
 
 
+def use_seeded_photos():
+    """Decode photos through seeded_photo from here on (said once)."""
+    from umpr_tpu_torch.data import images
+    if images.get_image is not seeded_photo:
+        images.get_image = seeded_photo
+        print("photos: this machine has no JPEG decoder, so "
+              "umpr_tpu_torch.data.images.get_image is replaced by a uint8 source "
+              "seeded by each photo's file name (zeros for an empty slot)")
+
+
 def full_train_phase(device_name):
     """Full UMPR training at the reference widths and 224 px through the
     port's CLI (--vgg_fused_pool True).  Returns the launch counts of the
     main path (fit + test)."""
-    from umpr_tpu_torch.data import images
     root = WORK / "full"
     glove = write_splits(root, seed=1, shards=5)
-    images.get_image = seeded_photo
-    print("photos: this machine has no JPEG decoder, so "
-          "umpr_tpu_torch.data.images.get_image is replaced by a uint8 source "
-          "seeded by each photo's file name (zeros for an empty slot)")
+    use_seeded_photos()
     # seed 2: at init the ReLU head is above 0 on this corpus (seed 0
     # clamps every prediction to 0, and the MSE then trains nothing)
     argv = ["--review_net_only", "False", "--vgg_fused_pool", "True", "--seed", "2",
@@ -1729,14 +1751,294 @@ def full_train_phase(device_name):
         ds["train"], B, ignore_photos=False, resize=(cfg.photo_size, cfg.photo_size)))),
         trainer.device)
     step = lambda: train_step(model, opt, batch, 1e-3, trainer.dropout_generator(0))
+    # the Trainer pins cuDNN to deterministic algorithms (bit-exact
+    # resume); its cost, in turns within this call
     step_ms = time_cuda(step, iters=10)
+    torch.backends.cudnn.deterministic = False
+    free_ms = time_cuda(step, iters=10)
+    torch.backends.cudnn.deterministic = True
+    again_ms = time_cuda(step, iters=10)
     print(f"full UMPR training on {device_name}: {step_ms:.3f} ms per B={B} train step "
-          f"({B / step_ms * 1e3:.1f} samples/s, CUDA events, back to back); fit + "
+          f"({B / step_ms * 1e3:.1f} samples/s, CUDA events, back to back) with "
+          f"cudnn.deterministic True, as the Trainer sets it (again after: "
+          f"{again_ms:.3f} ms); {free_ms:.3f} ms with it False; fit + "
           f"test {main_s / steps * 1e3:.1f} ms per train step, evaluations, "
           f"checkpoints and dataset builds included (host clock); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     device_breakdown(step, "full UMPR train step", steps=5, top=14)
     return launches
+
+
+# the full-UMPR serving checkpoint: with seed 2 the ReLU head is above 0
+# on every row of write_corpus(seed=0) at 224 px (seeds 0 and 4 clamp
+# every prediction to 0)
+FULL_SERVE_SEED = 2
+
+
+def _kernel_counts():
+    return {k.__name__: k.launches for m in MODULES for k in m.KERNELS}
+
+
+def full_serve_phase(device_name, work=WORK / "full_serve"):
+    """Full UMPR serving (--review_net_only False --vgg_fused_pool True,
+    224 px, B=64) with the resident photo bank: HTTP requests and a CSV
+    pass on the card, the bank against streaming photos (--device_dataset
+    off, the same bits), then CPU_ROWS rows against a CPU Predictor of
+    that batch size.  cuDNN runs as a serving process has it: only the
+    Trainer pins its algorithms (the forward is also timed pinned, in
+    turns).  Returns the launch counts of the main path (HTTP requests +
+    CSV mode)."""
+    use_seeded_photos()
+    torch.backends.cudnn.deterministic = False
+    if work.exists():
+        shutil.rmtree(work)
+    glove, csv, shard_rows = write_corpus(work, seed=0)
+    model_dir = work / "model"
+    argv = ["--review_net_only", "False", "--vgg_fused_pool", "True",
+            "--data_workers", "4", "--data_dir", str(work), "--word2vec_file", str(glove),
+            "--model_path", str(model_dir)]
+    cfg = Config(argv)  # default device: cuda; --device_dataset auto: the bank
+    B = cfg.batch_size
+    fused = sum(1 for h in (cfg.photo_size >> k for k in range(5))
+                if h >= FUSED_POOL_MIN_H and h % 2 == 0)
+    w2v = Word2vec(str(glove))
+    model = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                 torch.Generator().manual_seed(FULL_SERVE_SEED))
+    ckpt.save_best(str(model_dir), model)
+    predictor = serve.Predictor(cfg, w2v, str(model_dir))
+    if not predictor._bank_enabled:
+        raise AssertionError("the photo bank is off at --device_dataset auto")
+    df = pd.read_csv(csv)
+    requests = [df.iloc[r].to_dict("records") for r in shard_rows]
+    full_ds = build_dataset(str(csv), str(work / "photos.json"), str(work / "photos"),
+                            w2v, cfg)
+    photos = set(full_ds.photo_paths.ravel()) - {""}
+
+    server = serve.make_http_server(predictor, cfg, w2v, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    cache = predictor._photo_cache
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        _post(base, requests[0])  # warm-up, before the counts are zeroed
+        answers, grown, per_request, walls = [], [], [], []
+        with main_path_counts() as (launches, plain_calls):
+            for rows in requests + [requests[0]]:  # the first again: nothing new
+                held, misses, before = len(predictor._bank_rows), cache.misses, _kernel_counts()
+                t0 = time.perf_counter()
+                answers.append(_post(base, rows))
+                walls.append(time.perf_counter() - t0)
+                grown.append((len(predictor._bank_rows) - held, cache.misses - misses))
+                per_request.append({k: v - before[k] for k, v in _kernel_counts().items()
+                                    if v - before[k]})
+            out_csv = work / "predictions.csv"
+            serve.main(argv + ["--input", str(csv), "--output", str(out_csv)])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    answers, repeat = answers[:-1], answers[-1]
+
+    http = np.full(len(df), np.nan)
+    for rows, preds in zip(shard_rows, answers):
+        http[rows] = [np.nan if p is None else p for p in preds]
+    scored = np.isfinite(http)
+    req_batches = [-(-int(np.isfinite(np.asarray(a, float)).sum()) // B)
+                   for a in answers + [repeat]]
+    csv_pred = pd.read_csv(out_csv)["prediction"].to_numpy()
+    n_batches = sum(req_batches) + -(-int(np.isfinite(csv_pred).sum()) // B)
+    print(f"full UMPR HTTP: {len(requests)} /predict requests and the first again, "
+          f"{int(scored.sum())} of {len(df)} rows scored at B={B}, {cfg.photo_size} px, "
+          f"VGG blocks closed by K5: {fused}; wall per request (host clock): "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms")
+    print(f"photo bank: {len(predictor._bank_rows)} rows (capacity "
+          f"{predictor._bank.shape[0]}) for {len(photos)} distinct photos; per request "
+          f"(rows added, photos decoded): {grown}")
+    positive, spread = (http[scored] > 0).mean(), http[scored].std()
+    print(f"predictions: {positive:.1%} > 0, std {spread:.3e}, range "
+          f"[{http[scored].min():.6f}, {http[scored].max():.6f}]")
+    if positive < 0.5 or not spread > MIN_SPREAD:
+        raise AssertionError("the predictions are degenerate (mostly clamped "
+                             "to 0 or constant): the checks below would see nothing")
+    # the warm-up decoded the first request's photos, each later request
+    # only its own, and the first again nothing
+    if grown[0] != (0, 0) or grown[-1] != (0, 0) \
+            or not all(a == b > 0 for a, b in grown[1:-1]) \
+            or len(predictor._bank_rows) != 1 + len(photos):
+        raise AssertionError("the bank did not decode each photo once")
+    if repeat != answers[0]:
+        raise AssertionError("a repeated request scored differently")
+    if not np.array_equal(np.isfinite(csv_pred), scored):
+        raise AssertionError("CSV mode and HTTP scored different rows")
+    diff = np.abs(csv_pred[scored] - http[scored]).max()
+    print(f"CSV mode vs HTTP, same rows: max abs diff {diff:.3e}")
+    if not diff <= 1e-6:
+        raise AssertionError("CSV mode and HTTP disagree")
+
+    print(f"full UMPR serving launches: {launches}; per request: {per_request}; plain "
+          f"versions called on the card: {plain_calls[0]}; batches dispatched: "
+          f"{n_batches}")
+    want = (dict.fromkeys(launches, 0) | dict.fromkeys(FORWARD, 3 * n_batches)
+            | {"bias_relu_pool": fused * n_batches})
+    if plain_calls[0] or not fused or launches != want:
+        raise AssertionError(f"full UMPR serving launches {launches}, expected {want}")
+    for n, counts in zip(req_batches, per_request):
+        if counts != {"gru_input_proj": 3 * n, "bigru_recurrence": 3 * n,
+                      "bias_relu_pool": fused * n}:
+            raise AssertionError(f"a request's launches {counts}, for {n} batches")
+
+    # the bank against streaming photos: the same bytes, the same bits
+    stream = serve.Predictor(Config(argv + ["--device_dataset", "off"]), w2v, str(model_dir))
+    bank_pred, rows = predictor.predict_dataset(full_ds)
+    stream_pred, _ = stream.predict_dataset(full_ds)
+    print(f"bank vs streaming photos over {len(rows)} samples: "
+          f"{int((bank_pred != stream_pred).sum())} predictions differ")
+    if not np.array_equal(bank_pred, stream_pred):
+        raise AssertionError("the photo bank and streaming photos disagree")
+
+    # the first rows on the CPU, plain versions
+    ds = subset(full_ds, CPU_ROWS)
+    cpu = serve.Predictor(Config(argv + ["--device", "cpu", "--batch_size", str(CPU_ROWS)]),
+                          w2v, str(model_dir))
+    cpu_pred, rows = cpu.predict_dataset(ds)
+    err = np.abs(cpu_pred - bank_pred[:CPU_ROWS]).max()
+    card_pre, cpu_pre = pre_relu(predictor, ds), pre_relu(cpu, ds)
+    pre_err = np.abs(card_pre - cpu_pre).max()
+    print(f"card vs CPU plain versions (CPU batch {CPU_ROWS}): predictions max abs diff "
+          f"{err:.3e}, before the head's ReLU {pre_err:.3e} (tolerance {E2E_TOL:.0e}; "
+          f"range [{cpu_pre.min():.6f}, {cpu_pre.max():.6f}])")
+    if not (err <= E2E_TOL and pre_err <= E2E_TOL):
+        raise AssertionError("card and CPU full-UMPR predictions disagree")
+
+    # throughput: the host path with the bank and with streaming photos,
+    # then the device forward
+    n_b = -(-len(full_ds) // B)
+    walls = {}
+    for name, p in (("bank", predictor), ("streaming", stream)):
+        p.predict_dataset(full_ds)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            p.predict_dataset(full_ds)
+        walls[name] = (time.perf_counter() - t0) / 3 / n_b * 1e3
+    batch = to_device(next(iter(BatchLoader(full_ds, B, ignore_photos=False,
+                                            resize=(cfg.photo_size, cfg.photo_size)))),
+                      predictor.device)
+    batch["pad_maxima"] = (cfg.max_sent_count, cfg.max_sent_length,
+                           cfg.max_ui_sent_count, cfg.max_sent_length)
+    forward = lambda: predictor.model(batch)
+    with torch.inference_mode():
+        fwd_ms = time_cuda(forward, iters=10)
+        torch.backends.cudnn.deterministic = True
+        pinned_ms = time_cuda(forward, iters=10)
+        torch.backends.cudnn.deterministic = False
+        again_ms = time_cuda(forward, iters=10)
+    print(f"full UMPR serving on {device_name}: predict_dataset {walls['bank']:.3f} ms "
+          f"per B={B} batch with the bank, {walls['streaming']:.3f} ms streaming photos "
+          f"(host clock, {len(full_ds)} samples, photos decoded and cached); device "
+          f"forward {fwd_ms:.3f} ms per batch ({B / fwd_ms * 1e3:.1f} samples/s, CUDA "
+          f"events; again after: {again_ms:.3f}), {pinned_ms:.3f} ms with "
+          f"cudnn.deterministic True")
+    with torch.inference_mode():
+        device_breakdown(forward, "full UMPR forward", steps=5, top=12)
+    return launches
+
+
+RESUME_STOP = 3  # the interrupted run stops after 3 steps; it saved at 2
+RESUME_EVERY = 2
+
+
+def after_resume(events, batch):
+    """The --metrics_jsonl events that a run resumed at `batch` computes
+    again: every one logged past it (and the test), less the train losses
+    summed over the epoch that began before it, which the resumed run
+    sums from its resume point on."""
+    first_epoch = next(e["epoch"] for e in events if e.get("batch", -1) > batch)
+    out = []
+    for e in events:
+        if e["event"] == "test" or e["batch"] > batch:
+            e = {k: v for k, v in e.items() if k not in ("ts", "elapsed_s")}
+            if e.get("epoch") == first_epoch:
+                e.pop("train_loss", None)
+            out.append(e)
+    return out
+
+
+def _npz_equal(a, b):
+    with np.load(a) as x, np.load(b) as y:
+        return x.files == y.files and all(np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def resume_phase(device_name, work, flags=(), corpus=None):
+    """Resume on the card: an uninterrupted run (``umpr_tpu_torch.main``,
+    2 epochs), a run with --save_every_batches RESUME_EVERY stopped after
+    RESUME_STOP steps (Trainer.fit's test hook), and that run resumed with
+    --resume_path through the CLI.  The resumed run must end with the
+    uninterrupted run's bits: parameters, Adam's state, best/ and last/,
+    and every --metrics_jsonl value computed after the resume point."""
+    from umpr_tpu_torch.train.trainer import Trainer
+    from umpr_tpu_torch.utils.logging import get_logger
+    root = WORK / work
+    if root.exists():
+        shutil.rmtree(root)
+    glove = write_splits(root, seed=1, shards=5, **(corpus or {}))
+    base = ["--data_dir", str(root), "--word2vec_file", str(glove), "--train_epochs", "2",
+            "--learning_rate", "1e-3", "--eval_every", "4", *flags]
+    if not Config(base).review_net_only:
+        use_seeded_photos()
+
+    def argv(run, model_dir, *extra):
+        return base + ["--model_path", str(root / model_dir), "--log_path",
+                       str(root / f"{run}.log"), "--metrics_jsonl",
+                       str(root / f"{run}.jsonl"), *extra]
+
+    every = ("--save_every_batches", str(RESUME_EVERY))
+    t0 = time.perf_counter()
+    with main_path_counts() as (launches, plain_calls):
+        whole = train_main.main(argv("whole", "whole"))
+        cfg = Config(argv("cut", "cut", *every))
+        w2v = Word2vec(str(glove))
+        photos = (str(root / "photos.json"), str(root / "photos"))
+        train, valid = (build_dataset(str(root / f"{s}.csv"), *photos, w2v, cfg)
+                        for s in ("train", "valid"))
+        cut = Trainer(cfg, get_logger(str(root / "cut.log"), logger_name="resume-cut"), w2v)
+        cut.fit(train, valid, str(root / "cut"), _stop_after_batches=RESUME_STOP)
+        meta = json.load(open(root / "cut" / "last" / "meta.json"))
+        resumed = train_main.main(argv("resumed", "cut", "--resume_path", str(root / "cut")))
+    seconds = time.perf_counter() - t0
+    at = meta["batch_counter"]
+    steps, per_epoch = whole.batch_counter, -(-len(train) // cfg.batch_size)
+
+    a, b = whole.model.state_dict(), resumed.model.state_dict()
+    params_equal = sum(torch.equal(a[k], b[k]) for k in a)
+    (ca, mua, nua), (cb, mub, nub) = (adam_to_jax(t.model, t.opt) for t in (whole, resumed))
+    moments = [(x, y) for ta, tb in ((mua, mub), (nua, nub))
+               for (_, x), (_, y) in zip(ckpt.leaves_with_path(ta), ckpt.leaves_with_path(tb))]
+    adam_equal = sum(np.array_equal(x, y) for x, y in moments)
+    files_equal = all(_npz_equal(root / "whole" / name / "arrays.npz",
+                                 root / "cut" / name / "arrays.npz")
+                      for name in ("best", "last"))
+    want = after_resume([json.loads(line) for line in open(root / "whole.jsonl")], at)
+    got = after_resume([json.loads(line) for line in open(root / "resumed.jsonl")], at)
+    n_values = sum(k in e for e in want for k in ("train_loss", "valid_mse", "test_mse"))
+    print(f"resume {work} on {device_name}: {steps} steps uninterrupted ({per_epoch} a epoch), the other "
+          f"run stopped after {RESUME_STOP} with last/ at batch {at} ({meta}), resumed to "
+          f"{resumed.batch_counter}, in {seconds:.1f} s (host clock, 3 runs); bit-equal: "
+          f"{params_equal} of {len(a)} parameter tensors, {adam_equal} of {len(moments)} "
+          f"Adam moments (count {ca} and {cb}), best/ and last/ files {files_equal}, "
+          f"{len(got)} of {len(want)} events after batch {at} ({n_values} values) "
+          f"{got == want}; launches over the three runs {launches}, plain versions on "
+          f"the card {plain_calls[0]}")
+    if not (0 < meta["batch_in_epoch"] < per_epoch and meta["epoch"] == 0):
+        raise AssertionError("the interrupted run did not save mid-epoch")
+    if plain_calls[0] or (kernel_attention(cfg) and not launches["affinity_tiles"]):
+        raise AssertionError("the resume runs did not take the kernels")
+    if not (resumed.batch_counter == steps and params_equal == len(a) and ca == cb
+            and adam_equal == len(moments) and files_equal and got == want
+            and len(want) >= 3):
+        raise AssertionError(f"the resumed run {work} differs from the uninterrupted one")
+    return {"steps": steps, "resumed_at": at, "stopped_after": RESUME_STOP,
+            "parameter_tensors": len(a), "adam_moments": len(moments),
+            "events_compared": len(want), "seconds": round(seconds, 1)}
 
 
 def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20):
@@ -1864,6 +2166,7 @@ def main():
     served = phase("UMPR-R serving", serve_phase, card)
     trained = phase("UMPR-R training", train_phase, card)
     full = phase("full UMPR training", full_train_phase, card)
+    full_served = phase("full UMPR serving", full_serve_phase, card)
     input_grad = phase("bigru_split input gradient", input_grad_phase, card)
     long_served = phase("long-history UMPR-R serving", serve_phase, card,
                         WORK / "long_serve", LONG_FLAGS, LONG_CORPUS)
@@ -1873,6 +2176,16 @@ def main():
     # 100 (the default seed clamps every prediction to 0: nothing trains)
     gru100 = phase("UMPR-R training at --gru_size 100", train_phase, card, "gru100",
                    ("--gru_size", "100", "--seed", "5"))
+    resumed = {
+        "umpr_r": phase("resume, UMPR-R", resume_phase, card, "resume_r",
+                        ("--review_net_only", "True")),
+        # seed 2 as in the full UMPR training: a head above 0 trains
+        "full_umpr": phase("resume, full UMPR", resume_phase, card, "resume_full",
+                           ("--review_net_only", "False", "--vgg_fused_pool", "True",
+                            "--seed", "2", "--data_workers", "4")),
+        "long_history": phase("resume, long-history UMPR-R", resume_phase, card,
+                              "resume_long", ("--review_net_only", "True") + LONG_FLAGS,
+                              LONG_CORPUS)}
     # each kernel's launches come from the main path that runs it
     main_path = {"gru_input_proj_dx": input_grad, "affinity_tiles": long_trained,
                  "affinity_finish": long_trained}
@@ -1881,7 +2194,8 @@ def main():
         for run, counts in (("umpr_r_training", trained), ("serving", served),
                             ("long_history_serving", long_served),
                             ("long_history_training", long_trained),
-                            ("gru_size_100_training", gru100)):
+                            ("gru_size_100_training", gru100),
+                            ("full_umpr_serving", full_served)):
             k[f"launches_{run}"] = counts[k["name"]]
         if k["name"] in ("bigru_recurrence", "bigru_backward"):
             k["device_ms_at_gru_size"] = {H: t[k["name"]] for H, t in widths.items()}
@@ -1892,6 +2206,7 @@ def main():
                 H: t["bigru_backward_by_kernel"] for H, t in widths.items()}
             k["at_long_history_shape"] = k3_long
     print(f"phase seconds: {seconds}")
+    print(json.dumps({"resume_bit_equal": resumed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -67,5 +67,5 @@ def test_restore_rejects_mismatched_structure(tmp_path):
         ckpt.restore_best(root, UMPR(ModelDims(), np.zeros((31, 8), np.float32)))
     os.remove(os.path.join(root, "best", "structure.json"))
     os.makedirs(os.path.join(root, "best", "orbax"))
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="A4"):
         ckpt.restore_best(root, UMPR(ModelDims(), emb))

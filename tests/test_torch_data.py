@@ -48,7 +48,7 @@ def test_word2vec_matches_jax(tmp_path, fmt):
 def test_gensim_model_file_raises(tmp_path):
     path = tmp_path / "model.bin"
     path.write_bytes(b"\x80\x04\x95")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A8"):
         Word2vec(str(path))
 
 

@@ -162,31 +162,41 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--review_net_only", "False", "--remat_vgg", "True"], "A4"),
-    (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A4"),
-    (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A2"),
-    (["--review_net_only", "True", "--steps_per_dispatch", "8"], "A4"),
-    (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A4"),
-    (["--review_net_only", "False", "--vgg_fused_pool", "True"], "A5"),
-    (["--review_net_only", "True", "--mesh_shape", "[8]"], "A6"),
-    (["--review_net_only", "True", "--save_every_batches", "2"], "A2"),
+    (["--review_net_only", "False", "--remat_vgg", "True"], "A5"),
+    (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A5"),
+    (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A4"),
+    (["--review_net_only", "True", "--steps_per_dispatch", "8"], "A5"),
+    (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A5"),
+    (["--review_net_only", "False", "--adam_factored_nu", "True"], "A4"),
+    (["--review_net_only", "True", "--mesh_shape", "[8]"], "A7"),
+    (["--review_net_only", "True", "--rnet_pretrained", "x"], "A4"),
     (["--review_net_only", "True", "--use_pallas", "False"], "CUDA kernels"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(flags, item, tmp_path):
-    """Through serve.main, which reads the flags with Config first: the
-    flags of NOT_PORTED raise there, and serving full UMPR raises after."""
+    """Through serve.main, which reads the flags with Config first, and
+    through Config itself: the flags of NOT_PORTED raise."""
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--device", "cpu", "--model_path", str(tmp_path),
                     "--input", str(tmp_path / "in.csv")] + flags)
-    if item != "A5":
-        with pytest.raises(NotImplementedError, match=item):
-            Config(["--device", "cpu"] + flags)
+    with pytest.raises(NotImplementedError, match=item):
+        Config(["--device", "cpu"] + flags)
 
 
 def test_full_umpr_predictor_raises_naming_a5(tmp_path):
-    cfg = Config(["--device", "cpu", "--review_net_only", "False"])
-    with pytest.raises(NotImplementedError, match="A5"):
-        serve.Predictor(cfg, FakeW2v(np.zeros((5, 4), np.float32)), str(tmp_path))
+    """Full UMPR serves (ROADMAP A2, once the item that raised here): the
+    Predictor builds from a checkpoint and scores finite predictions."""
+    emb = np.random.default_rng(1).standard_normal((40, 8)).astype(np.float32)
+    cfg = Config(["--device", "cpu", "--review_net_only", "False", "--photo_size", "32",
+                  "--kernel_count", "8", "--batch_size", "4", "--max_sent_count", "6",
+                  "--max_sent_length", "10"])
+    ckpt.save_best(str(tmp_path), UMPR(ModelDims.from_config(cfg), emb,
+                                       torch.Generator().manual_seed(2)))
+    predictor = serve.Predictor(cfg, FakeW2v(emb), str(tmp_path))
+    ds = small_dataset(n=5, S=6, L=10)
+    preds, rows = predictor.predict_dataset(ds)
+    assert preds.shape == (5,) and np.isfinite(preds).all() and (preds >= 0).all()
+    np.testing.assert_array_equal(rows, np.arange(5))
+    assert predictor._bank_enabled and len(predictor._bank_rows) == 1  # '' only
 
 
 def test_every_flag_is_read_or_raises():

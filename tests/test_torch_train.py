@@ -223,7 +223,9 @@ def test_main_cli_trains_tests_and_reloads(tmp_path):
     trainer = port_main.main(argv)
     assert trainer.batch_counter >= 8
     assert (model_dir / "best" / "arrays.npz").exists()
-    assert not (model_dir / "last").exists()
+    meta = json.load(open(model_dir / "last" / "meta.json"))  # the final epoch saves
+    assert meta == {"epoch": 2, "batch_counter": trainer.batch_counter,
+                    "best_loss": trainer.best_loss, "batch_in_epoch": 0}
     log = (tmp_path / "log" / "train.txt").read_text()
     for line in ("Initial validation mse is", "Epoch   1 done; train loss",
                  "End of training!", "Test end, test mse is"):

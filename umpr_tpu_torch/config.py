@@ -11,9 +11,13 @@ Differences from the JAX package:
   raises; nothing carries on on the CPU.  ``--device cpu`` is the only way
   onto the CPU.
 - ``multi_gpu`` defaults to False (the port runs on one card),
-  ``build_chunk_rows`` to 0 (the port always takes the full-memory build),
-  ``cache_dataset`` to False (each split is built in memory) and
-  ``save_last_every_epochs`` to 0 (no ``last/`` checkpoint).
+  ``build_chunk_rows`` to 0 (the port always takes the full-memory build)
+  and ``cache_dataset`` to False (each split is built in memory).
+- ``device_dataset``: serving full UMPR keeps the decode-once photo bank
+  on the card unless it is ``off`` (``device_dataset_mb`` caps it);
+  training streams every batch from the host loader under ``off`` and
+  ``auto``, and raises under ``on`` (the resident training corpus is
+  ROADMAP A5).
 - Every flag that nothing in the port reads yet keeps its name and
   default, and raises ``NotImplementedError`` naming the ROADMAP.md item
   that ports it when given another value (``NOT_PORTED``).  So a flag the
@@ -31,7 +35,7 @@ import torch
 class Config:
     # ----- training schedule -----
     device = "cuda"  # "cuda" | "cuda:<n>" | "cpu"
-    multi_gpu = False  # True over more than one card: ROADMAP A6
+    multi_gpu = False  # True over more than one card: ROADMAP A7
     train_epochs = 20
     batch_size = 64
     learning_rate = 1e-6
@@ -72,11 +76,11 @@ class Config:
     max_batches = 50000
     prefetch_depth = 2  # host->device look-ahead batches
     save_every_batches = 0
-    save_last_every_epochs = 0  # 0 = no last/ checkpoint; resume is ROADMAP A2
+    save_last_every_epochs = 1
     steps_per_dispatch = 1
     grad_accum_steps = 1
     data_workers = 0
-    device_dataset = 'auto'
+    device_dataset = 'auto'  # 'auto' | 'on' | 'off'
     device_dataset_mb = 4096
     serve_coalesce_ms = 0  # HTTP serving: merge concurrent /predict
                            # requests arriving within this window into one
@@ -98,13 +102,13 @@ class Config:
     adam_factored_nu = False
     profile_dir = ""
     metrics_jsonl = ""
-    cache_dataset = False  # the dataset cache is ROADMAP A4
+    cache_dataset = False  # the dataset cache is ROADMAP A5
     checkpoint_backend = "npz"  # 'orbax' is a JAX library
     async_checkpoint = True
     coordinator_address = ""
     num_processes = 0
     process_id = -1
-    build_chunk_rows = 0  # 0 = the full-memory build; streaming is ROADMAP A4
+    build_chunk_rows = 0  # 0 = the full-memory build; streaming is ROADMAP A5
 
     def __init__(self, argv=None):
         parser = argparse.ArgumentParser()
@@ -118,6 +122,9 @@ class Config:
 
         if self.review_level not in ("sentence", "review"):
             raise ValueError('"review_level" must be equal to "sentence" or "review"!')
+        if self.device_dataset not in ("auto", "on", "off"):
+            raise ValueError(f"--device_dataset {self.device_dataset!r}: expected "
+                             "'auto', 'on' or 'off'")
         if self.photo_size <= 0 or self.photo_size % 32:
             raise ValueError(f"--photo_size {self.photo_size}: expected a positive "
                              "multiple of 32")
@@ -149,19 +156,17 @@ class Config:
 # is read by the port.
 NOT_PORTED = {
     **dict.fromkeys((
-        "save_every_batches", "save_last_every_epochs", "resume_path",
         "rnet_pretrained", "adam_moment_dtype", "adam_factored_nu",
         "profile_dir", "checkpoint_backend",
-    ), "ROADMAP A2, training"),
+    ), "ROADMAP A4, training"),
     **dict.fromkeys((
         "compute_dtype", "steps_per_dispatch", "grad_accum_steps",
-        "device_dataset", "device_dataset_mb", "async_checkpoint",
         "build_chunk_rows", "cache_dataset", "remat_vgg",
-    ), "ROADMAP A4, runtime features"),
+    ), "ROADMAP A5, runtime features"),
     **dict.fromkeys((
         "mesh_shape", "shard_embedding", "coordinator_address",
         "num_processes", "process_id",
-    ), "ROADMAP A6, parallelism"),
+    ), "ROADMAP A7, parallelism"),
     # the port has no kernel-free path on the card; --device cpu runs the
     # plain versions
     "use_pallas": "no ROADMAP item: the card always runs the CUDA kernels",
@@ -183,5 +188,5 @@ def resolve_device(name, multi_gpu=False):
     if multi_gpu and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             f"--multi_gpu True over {torch.cuda.device_count()} devices is "
-            "not ported yet (ROADMAP A6); pass --multi_gpu False")
+            "not ported yet (ROADMAP A7); pass --multi_gpu False")
     return device

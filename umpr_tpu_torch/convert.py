@@ -17,6 +17,11 @@ The mapping, by parameter path:
 - every other leaf (``M``, ``Ms``, ``Ws``, ``bias``, ``pos_v_emb``) keeps its path.
 
 Gate order [r | z | n] is the same on both sides.
+
+Adam's state maps the same way: torch keeps ``exp_avg``, ``exp_avg_sq``
+and a float ``step`` per parameter, optax one ``ScaleByAdamState(count,
+mu, nu)`` whose mu and nu are trees of the parameters' layout and whose
+count is one int32 for all (``adam_to_jax`` / ``adam_from_jax``).
 """
 
 from __future__ import annotations
@@ -119,3 +124,40 @@ def params_to_jax(state_dict):
             node = node.setdefault(k, {})
         node[path[-1]] = np.ascontiguousarray(_to_jax_layout(a, transpose))
     return listify(tree)
+
+
+def _trainable_names(model, opt):
+    """State-dict names of the optimizer's parameters, in its order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [(names[id(p)], p) for group in opt.param_groups for p in group["params"]]
+
+
+def adam_to_jax(model, opt):
+    """torch Adam's state -> optax's (count, mu, nu), mu and nu in the JAX
+    layout of the trainable parameters (host copies).  Every parameter
+    steps together, so one count stands for every ``step``; a parameter
+    without state yet (no step taken) has zero moments."""
+    mu, nu, steps = {}, {}, set()
+    for name, p in _trainable_names(model, opt):
+        state = opt.state.get(p, {})
+        steps.add(int(state["step"]) if state else 0)
+        for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            out[name] = (state[key].to("cpu", copy=True) if state
+                         else torch.zeros_like(p, device="cpu"))
+    if len(steps) > 1:
+        raise ValueError(f"Adam steps differ between parameters: {sorted(steps)}")
+    return np.int32(steps.pop() if steps else 0), params_to_jax(mu), params_to_jax(nu)
+
+
+def adam_from_jax(model, opt, count, mu, nu):
+    """Load optax's (count, mu, nu) into torch Adam `opt` over `model`'s
+    parameters: the inverse of adam_to_jax."""
+    mu, nu = params_from_jax(mu), params_from_jax(nu)
+    # torch's own type for ``step`` (Adam's _get_scalar_dtype)
+    step_dtype = (torch.float64 if torch.get_default_dtype() == torch.float64
+                  else torch.float32)
+    state = {i: {"step": torch.tensor(float(count), dtype=step_dtype),
+                 "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+             for i, (name, _) in enumerate(_trainable_names(model, opt))}
+    opt.load_state_dict({"state": state,
+                         "param_groups": opt.state_dict()["param_groups"]})

@@ -17,7 +17,7 @@ selection follows the reference's order-dependent filters exactly:
 A sample dropped by an earlier step is not examined by later ones.  The
 result is packed into dense arrays: tokens (N, S, L), lengths (N, S) with
 pad sentences of length 1, counts (N,).  The native C++ tokenizer and the
-streaming build of the JAX package are ROADMAP A4; they give the same
+streaming build of the JAX package are ROADMAP A5; they give the same
 arrays.
 """
 

@@ -7,6 +7,8 @@ raise the runtime batch maxima, so the last batch scores like the
 reference's smaller one.  Unless ``ignore_photos``, each batch carries
 ``photos`` (B, V, P, H, W, 3) uint8, decoded on the host (by a pool of
 ``workers`` threads, through a shared ``photo_cache`` when given).
+``with_photo_idx`` gives in-order batches the rows of a photo bank in
+their place (serving's decode-once bank).
 """
 
 from __future__ import annotations
@@ -73,6 +75,21 @@ class BatchLoader:
             self._rng.shuffle(order)
         for start in range(self.start_batch * self.batch_size, n, self.batch_size):
             yield self._make_batch(order[start:start + self.batch_size])
+
+
+def with_photo_idx(batches, photo_idx):
+    """Batches of an in-order BatchLoader (no shuffle, no start_batch) ->
+    the same batches with ``photo_idx`` (B, V, P) int32: the bank rows of
+    their samples' photos, from `photo_idx` (N, V, P) over the dataset.
+    Batch i covers dataset rows [off, off + n_real); dead-padded rows take
+    bank row 0, the zeros the streaming loader ships for them."""
+    off = 0
+    for b in batches:
+        n_real = int(b["sample_mask"].sum())
+        rows = np.zeros((len(b["sample_mask"]),) + photo_idx.shape[1:], np.int32)
+        rows[:n_real] = photo_idx[off:off + n_real]
+        off += n_real
+        yield dict(b, photo_idx=rows)
 
 
 def to_device(batch, device):

@@ -9,10 +9,14 @@ the train, valid and test splits from ``<data_dir>/{train,valid,
 test}.csv``, logs the initial validation MSE, trains with Adam (evaluating
 every ``--eval_every`` batches and saving ``best/`` on improvement), then
 reports the test MSE of ``best/``.  ``--test_only True --model_path <run>``
-skips training.  Log lines are the JAX entry point's.  Runs on
-``--device`` (default cuda; ``--device cpu`` runs the kernels' plain
-versions); each split is built in memory (``--cache_dataset`` is ROADMAP
-A4).
+skips training.  ``last/`` (parameters, Adam's state, counters) is saved
+at the end of every ``--save_last_every_epochs``-th epoch and of the last
+one, and with ``--save_every_batches N`` every N batches;
+``--resume_path <run>`` continues from ``<run>/last``, mid-epoch
+included, as the uninterrupted run would have gone on.  Log lines are the
+JAX entry point's.  Runs on ``--device`` (default cuda; ``--device cpu``
+runs the kernels' plain versions); each split is built in memory
+(``--cache_dataset`` is ROADMAP A5).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""Batch serving of UMPR-R rating predictions from a checkpoint (port of
-umpr_tpu/serve.py for ``--review_net_only True``).  Full UMPR serving
-needs the decode-once photo bank and raises (ROADMAP A5).
+"""Batch serving of rating predictions from a checkpoint (port of
+umpr_tpu/serve.py): UMPR-R (``--review_net_only True``) and full UMPR
+(``--review_net_only False``, photos through VGG16).
 
 CSV mode:
 
-    python -m umpr_tpu_torch.serve --review_net_only True \
+    python -m umpr_tpu_torch.serve --review_net_only False \
         --data_dir data/music --word2vec_file embedding/glove.6B.50d.txt \
         --model_path model/<run-dir> --input data/music/test.csv \
         --output predictions.csv
@@ -26,7 +26,19 @@ Every dispatch computes at the full static padding (``pad_maxima`` pinned
 to the packed arrays' dims), so a row scores the same alone, in a batch or
 merged with other requests by the Coalescer.  The model runs on
 ``--device`` (default cuda); on a card the bi-GRU goes through the CUDA
-kernels of ops/gru_cuda.py.
+kernels of ops/gru_cuda.py, and with ``--vgg_fused_pool True`` VGG16's
+blocks 1-3 close with K5 (ops/pool_cuda.py).
+
+Full UMPR: photos are decoded on the host (``--data_workers`` threads)
+through one LRU ``PhotoCache`` per Predictor (``--photo_cache_mb``).
+Unless ``--device_dataset off``, each distinct photo is decoded once per
+Predictor into a resident uint8 photo bank on the device, and batches
+carry (B, V, P) int32 bank rows in place of pixels; ``bank[photo_idx]``
+then gathers the same bytes the streaming loader would ship, so the two
+give the same predictions.  The bank's capacity is a power of two, and
+``--device_dataset_mb`` caps the bytes it holds, growth included (the old
+and the new bank side by side); past the cap the Predictor logs once and
+streams photos from then on.
 """
 
 from __future__ import annotations
@@ -42,7 +54,9 @@ import torch
 
 from umpr_tpu_torch.config import Config
 from umpr_tpu_torch.data.dataset import build_dataset
-from umpr_tpu_torch.data.loader import FIELDS, BatchLoader, prefetch_iter, to_device
+from umpr_tpu_torch.data.images import PhotoCache, load_photo_batch
+from umpr_tpu_torch.data.loader import (FIELDS, BatchLoader, prefetch_iter, to_device,
+                                        with_photo_idx)
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train import checkpoint as ckpt
@@ -55,16 +69,8 @@ def set_f32_parity():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _umpr_r_only(config):
-    if not config.review_net_only:
-        raise NotImplementedError(
-            "serving full UMPR (--review_net_only False) is not ported yet "
-            "(ROADMAP A5, the decode-once photo bank); pass --review_net_only True")
-
-
 class Predictor:
     def __init__(self, config, word2vec, model_path):
-        _umpr_r_only(config)
         self.config = config
         self.device = config.torch_device
         if self.device.type == "cuda":
@@ -73,20 +79,81 @@ class Predictor:
                      torch.Generator().manual_seed(config.seed))
         ckpt.restore_best(model_path, model)  # the embedding included
         self.model = model.to(self.device).eval()
+        photos = not config.review_net_only
+        # one decoded-photo cache for the Predictor's life: a cache per
+        # request would decode every JPEG again on every request
+        self._photo_cache = (PhotoCache(config.photo_cache_mb << 20)
+                             if photos and config.photo_cache_mb > 0 else None)
+        self._bank_enabled = photos and config.device_dataset != "off"
+        if self._bank_enabled:
+            H = config.photo_size
+            self._bank_rows = {"": 0}  # path -> bank row; row 0 is zeros
+            self._bank = torch.zeros((1, H, H, 3), dtype=torch.uint8,
+                                     device=self.device)
 
     def predict_dataset(self, dataset):
         """-> (predictions (N,), source_rows (N,)) over retained samples."""
         return self._predict_packed(dataset), np.asarray(dataset.source_rows)
 
+    def _bank_idx(self, dataset):
+        """Decode the dataset's photos that the bank does not hold yet into
+        it, once each, and return the (N, V, P) int32 bank rows of its
+        samples; None where the bank is off or has outgrown
+        --device_dataset_mb (then photos stream, logged once)."""
+        if not self._bank_enabled:
+            return None
+        cfg = self.config
+        new = [p for p in np.unique(dataset.photo_paths.ravel())
+               if p not in self._bank_rows]
+        if new:
+            held, need = len(self._bank_rows), len(self._bank_rows) + len(new)
+            old_cap = cap = self._bank.shape[0]
+            while cap < need:
+                cap *= 2
+            # a hard cap on the bytes held, growth included: the old bank
+            # lives until the new one has taken its rows
+            row_bytes = cfg.photo_size * cfg.photo_size * 3
+            peak = (cap + (old_cap if cap > old_cap else 0)) * row_bytes
+            if peak > cfg.device_dataset_mb << 20:
+                print(f"serve: the resident photo bank would hold {peak} bytes "
+                      f"(capacity {cap} rows) past device_dataset_mb="
+                      f"{cfg.device_dataset_mb} at {need} photos; streaming "
+                      "photos from here on.")
+                self._bank_enabled = False
+                self._bank = None
+                return None
+            size = (cfg.photo_size, cfg.photo_size)
+            imgs = load_photo_batch(np.asarray(new, dtype=np.str_).reshape(-1, 1, 1),
+                                    size, None, self._photo_cache)[:, 0, 0]
+            if cap > old_cap:
+                grown = torch.zeros((cap,) + self._bank.shape[1:], dtype=torch.uint8,
+                                    device=self.device)
+                grown[:held] = self._bank[:held]
+                self._bank = grown
+            self._bank[held:need] = torch.from_numpy(imgs).to(self.device)
+            for p in new:
+                self._bank_rows[p] = len(self._bank_rows)
+        lut = self._bank_rows
+        flat = dataset.photo_paths.ravel()
+        return np.fromiter((lut[p] for p in flat), np.int32,
+                           len(flat)).reshape(dataset.photo_paths.shape)
+
     @torch.inference_mode()
     def _predict_packed(self, dataset):
         """Predictions (N,) over a packed dataset's samples, in order."""
         cfg = self.config
-        loader = BatchLoader(dataset, cfg.batch_size)
+        photo_idx = self._bank_idx(dataset)
+        loader = BatchLoader(dataset, cfg.batch_size,
+                             ignore_photos=cfg.review_net_only or photo_idx is not None,
+                             resize=(cfg.photo_size, cfg.photo_size),
+                             workers=cfg.data_workers, photo_cache=self._photo_cache)
+        batches = iter(loader) if photo_idx is None else with_photo_idx(loader, photo_idx)
         host_to_device = ((b["sample_mask"] > 0, to_device(b, self.device))
-                          for b in loader)
+                          for b in batches)
         outs = []  # read back after the last dispatch
         for alive, batch in prefetch_iter(host_to_device, depth=cfg.prefetch_depth):
+            if photo_idx is not None:
+                batch["photos"] = self._bank[batch.pop("photo_idx").long()]
             # full static padding: the same row scores the same in any batch
             batch["pad_maxima"] = (batch["u_tokens"].shape[1],
                                    batch["u_tokens"].shape[2],
@@ -100,10 +167,10 @@ class Predictor:
 
 class _ConcatDatasets:
     """Read-only concatenation of packed datasets along the sample axis:
-    the loader-facing fields and __len__."""
+    the loader-facing fields, the photo paths and __len__."""
 
     def __init__(self, parts):
-        for f in FIELDS:
+        for f in FIELDS + ("photo_paths",):
             setattr(self, f, np.concatenate([getattr(p, f) for p in parts]))
 
     def __len__(self):
@@ -250,7 +317,6 @@ def main(argv=None):
     parser.add_argument("--host", default="127.0.0.1")
     args, rest = parser.parse_known_args(argv)
     config = Config(rest)
-    _umpr_r_only(config)
     if not config.model_path:
         raise ValueError("--model_path is required for serving")
 

@@ -5,7 +5,7 @@
   ``<NUM>`` and unknown tokens to ``<UNK>``;
 - sources: ``glove`` (``word v1 .. vD`` per line) and ``word2vec`` (the
   same rows under a ``<count> <dim>`` header, auto-detected on the glove
-  path).  The gensim-model and in-memory ``arrays`` sources are ROADMAP A7.
+  path).  The gensim-model and in-memory ``arrays`` sources are ROADMAP A8.
 
 While serving, the embedding rows come from the checkpoint; the file
 supplies the token -> id map.
@@ -27,7 +27,7 @@ class Word2vec:
     def __init__(self, emb_path, source="glove"):
         if source not in ("glove", "word2vec"):
             raise NotImplementedError(
-                f"embedding source {source!r} is not ported yet (ROADMAP A7)")
+                f"embedding source {source!r} is not ported yet (ROADMAP A8)")
         self.vocab = [self.PAD, self.UNK, self.NUM]
         self.word2index = {self.PAD: 0, self.UNK: 1, self.NUM: 2}
 
@@ -35,7 +35,7 @@ class Word2vec:
             if _is_pickle(emb_path):
                 raise NotImplementedError(
                     f"{emb_path} is a gensim model; that source is not "
-                    "ported yet (ROADMAP A7)")
+                    "ported yet (ROADMAP A8)")
             if _has_word2vec_header(emb_path):
                 source = "word2vec"
         words, vecs = (_read_glove(emb_path) if source == "glove"

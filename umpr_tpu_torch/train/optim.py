@@ -9,9 +9,10 @@ computes.  The frozen GloVe embedding has ``requires_grad=False`` and never
 reaches the optimizer, so no moments are allocated for it.
 
 The optimizer is PyTorch's own (the JAX package's is optax, not a Pallas
-kernel).  Only the float32 moments of the reference are ported;
-``--adam_moment_dtype bfloat16`` and ``--adam_factored_nu`` raise (ROADMAP
-A2).
+kernel); convert.adam_to_jax / adam_from_jax map its state to and from
+optax's ``ScaleByAdamState`` for ``last/`` checkpoints.  Only the float32
+moments of the reference are ported; ``--adam_moment_dtype bfloat16`` and
+``--adam_factored_nu`` raise (ROADMAP A4).
 """
 
 from __future__ import annotations
