@@ -69,11 +69,27 @@
    the resumed run must end with the uninterrupted run's bits
    (parameters, Adam's state, best/ and last/, the logged values after
    the resume point).
-10. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, and
-   a ``{"kernels": [...]}`` line (launches: each kernel's main path -- the
-   full-UMPR run for K1-K6, the long-history training for K7/K8, the
-   input-gradient run for K9 -- and the other runs' beside them), then,
-   as the last line, ``{"ok": true, "device": {...}}``.
+10. ``--steps_per_dispatch`` (CUDA graphs of k steps): UMPR-R training
+   through ``umpr_tpu_torch.main.main``, 20 steps at k = 1 and k = 4 with
+   ``--profile_dir`` (parameters and logged values within rtol 1e-5, atol
+   1e-6, bits equal or not printed; launches on the card, replays x the
+   launches captured, equal to k = 1's; the k = 1 trace names K1's and
+   K2's kernels; ms per step and idle share at both k); full UMPR at 224
+   px, 4 steps at k = 1 and 2 (the same dropout masks, parameters within
+   the same tolerance); UMPR-R serving at k = 4 (the same bits as k = 1,
+   one HTTP request, ms per batch and idle share).  Phases 4 and 8 also
+   time a graph of 4 train steps.  Before them the port's Adam step alone
+   beside torch.optim.Adam's foreach step (a yardstick), then
+   ``--adam_moment_dtype bfloat16
+   --adam_factored_nu True``: 6 steps card vs CPU within 1e-5, and a
+   resume from last/ bit-exact on the card; and ``--rnet_pretrained``:
+   the card's predictions against the CPU's.
+11. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
+   ``{"steps_per_dispatch": ...}`` line, and a ``{"kernels": [...]}``
+   line (launches: each kernel's main path -- the full-UMPR run for
+   K1-K6, the long-history training for K7/K8, the input-gradient run for
+   K9 -- and the other runs' beside them), then, as the last line,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -1577,6 +1593,11 @@ def train_phase(device_name, work="train", flags=(), corpus=None):
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     device_breakdown(lambda: train_step(model, opt, dev_batch, 1e-3), "train step",
                      steps=5)
+    if not long_history:
+        ms, busy, wall = graph_step_ms(trainer, ds["train"])
+        print(f"training on {device_name} at --steps_per_dispatch {DISPATCH_K}: {ms:.3f} ms "
+              f"per train step (one CUDA graph replay of {DISPATCH_K} steps, CUDA events); "
+              f"idle {_idle(busy, wall)} (torch.profiler)")
     return launches
 
 
@@ -2041,6 +2062,417 @@ def resume_phase(device_name, work, flags=(), corpus=None):
             "events_compared": len(want), "seconds": round(seconds, 1)}
 
 
+DISPATCH_K = 4
+# 3 train shards of 424 rows: 20 B=64 batches, 5 chunks of 4; valid and
+# test 7 batches each, a chunk of 4 and 3 singles
+DISPATCH_CORPUS = dict(users=53)
+PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-6  # tests/test_e2e_train.py's k = 4 vs k = 1
+
+
+def run_graphs(trainer):
+    """The DispatchGraphs of a Trainer's --steps_per_dispatch run."""
+    if trainer.k_dispatch == 1:
+        return []
+    graphs = trainer.multi_eval_step.dispatch_graphs()
+    if trainer.multi_train_step.graph is not None:
+        graphs.append(trainer.multi_train_step.graph)
+    return graphs
+
+
+def device_launches(counts, graphs):
+    """(launches on the card, the graphs' warm-up launches) of a run whose
+    wrapper counts are `counts`: a wrapper counts its kernel where it is
+    called, so at a graph's capture once and at its replays never; on the
+    card the captured launches ran once per replay."""
+    out, warm = dict(counts), dict.fromkeys(counts, 0)
+    for g in graphs:
+        for k in out:
+            out[k] += (g.replays - 1) * g.captured[k]
+            warm[k] += g.warmup_launches[k]
+    return out, warm
+
+
+def idle_share(fn, steps=5):
+    """(device busy ms, host wall ms) per call of fn under torch.profiler;
+    busy None where it recorded no device time."""
+    kernels, wall_ms, _ = profile_device(fn, steps)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    return (busy if kernels else None), wall_ms
+
+
+def _idle(busy, wall):
+    return "not measured" if busy is None else f"{1 - busy / wall:.1%}"
+
+
+def _params_close(a, b):
+    """(bits equal?, max abs diff, all within PARAM_RTOL/ATOL?) over two
+    state dicts."""
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    diff = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+    close = all(torch.allclose(a[k].float(), b[k].float(), rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                for k in a)
+    return equal, diff, close
+
+
+def _stack(batches, device):
+    return to_device({key: np.stack([b[key] for b in batches]) for key in batches[0]},
+                     device)
+
+
+def dispatch_phase(device_name):
+    """--steps_per_dispatch on UMPR-R at P = 400, B = 64 through
+    ``umpr_tpu_torch.main.main``: one epoch of 20 steps at k = 1 and at
+    k = DISPATCH_K (CUDA graphs of k train steps and of k eval steps),
+    eval_every 20, each with --profile_dir.  The parameters and logged
+    values agree, the launches on the card (replays x the launches
+    captured, plus the remainders' and the warm-ups') equal the k = 1
+    run's, the k = 1 trace names K1's and K2's kernels; then ms per train
+    step and the idle share at both k.  Returns a summary."""
+    root = WORK / "dispatch"
+    if root.exists():
+        shutil.rmtree(root)
+    glove = write_splits(root, seed=1, shards=5, **DISPATCH_CORPUS)
+    base = ["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file",
+            str(glove), "--train_epochs", "1", "--learning_rate", "1e-3", "--eval_every", "20"]
+    runs = {}
+    for k in (1, DISPATCH_K):
+        argv = base + ["--steps_per_dispatch", str(k), "--model_path", str(root / f"k{k}"),
+                       "--log_path", str(root / f"k{k}.log"),
+                       "--metrics_jsonl", str(root / f"k{k}.jsonl"),
+                       "--profile_dir", str(root / f"trace_k{k}")]
+        with main_path_counts() as (launches, plain_calls):
+            t0 = time.perf_counter()
+            trainer = train_main.main(argv)
+            wall = time.perf_counter() - t0
+        graphs = run_graphs(trainer)
+        on_card, warm = device_launches(launches, graphs)
+        events = [{k2: v for k2, v in json.loads(line).items() if k2 not in ("ts", "elapsed_s")}
+                  for line in open(root / f"k{k}.jsonl")]
+        runs[k] = dict(trainer=trainer, launches=launches, on_card=on_card, warm=warm,
+                       plain=plain_calls[0], graphs=graphs, wall=wall, events=events)
+    one, many = runs[1], runs[DISPATCH_K]
+    t1, tk = one["trainer"], many["trainer"]
+    steps = t1.batch_counter
+    equal, diff, close = _params_close(t1.model.state_dict(), tk.model.state_dict())
+    values = lambda ev: [e.get(key) for e in ev for key in ("train_loss", "valid_mse", "test_mse")
+                         if key in e]
+    v1, vk = values(one["events"]), values(many["events"])
+    train_graph = tk.multi_train_step.graph
+    print(f"steps per dispatch on {device_name}: {steps} UMPR-R steps at k = 1 and "
+          f"{tk.batch_counter} at k = {DISPATCH_K} (B=64, P=400, one epoch, eval_every 20); "
+          f"fit + test {one['wall']:.1f} s and {many['wall']:.1f} s (host clock, datasets "
+          f"built inside); parameters bit-equal {equal}, max abs diff {diff:.3e} (rtol "
+          f"{PARAM_RTOL:.0e}, atol {PARAM_ATOL:.0e}: {close}); logged values {v1} and {vk}")
+    print(f"  k = {DISPATCH_K}: {len(many['graphs'])} graphs (train: {train_graph.replays} "
+          f"replays of {train_graph.captured}; eval: "
+          f"{[(g.replays, g.captured['gru_input_proj']) for g in many['graphs'][:-1]]} "
+          f"replays and K1 launches captured); wrapper counts {many['launches']}; on the card "
+          f"{many['on_card']}, of them warm-ups {many['warm']}; k = 1: {one['launches']}; "
+          f"plain versions on the card {one['plain']} and {many['plain']}")
+    if steps < 16 or tk.batch_counter != steps or not close:
+        raise AssertionError("k = 4 and k = 1 training disagree")
+    if len(v1) != len(vk) or not np.allclose(vk, v1, rtol=PARAM_RTOL, atol=PARAM_ATOL):
+        raise AssertionError("k = 4 and k = 1 logged different losses or MSEs")
+    replayed = {key: many["on_card"][key] - many["warm"][key] for key in many["on_card"]}
+    if (one["plain"] or many["plain"] or train_graph.replays < 4
+            or any(train_graph.captured[key] != DISPATCH_K for key in FORWARD + GRU_BACKWARD)
+            or len(many["graphs"]) < 2 or replayed != one["launches"]
+            or not all(one["launches"][key] for key in FORWARD + GRU_BACKWARD)):
+        raise AssertionError("the k = 4 run's launches are not the k = 1 run's")
+
+    traces = {k: sorted((root / f"trace_k{k}").glob("*.pt.trace.json")) for k in runs}
+    text = {k: "".join(p.read_text() for p in v) for k, v in traces.items()}
+    names = {src: port_kernel_names(src) for src in ("gru_input_proj.cu", "bigru_recurrence.cu")}
+    seen = {k: {src: sorted(n for n in ns if n in text[k]) for src, ns in names.items()}
+            for k in runs}
+    print(f"--profile_dir: traces {[p.name for v in traces.values() for p in v]}; K1's and "
+          f"K2's kernels named at k = 1: {seen[1]}; at k = {DISPATCH_K} (graph replays): "
+          f"{seen[DISPATCH_K]}")
+    if not traces[1] or not all(seen[1].values()):
+        raise AssertionError("the k = 1 profile trace does not name K1's and K2's kernels")
+
+    # ms per train step, back to back on the trained models
+    train = build_dataset(str(root / "train.csv"), str(root / "photos.json"),
+                          str(root / "photos"), Word2vec(str(glove)), tk.config)
+    loader = iter(BatchLoader(train, tk.config.batch_size))
+    host = [next(loader) for _ in range(DISPATCH_K)]
+    batch, chunk = to_device(host[0], tk.device), _stack(host, tk.device)
+    step1 = lambda: train_step(t1.model, t1.opt, batch)
+    stepk = lambda: tk.multi_train_step(chunk, [None] * DISPATCH_K)
+    ms1, msk = time_cuda(step1), time_cuda(stepk) / DISPATCH_K
+    (b1, w1), (bk, wk) = idle_share(step1), idle_share(stepk)
+    bk, wk = (None if bk is None else bk / DISPATCH_K), wk / DISPATCH_K
+    print(f"UMPR-R train step on {device_name}: k = 1 {ms1:.3f} ms, k = {DISPATCH_K} "
+          f"{msk:.3f} ms per step (CUDA events, back to back); under torch.profiler busy "
+          f"{b1 if b1 is None else round(b1, 3)} of {w1:.3f} ms (idle {_idle(b1, w1)}) and "
+          f"{bk if bk is None else round(bk, 3)} of {wk:.3f} ms (idle {_idle(bk, wk)})")
+    return {"steps": steps, "bit_equal": equal, "max_abs_diff": diff,
+            "ms_per_step": {"1": ms1, str(DISPATCH_K): msk},
+            "idle_share": {"1": _idle(b1, w1), str(DISPATCH_K): _idle(bk, wk)},
+            "launches_on_card": many["on_card"], "warmup_launches": many["warm"]}
+
+
+def optimizer_phase(device_name):
+    """The port's Adam step alone (train/optim.py, every train step's
+    optimizer) on UMPR-R's parameters at the reference widths, beside
+    torch.optim.Adam's foreach step on the same gradients (a yardstick:
+    the port never calls it): device ms (torch.profiler), ms per step
+    (CUDA events, back to back) and the port's kernels by name."""
+    from umpr_tpu_torch.train.optim import make_optimizer, param_groups
+    cfg = Config(["--review_net_only", "True"])
+    model = UMPR(ModelDims.from_config(cfg), np.zeros((2000, 50), np.float32),
+                 torch.Generator().manual_seed(0)).to("cuda")
+    g = torch.Generator().manual_seed(1)
+    for p in model.parameters():
+        if p.requires_grad:
+            p.grad = torch.randn(p.shape, generator=g).to("cuda")
+    ours = make_optimizer(model, 1e-3, 1e-3)
+    theirs = torch.optim.Adam(param_groups(model, 1e-3), lr=1e-3, foreach=True)
+    n = sum(p.numel() for p in ours.params)
+    out = {}
+    for name, opt in (("port", ours), ("torch_foreach", theirs)):
+        out[name] = (time_cuda(opt.step), device_ms(opt.step))
+    split = sorted(device_split(ours.step).items(), key=lambda kv: -kv[1])
+    print(f"Adam step on {device_name} over UMPR-R's {len(ours.params)} trainable tensors "
+          f"({n} values): the port's {out['port'][0]:.4f} ms (CUDA events, back to back), "
+          f"device {out['port'][1]:.4f} ms; torch.optim.Adam(foreach=True) "
+          f"{out['torch_foreach'][0]:.4f} ms, device {out['torch_foreach'][1]:.4f} ms; the "
+          f"port's {len(split)} kernels by device ms per step:")
+    for name, ms in split[:12]:
+        print(f"  {ms:8.4f} ms  {name[:100]}")
+    return {k: {"ms": v[0], "device_ms": v[1]} for k, v in out.items()}
+
+
+def graph_step_ms(trainer, ds, k=DISPATCH_K):
+    """ms per step of k train steps as one graph replay, and the idle
+    share, on a trainer's model (a chunk of its first k batches)."""
+    from umpr_tpu_torch.train.step import MultiTrainStep
+    loader = iter(BatchLoader(ds, trainer.config.batch_size))
+    chunk = _stack([next(loader) for _ in range(k)], trainer.device)
+    multi = MultiTrainStep(trainer.model, trainer.opt)
+    fn = lambda: multi(chunk, [None] * k)
+    ms = time_cuda(fn, iters=10) / k
+    busy, wall = idle_share(fn)
+    return ms, (None if busy is None else busy / k), wall / k
+
+
+def full_dispatch_phase(device_name):
+    """Full UMPR at 224 px, 4 train steps at k = 1 and at k = 2 (the
+    initial validation's 2 batches one chunk): the dropout masks drawn for
+    each step, the parameters and the launches on the card agree."""
+    from umpr_tpu_torch.models import visual_net
+    from umpr_tpu_torch.train.trainer import Trainer
+    from umpr_tpu_torch.utils.logging import get_logger
+    root = WORK / "dispatch_full"
+    if root.exists():
+        shutil.rmtree(root)
+    glove = write_splits(root, seed=1, shards=5)
+    use_seeded_photos()
+    argv = ["--review_net_only", "False", "--vgg_fused_pool", "True", "--seed", "2",
+            "--data_dir", str(root), "--word2vec_file", str(glove), "--learning_rate", "1e-3",
+            "--eval_every", "4", "--data_workers", "4"]
+    w2v = Word2vec(str(glove))
+    real = visual_net.keep_mask
+    runs = {}
+    try:
+        for k in (1, 2):
+            masks = []
+            visual_net.keep_mask = lambda *a, m=masks: m.append(real(*a)) or m[-1]
+            cfg = Config(argv + ["--steps_per_dispatch", str(k)])
+            train, valid = (build_dataset(str(root / f"{s}.csv"), str(root / "photos.json"),
+                                          str(root / "photos"), w2v, cfg)
+                            for s in ("train", "valid"))
+            trainer = Trainer(cfg, get_logger(logger_name=f"dispatch-full-{k}"), w2v)
+            with main_path_counts() as (launches, plain_calls):
+                trainer.fit(train, valid, str(root / f"k{k}"), _stop_after_batches=4)
+            on_card, warm = device_launches(launches, run_graphs(trainer))
+            runs[k] = (trainer, masks, launches, on_card, warm, plain_calls[0])
+    finally:
+        visual_net.keep_mask = real
+    (t1, m1, l1, _, _, p1), (t2, m2, l2, c2, w2, p2) = runs[1], runs[2]
+    masks_equal = len(m1) == len(m2) == 8 and all(torch.equal(a, b) for a, b in zip(m1, m2))
+    equal, diff, close = _params_close(t1.model.state_dict(), t2.model.state_dict())
+    replayed = {key: c2[key] - w2[key] for key in c2}
+    print(f"full UMPR, 4 steps at 224 px on {device_name}, k = 1 and k = 2: dropout masks "
+          f"{len(m1)} and {len(m2)}, equal {masks_equal}; parameters bit-equal {equal}, max "
+          f"abs diff {diff:.3e} (within rtol {PARAM_RTOL:.0e}, atol {PARAM_ATOL:.0e}: {close}); "
+          f"launches k = 1 {l1}, k = 2 on the card {c2} (warm-ups {w2}); plain versions on "
+          f"the card {p1} and {p2}")
+    if not (masks_equal and close and t2.batch_counter == 4 and not p1 and not p2
+            and replayed == l1 and t2.multi_train_step.graph.replays == 2):
+        raise AssertionError("full UMPR at k = 2 disagrees with k = 1")
+    return {"bit_equal": equal, "max_abs_diff": diff, "launches_on_card": c2}
+
+
+def serve_dispatch_phase(device_name):
+    """UMPR-R serving at k = DISPATCH_K against k = 1 (B = 64, P = 400): the
+    same bits over the corpus (a chunk and a remainder) and over one HTTP
+    request of all of it, the launches on the card, and the device ms per
+    batch with the idle share."""
+    work = WORK / "dispatch_serve"
+    if work.exists():
+        shutil.rmtree(work)
+    glove, csv, _ = write_corpus(work, seed=0)
+    model_dir = work / "model"
+    argv = ["--review_net_only", "True", "--data_dir", str(work), "--word2vec_file", str(glove),
+            "--model_path", str(model_dir)]
+    cfg = Config(argv)
+    w2v = Word2vec(str(glove))
+    ckpt.save_best(str(model_dir), UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                                       torch.Generator().manual_seed(CKPT_SEED)))
+    one = serve.Predictor(cfg, w2v, str(model_dir))
+    many = serve.Predictor(Config(argv + ["--steps_per_dispatch", str(DISPATCH_K)]), w2v,
+                           str(model_dir))
+    ds = build_dataset(str(csv), str(work / "photos.json"), str(work / "photos"), w2v, cfg)
+    n_batches = -(-len(ds) // cfg.batch_size)
+    with main_path_counts() as (launches, plain_calls):
+        pk, rows = many.predict_dataset(ds)
+    p1, rows1 = one.predict_dataset(ds)
+    on_card, warm = device_launches(launches, [many._graph])
+    replayed = {key: on_card[key] - warm[key] for key in on_card}
+    rows_all = pd.read_csv(csv).to_dict("records")
+    answers = []
+    for predictor in (one, many):
+        server = serve.make_http_server(predictor, cfg, w2v, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            answers.append(_post(f"http://127.0.0.1:{server.server_address[1]}", rows_all))
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    print(f"serving at k = {DISPATCH_K} on {device_name}: {len(ds)} samples, {n_batches} "
+          f"batches ({many._graph.replays} graph replays); predictions bit-equal to k = 1 "
+          f"{np.array_equal(pk, p1)}; one HTTP request of {len(rows_all)} rows bit-equal "
+          f"{answers[0] == answers[1]}; launches on the card {on_card} (warm-ups {warm}); "
+          f"plain versions on the card {plain_calls[0]}")
+    want = dict.fromkeys(launches, 0) | dict.fromkeys(FORWARD, n_batches)
+    if not (np.array_equal(pk, p1) and np.array_equal(rows, rows1) and answers[0] == answers[1]
+            and replayed == want and not plain_calls[0] and many._graph.replays >= 2):
+        raise AssertionError("serving at k = 4 disagrees with k = 1")
+
+    loader = iter(BatchLoader(ds, cfg.batch_size))
+    host = [next(loader) for _ in range(DISPATCH_K)]
+    batch, chunk = to_device(host[0], one.device), _stack(host, many.device)
+    with torch.inference_mode():
+        fwd1 = lambda: one._forward(batch)
+        fwdk = lambda: many._forward_chunk(chunk)
+        ms1, msk = time_cuda(fwd1), time_cuda(fwdk) / DISPATCH_K
+        (b1, w1), (bk, wk) = idle_share(fwd1), idle_share(fwdk)
+    bk, wk = (None if bk is None else bk / DISPATCH_K), wk / DISPATCH_K
+    print(f"serving forward on {device_name}: k = 1 {ms1:.3f} ms, k = {DISPATCH_K} {msk:.3f} ms "
+          f"per B=64 batch (CUDA events, back to back); idle {_idle(b1, w1)} and "
+          f"{_idle(bk, wk)} (torch.profiler)")
+    return {"bit_equal": True, "ms_per_batch": {"1": ms1, str(DISPATCH_K): msk},
+            "idle_share": {"1": _idle(b1, w1), str(DISPATCH_K): _idle(bk, wk)},
+            "launches_on_card": on_card}
+
+
+ADAM_MODE_FLAGS = ("--adam_moment_dtype", "bfloat16", "--adam_factored_nu", "True")
+
+
+def adam_modes_phase(device_name):
+    """bf16 mu with factored nu on UMPR-R (B = 64, P = 400): 6 steps on the
+    card against 6 on the CPU (plain versions) within 1e-5, at lr 1e-4
+    (Adam turns a gradient's rounding into an update difference of up to
+    lr where the gradient is near 0); then a run saved at step 3, stopped,
+    and resumed from last/ to step 6 ends with the card run's bits."""
+    from umpr_tpu_torch.train.trainer import Trainer
+    from umpr_tpu_torch.utils.logging import get_logger
+    root = WORK / "adam_modes"
+    if root.exists():
+        shutil.rmtree(root)
+    glove = write_splits(root, seed=1, shards=5)
+    base = ["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file", str(glove),
+            "--train_epochs", "2", "--learning_rate", "1e-4", "--eval_every", "100",
+            "--save_every_batches", "3", *ADAM_MODE_FLAGS]
+    w2v = Word2vec(str(glove))
+    cfg = Config(base)
+    train, valid = (build_dataset(str(root / f"{s}.csv"), str(root / "photos.json"),
+                                  str(root / "photos"), w2v, cfg) for s in ("train", "valid"))
+
+    def fit(name, *flags, stop=6):
+        t = Trainer(Config(base + list(flags)), get_logger(logger_name=f"adam-{name}"), w2v)
+        t.fit(train, valid, str(root / name), _stop_after_batches=stop)
+        return t
+
+    t0 = time.perf_counter()
+    card = fit("card")
+    cpu = fit("cpu", "--device", "cpu")
+    fit("cut", stop=3)
+    resumed = fit("cut", "--resume_path", str(root / "cut"), stop=3)
+    seconds = time.perf_counter() - t0
+    a = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    b = {k: v.cpu() for k, v in cpu.model.state_dict().items()}
+    init = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                torch.Generator().manual_seed(cfg.seed)).state_dict()
+    moved = max((a[k] - init[k]).abs().max().item() for k in a)
+    diff = max((a[k] - b[k]).abs().max().item() for k in a)
+    close = all(torch.allclose(a[k], b[k], rtol=1e-5, atol=1e-5) for k in a)
+    same = _params_close(a, {k: v.cpu() for k, v in resumed.model.state_dict().items()})[0]
+    adam = [adam_to_jax(t.model, t.opt) for t in (card, resumed)]
+    (ca, mua, nua), (cb, mub, nub) = adam
+    leaves = lambda tree: [x for _, x in ckpt.leaves_with_path(tree)]
+    adam_same = ca == cb == 6 and all(np.array_equal(x, y) for x, y in zip(
+        leaves(mua) + leaves(nua), leaves(mub) + leaves(nub)))
+    dtypes = json.load(open(root / "cut" / "last" / "structure.json"))["dtypes"]
+    print(f"Adam with {' '.join(ADAM_MODE_FLAGS)} on {device_name}: 6 UMPR-R steps, card vs CPU "
+          f"max abs diff {diff:.3e} (rtol and atol 1e-5: {close}; parameters moved up to "
+          f"{moved:.3e}); resumed at step 3 from last/ ({dtypes.count('bfloat16')} bfloat16 mu "
+          f"leaves, {len(nua)} nu leaves): parameters bit-equal {same}, Adam state bit-equal "
+          f"{adam_same} (count {ca}, {cb}); {seconds:.1f} s (host clock, 4 runs)")
+    if not (close and same and adam_same and moved > 1e-4 and resumed.batch_counter == 6):
+        raise AssertionError("bf16 + factored Adam: card and CPU or the resume disagree")
+    return {"max_abs_diff_vs_cpu": diff, "resume_bit_equal": same and adam_same}
+
+
+def rnet_pretrained_phase(device_name):
+    """--rnet_pretrained on the card and on the CPU: both R-Nets hold the
+    checkpoint's bits, and the card's predictions of one batch agree with
+    the CPU's within E2E_TOL."""
+    import logging
+    from umpr_tpu_torch.convert import params_to_jax
+    from umpr_tpu_torch.train.trainer import Trainer
+    root = WORK / "rnet"
+    if root.exists():
+        shutil.rmtree(root)
+    glove = write_splits(root, seed=1, shards=5)
+    base = ["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file", str(glove),
+            "--rnet_pretrained", str(root / "rnet")]
+    w2v = Word2vec(str(glove))
+    cfg = Config(base)
+    donor = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                 torch.Generator().manual_seed(11)).review_net.rnet
+    ckpt.save_pytree(str(root / "rnet"), params_to_jax(donor.state_dict()))
+    valid = build_dataset(str(root / "valid.csv"), str(root / "photos.json"),
+                          str(root / "photos"), w2v, cfg)
+    batch = next(iter(BatchLoader(valid, cfg.batch_size)))
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("rnet-pretrained")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    preds, held = {}, {}
+    for run, dev in (("cpu", "cpu"), ("card", Config.device)):
+        t = Trainer(Config(base + ["--device", dev]), logger, w2v)
+        rnet = t.model.review_net.rnet.state_dict()
+        held[run] = all(torch.equal(rnet[k].cpu(), v) for k, v in donor.state_dict().items())
+        with torch.no_grad():
+            preds[run] = t.model(to_device(batch, t.device))[0].cpu()
+    err = (preds["card"] - preds["cpu"]).abs().max().item()
+    loaded = sum("Loaded R-Net pre-trained weights from" in line for line in lines)
+    print(f"--rnet_pretrained on {device_name}: loaded {loaded} times (CPU and card), the "
+          f"checkpoint's bits held {held}; one batch's predictions card vs CPU max abs diff "
+          f"{err:.3e} (tolerance {E2E_TOL:.0e}), range [{preds['cpu'].min():.4f}, "
+          f"{preds['cpu'].max():.4f}]")
+    if not (loaded == 2 and all(held.values()) and err <= E2E_TOL):
+        raise AssertionError("--rnet_pretrained: card and CPU disagree")
+    return {"max_abs_diff": err}
+
+
+
 def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20):
     """A gradient through ``bigru_split`` with x requiring grad, at the
     UMPR-R shapes, on the card (K1-K4 and K9) and on the CPU (plain
@@ -2076,11 +2508,11 @@ def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20)
     return launches
 
 
-def port_kernel_names():
-    """The names of the port's CUDA kernels, read from csrc/*.cu."""
-    pattern = re.compile(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(")
-    return {name for src in _build.CSRC.glob("*.cu*")
-            for name in pattern.findall(src.read_text())}
+def port_kernel_names(pattern="*.cu*"):
+    """The names of the port's CUDA kernels, read from csrc/<pattern>."""
+    kernel = re.compile(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(")
+    return {name for src in _build.CSRC.glob(pattern)
+            for name in kernel.findall(src.read_text())}
 
 
 def device_breakdown(fn, what, steps=10, top=10):
@@ -2205,8 +2637,26 @@ def main():
             k["device_ms_by_kernel_at_gru_size"] = {
                 H: t["bigru_backward_by_kernel"] for H, t in widths.items()}
             k["at_long_history_shape"] = k3_long
+    # --steps_per_dispatch (CUDA graphs), the Adam modes, the profiler and
+    # the R-Net warm start
+    dispatch = {
+        "adam_step": phase("Adam step", optimizer_phase, card),
+        "umpr_r_training": phase("UMPR-R training at k = 1 and 4", dispatch_phase, card),
+        "full_umpr_training": phase("full UMPR training at k = 1 and 2", full_dispatch_phase,
+                                    card),
+        "umpr_r_serving": phase("UMPR-R serving at k = 1 and 4", serve_dispatch_phase, card),
+        "adam_bf16_factored": phase("bf16 mu + factored nu Adam", adam_modes_phase, card),
+        "rnet_pretrained": phase("--rnet_pretrained", rnet_pretrained_phase, card)}
+    for k in kernels:
+        k["launches_umpr_r_training_k4"] = dispatch["umpr_r_training"]["launches_on_card"][
+            k["name"]]
+        k["launches_full_umpr_training_k2"] = dispatch["full_umpr_training"][
+            "launches_on_card"][k["name"]]
+        k["launches_umpr_r_serving_k4"] = dispatch["umpr_r_serving"]["launches_on_card"][
+            k["name"]]
     print(f"phase seconds: {seconds}")
     print(json.dumps({"resume_bit_equal": resumed}))
+    print(json.dumps({"steps_per_dispatch": dispatch}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -165,11 +165,12 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     (["--review_net_only", "False", "--remat_vgg", "True"], "A5"),
     (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A5"),
     (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A4"),
-    (["--review_net_only", "True", "--steps_per_dispatch", "8"], "A5"),
+    (["--review_net_only", "True", "--grad_accum_steps", "2"], "A5"),
     (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A5"),
-    (["--review_net_only", "False", "--adam_factored_nu", "True"], "A4"),
+    (["--review_net_only", "False", "--checkpoint_backend", "orbax"], "A4"),
     (["--review_net_only", "True", "--mesh_shape", "[8]"], "A7"),
-    (["--review_net_only", "True", "--rnet_pretrained", "x"], "A4"),
+    (["--review_net_only", "True", "--checkpoint_backend", "orbax",
+      "--adam_factored_nu", "True"], "A4"),
     (["--review_net_only", "True", "--use_pallas", "False"], "CUDA kernels"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(flags, item, tmp_path):
@@ -182,7 +183,7 @@ def test_unported_flags_raise_naming_the_roadmap_item(flags, item, tmp_path):
         Config(["--device", "cpu"] + flags)
 
 
-def test_full_umpr_predictor_raises_naming_a5(tmp_path):
+def test_full_umpr_predictor_serves(tmp_path):
     """Full UMPR serves (ROADMAP A2, once the item that raised here): the
     Predictor builds from a checkpoint and scores finite predictions."""
     emb = np.random.default_rng(1).standard_normal((40, 8)).astype(np.float32)

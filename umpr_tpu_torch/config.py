@@ -125,6 +125,12 @@ class Config:
         if self.device_dataset not in ("auto", "on", "off"):
             raise ValueError(f"--device_dataset {self.device_dataset!r}: expected "
                              "'auto', 'on' or 'off'")
+        if self.adam_moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"--adam_moment_dtype {self.adam_moment_dtype!r}: expected "
+                             "'float32' or 'bfloat16'")
+        if self.grad_accum_steps != 1 and self.steps_per_dispatch != 1:
+            raise ValueError("grad_accum_steps and steps_per_dispatch are mutually "
+                             "exclusive!")
         if self.photo_size <= 0 or self.photo_size % 32:
             raise ValueError(f"--photo_size {self.photo_size}: expected a positive "
                              "multiple of 32")
@@ -155,13 +161,11 @@ class Config:
 # flag -> the ROADMAP.md item that ports what it selects.  Every other flag
 # is read by the port.
 NOT_PORTED = {
+    # orbax is a JAX library: the port reads and writes npz only
+    "checkpoint_backend": "ROADMAP A4, training: orbax checkpoints",
     **dict.fromkeys((
-        "rnet_pretrained", "adam_moment_dtype", "adam_factored_nu",
-        "profile_dir", "checkpoint_backend",
-    ), "ROADMAP A4, training"),
-    **dict.fromkeys((
-        "compute_dtype", "steps_per_dispatch", "grad_accum_steps",
-        "build_chunk_rows", "cache_dataset", "remat_vgg",
+        "compute_dtype", "grad_accum_steps", "build_chunk_rows", "cache_dataset",
+        "remat_vgg",
     ), "ROADMAP A5, runtime features"),
     **dict.fromkeys((
         "mesh_shape", "shard_embedding", "coordinator_address",

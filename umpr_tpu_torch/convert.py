@@ -18,10 +18,13 @@ The mapping, by parameter path:
 
 Gate order [r | z | n] is the same on both sides.
 
-Adam's state maps the same way: torch keeps ``exp_avg``, ``exp_avg_sq``
-and a float ``step`` per parameter, optax one ``ScaleByAdamState(count,
+Adam's state maps the same way (``adam_to_jax`` / ``adam_from_jax``): the
+port's Adam (train/optim.py) keeps ``exp_avg`` and ``exp_avg_sq`` per
+parameter and one device step count, optax one ``ScaleByAdamState(count,
 mu, nu)`` whose mu and nu are trees of the parameters' layout and whose
-count is one int32 for all (``adam_to_jax`` / ``adam_from_jax``).
+count is one int32 for all.  With ``--adam_factored_nu`` optax's nu is a
+tuple over the leaves in JAX leaf order, each ``(row, col)`` or
+``(full,)``; the port keeps the factored pairs in JAX's shapes.
 """
 
 from __future__ import annotations
@@ -112,52 +115,97 @@ def listify(node):
     return node
 
 
-def params_to_jax(state_dict):
-    """Inverse of params_from_jax: state dict -> nested dict/list of numpy
-    arrays in umpr_tpu's init_umpr layout."""
+def _by_jax_path(named, leaf):
+    """{state-dict name: value} -> the nested dict/list at the names' JAX
+    paths, each leaf ``leaf(value, transposed?)``."""
     tree = {}
-    for name, t in state_dict.items():
-        path, transpose = _jax_path(name)
-        a = t.detach().cpu().numpy()
+    for name, v in named.items():
+        path, transposed = _jax_path(name)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(_to_jax_layout(a, transpose))
+        node[path[-1]] = leaf(v, transposed)
     return listify(tree)
 
 
-def _trainable_names(model, opt):
-    """State-dict names of the optimizer's parameters, in its order."""
-    names = {id(p): n for n, p in model.named_parameters()}
-    return [(names[id(p)], p) for group in opt.param_groups for p in group["params"]]
+def params_to_jax(state_dict):
+    """Inverse of params_from_jax: state dict -> nested dict/list of numpy
+    arrays in umpr_tpu's init_umpr layout."""
+    return _by_jax_path(state_dict, lambda t, transposed: np.ascontiguousarray(
+        _to_jax_layout(t.detach().cpu().numpy(), transposed)))
 
 
-def adam_to_jax(model, opt):
-    """torch Adam's state -> optax's (count, mu, nu), mu and nu in the JAX
-    layout of the trainable parameters (host copies).  Every parameter
-    steps together, so one count stands for every ``step``; a parameter
-    without state yet (no step taken) has zero moments."""
-    mu, nu, steps = {}, {}, set()
-    for name, p in _trainable_names(model, opt):
-        state = opt.state.get(p, {})
-        steps.add(int(state["step"]) if state else 0)
-        for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-            out[name] = (state[key].to("cpu", copy=True) if state
-                         else torch.zeros_like(p, device="cpu"))
-    if len(steps) > 1:
-        raise ValueError(f"Adam steps differ between parameters: {sorted(steps)}")
-    return np.int32(steps.pop() if steps else 0), params_to_jax(mu), params_to_jax(nu)
+def to_jax_view(t, transposed):
+    """A torch-layout tensor as a view in the JAX package's layout: the
+    torch counterpart of _to_jax_layout (``.T`` reverses every dim)."""
+    if not transposed:
+        return t
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t.permute(*reversed(range(t.dim())))
+
+
+def from_jax_view(t, transposed):
+    """Inverse of to_jax_view."""
+    if not transposed:
+        return t
+    return t.permute(3, 2, 0, 1) if t.dim() == 4 else t.permute(*reversed(range(t.dim())))
+
+
+def jax_leaf_order(names):
+    """The state-dict names in JAX leaf order (``leaves_with_path`` of
+    their tree): the order of optax's factored nu, a tuple over the
+    leaves."""
+    tree = _by_jax_path(dict(zip(names, names)), lambda name, _: name)
+    return [name for _, name in leaves_with_path(tree)]
+
+
+def _host(t):
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def shape_only(t):
+    return np.empty(t.shape, np.float32)
+
+
+def adam_to_jax(model, opt, leaf=_host):
+    """The port's Adam state (train/optim.py) -> optax's (count, mu, nu) in
+    the JAX layout of the trainable parameters: host copies in f32 (a bf16
+    mu widened exactly, as the JAX package writes it); with `leaf`
+    ``shape_only``, arrays of the right shapes for restore_last to match
+    against.  mu is a tree; nu a tree too, or with factored nu a list over
+    the JAX leaves of [row, col] or [full] (optax's tuple of tuples)."""
+    state = {n: opt.state[p] for n, p in zip(opt.names, opt.params)}
+    tree = lambda key: _by_jax_path({n: s[key] for n, s in state.items()},
+                                    lambda t, transposed: leaf(to_jax_view(t, transposed)))
+    mu = tree("exp_avg")
+    if not opt.factored_nu:
+        nu = tree("exp_avg_sq")
+    else:
+        nu = []
+        for n in jax_leaf_order(opt.names):
+            v = state[n]["exp_avg_sq"]
+            nu.append([leaf(x) for x in v] if isinstance(v, tuple)
+                      else [leaf(to_jax_view(v, _jax_path(n)[1]))])
+    count = np.int32(0) if leaf is shape_only else np.int32(opt.count.item())
+    return count, mu, nu
 
 
 def adam_from_jax(model, opt, count, mu, nu):
-    """Load optax's (count, mu, nu) into torch Adam `opt` over `model`'s
-    parameters: the inverse of adam_to_jax."""
-    mu, nu = params_from_jax(mu), params_from_jax(nu)
-    # torch's own type for ``step`` (Adam's _get_scalar_dtype)
-    step_dtype = (torch.float64 if torch.get_default_dtype() == torch.float64
-                  else torch.float32)
-    state = {i: {"step": torch.tensor(float(count), dtype=step_dtype),
-                 "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-             for i, (name, _) in enumerate(_trainable_names(model, opt))}
-    opt.load_state_dict({"state": state,
-                         "param_groups": opt.state_dict()["param_groups"]})
+    """Load optax's (count, mu, nu) into the port's Adam `opt`, in place
+    (CUDA graphs captured on its tensors stay valid): the inverse of
+    adam_to_jax.  A bf16 mu is rounded back exactly."""
+    state = {n: opt.state[p] for n, p in zip(opt.names, opt.params)}
+    for name, t in params_from_jax(mu).items():
+        state[name]["exp_avg"].copy_(t)
+    if not opt.factored_nu:
+        for name, t in params_from_jax(nu).items():
+            state[name]["exp_avg_sq"].copy_(t)
+    else:
+        for name, leaves in zip(jax_leaf_order(opt.names), nu):
+            v = state[name]["exp_avg_sq"]
+            if isinstance(v, tuple):
+                for dst, src in zip(v, leaves):
+                    dst.copy_(torch.from_numpy(np.asarray(src, np.float32)))
+            else:
+                src = torch.from_numpy(np.asarray(leaves[0], np.float32))
+                to_jax_view(v, _jax_path(name)[1]).copy_(src)
+    opt.count.fill_(int(count))

@@ -8,7 +8,8 @@ reference's smaller one.  Unless ``ignore_photos``, each batch carries
 ``photos`` (B, V, P, H, W, 3) uint8, decoded on the host (by a pool of
 ``workers`` threads, through a shared ``photo_cache`` when given).
 ``with_photo_idx`` gives in-order batches the rows of a photo bank in
-their place (serving's decode-once bank).
+their place (serving's decode-once bank).  ``chunk_stream`` stacks runs of
+k batches for ``--steps_per_dispatch k``.
 """
 
 from __future__ import annotations
@@ -96,6 +97,29 @@ def to_device(batch, device):
     """numpy batch -> dict of tensors on `device`."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def chunk_stream(loader, k, put_chunk, put_single, depth=2, extract=lambda hb: hb):
+    """Runs of `k` host batches stacked on a NEW leading axis, each shipped
+    in one transfer: the multi-step dispatch protocol of the trainer's
+    train and eval passes and the Predictor (``--steps_per_dispatch``).
+    Batches left over that cannot fill a chunk ship one by one.  Yields
+    prefetched (device payload, [extract(host batch) per batch in it],
+    chunked?) triples; `put_chunk` / `put_single` make the transfer.
+    `extract` picks what of each host batch survives the prefetch queue
+    (which holds up to depth * k of them): keep only what is read back."""
+    def gen():
+        buf = []
+        for hb in iter(loader):
+            buf.append(hb)
+            if len(buf) == k:
+                stacked = {key: np.stack([b[key] for b in buf]) for key in buf[0]}
+                yield put_chunk(stacked), [extract(b) for b in buf], True
+                buf = []
+        for hb in buf:
+            yield put_single(hb), [extract(hb)], False
+
+    return prefetch_iter(gen(), depth=depth)
 
 
 def prefetch_iter(iterator, depth=2):

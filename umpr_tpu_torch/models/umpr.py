@@ -83,12 +83,21 @@ class UMPR(nn.Module):
             fusion_in += 2 * dims.view_size
         self.linear_fusion = linear(fusion_in, 1, generator=generator)
 
-    def forward(self, batch, dropout_generator=None):
+    def dropout_shapes(self, batch):
+        """The shapes of the dropout calls of a train forward of `batch`
+        (VGG16's classifier; none for UMPR-R), in order."""
+        if self.dims.review_net_only:
+            return []
+        B, V, P = batch["photos"].shape[:3]
+        return self.visual_net.vgg16.dropout_shapes(B * V * P)
+
+    def forward(self, batch, drop=None):
         """batch: dict of tensors from data.loader (u_/i_/ui_ tokens,
         lengths, counts, ratings, photos for full UMPR, optional
-        sample_mask and pad_maxima).  dropout_generator: the VGG
-        classifier's dropout masks come from it; None (eval) turns dropout
-        off.
+        sample_mask and pad_maxima).  drop: the VGG classifier's dropout
+        masks: None (eval) turns dropout off; a torch.Generator on the
+        model's device draws them; or they come pre-drawn
+        (``visual_net.keep_masks`` of ``dropout_shapes(batch)``).
 
         Returns (prediction (B,), loss, {"loss_r": ..., ["loss_v": ...]})."""
         u_tok, i_tok = batch["u_tokens"], batch["i_tokens"]
@@ -127,7 +136,7 @@ class UMPR(nn.Module):
             both_emb, ui_emb, u_len, i_len, ui_len, exists, ui_exists,
             self.dims.threshold)
         pos_match, neg_match, final_pos, final_neg = self.visual_net(
-            batch["photos"], c_u, c_i, dropout_generator)
+            batch["photos"], c_u, c_i, drop)
 
         alive = mask[:, None] > 0
         fused = torch.where(alive, torch.cat([rn, final_pos, final_neg], dim=-1), 0.0)

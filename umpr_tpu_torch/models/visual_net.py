@@ -15,8 +15,11 @@ training.  VGG16 is written out here (no torchvision):
 - init without pretrained weights follows torchvision's
   _initialize_weights: kaiming-normal (fan_out) convs, N(0, 0.01)
   linears, zero biases;
-- dropout draws its mask from an explicit ``torch.Generator`` (None: no
-  dropout).
+- dropout draws its masks from an explicit ``torch.Generator`` (None: no
+  dropout), or takes them pre-drawn from that generator by the same calls
+  (``keep_masks``): a CUDA graph of train steps cannot seed a generator
+  inside the graph, so the step's masks are drawn before each replay into
+  buffers the graph reads (train/step.py).
 
 With ``fused_pool`` a block whose last conv output is at least 56 high
 and of even height (blocks 1-3 at 224 px, block 1 at 64 px) closes with
@@ -58,10 +61,24 @@ def vgg_blocks():
     return tuple(blocks)
 
 
-def dropout(x, generator):
-    """Keep each element with probability 0.5 and scale it by 2; the mask
-    comes from `generator` on x's device."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 0.5
+def keep_mask(shape, generator, device):
+    """One dropout call's keep mask: each element kept with probability
+    0.5, drawn from `generator` on `device`."""
+    return torch.rand(shape, generator=generator, device=device) < 0.5
+
+
+def keep_masks(shapes, generator, device):
+    """The keep masks of a forward's dropout calls (``dropout_shapes``),
+    drawn by the calls the forward would make, in its order: the same bits
+    as drawing them during the forward."""
+    return [keep_mask(s, generator, device) for s in shapes]
+
+
+def dropout(x, keep):
+    """Keep each element where `keep` is True and scale it by 2; `keep` is
+    a bool mask of x's shape, or a generator on x's device to draw it from."""
+    if isinstance(keep, torch.Generator):
+        keep = keep_mask(x.shape, keep, x.device)
     return torch.where(keep, x / 0.5, 0.0)
 
 
@@ -93,8 +110,14 @@ class VGG16(nn.Module):
                 fc.bias.zero_()
             self.classifier.append(fc)
 
-    def forward(self, images, dropout_generator=None):
-        """images (N, H, W, 3) float NHWC -> (N, num_classes) logits."""
+    def dropout_shapes(self, n_images):
+        """The shapes of the forward's dropout calls, in order."""
+        return [(n_images, fc.out_features) for fc in self.classifier[:2]]
+
+    def forward(self, images, drop=None):
+        """images (N, H, W, 3) float NHWC -> (N, num_classes) logits.
+        drop: None (no dropout), a torch.Generator on the images' device,
+        or the keep masks of ``dropout_shapes(N)``, pre-drawn."""
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         convs = iter(self.features)
         for widths in vgg_blocks():
@@ -115,8 +138,8 @@ class VGG16(nn.Module):
             x = fc(x)
             if i < 2:
                 x = F.relu(x)
-                if dropout_generator is not None:
-                    x = dropout(x, dropout_generator)
+                if drop is not None:
+                    x = dropout(x, drop if isinstance(drop, torch.Generator) else drop[i])
         return x
 
 
@@ -129,14 +152,14 @@ class VisualNet(nn.Module):
         self.neg_v_emb = nn.Parameter(randn((view_size, VGG_OUT), generator))
         self.linear = linear(VGG_OUT, 1, generator=generator)
 
-    def forward(self, photos, c_u, c_i, dropout_generator=None):
+    def forward(self, photos, c_u, c_i, drop=None):
         """photos (B, V, P, H, W, 3) uint8; c_u, c_i (B, V).  Returns
         pos_match, neg_match, final_pos, final_neg, each (B, V) (eq.
-        10-11)."""
+        10-11).  drop: as VGG16.forward's."""
         B, V, P = photos.shape[:3]
         images = photos.reshape((B * V * P,) + photos.shape[3:])
         images = images.to(self.linear.weight.dtype) / 255.0  # the parameters' type
-        img_repr = self.vgg16(images, dropout_generator)
+        img_repr = self.vgg16(images, drop)
         img_repr = img_repr.reshape(B, V, P, -1).mean(dim=2)  # eq. 10
         img_emb = self.linear(img_repr)[..., 0]                # (B, V)
         pos_emb = self.linear(self.pos_v_emb)[..., 0]          # (V,)

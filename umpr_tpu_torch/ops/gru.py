@@ -51,9 +51,13 @@ class BiGRU(nn.Module):
         Without autograd (serving) they are packed once and kept until a
         parameter is replaced (.to(), assignment) or changed in place
         (load_state_dict, an optimizer step), which bumps its version.
-        Inference tensors carry no version, so they are never cached."""
+        Inference tensors carry no version, so they are never cached.
+        Nor is a pack made while a CUDA graph captures (train/step.py's
+        DispatchGraph): the graph must pack the live parameters at every
+        replay, where a cached pack would keep those of the capture."""
         params = tuple(self.parameters())
-        if torch.is_grad_enabled() or any(p.is_inference() for p in params):
+        if (torch.is_grad_enabled() or any(p.is_inference() for p in params)
+                or (params[0].is_cuda and torch.cuda.is_current_stream_capturing())):
             return self._pack()
         versions = tuple(p._version for p in params)
         cached = self._packed

@@ -39,6 +39,11 @@ give the same predictions.  The bank's capacity is a power of two, and
 ``--device_dataset_mb`` caps the bytes it holds, growth included (the old
 and the new bank side by side); past the cap the Predictor logs once and
 streams photos from then on.
+
+``--steps_per_dispatch k``: k batches stacked per dispatch; on a card one
+replay of a CUDA graph of k forwards (train/step.py's DispatchGraph), the
+batches left over one eager forward each.  The bank gather runs before the
+replay, into the graph's photo buffer.
 """
 
 from __future__ import annotations
@@ -55,11 +60,12 @@ import torch
 from umpr_tpu_torch.config import Config
 from umpr_tpu_torch.data.dataset import build_dataset
 from umpr_tpu_torch.data.images import PhotoCache, load_photo_batch
-from umpr_tpu_torch.data.loader import (FIELDS, BatchLoader, prefetch_iter, to_device,
-                                        with_photo_idx)
+from umpr_tpu_torch.data.loader import (FIELDS, BatchLoader, chunk_stream, prefetch_iter,
+                                        to_device, with_photo_idx)
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train import checkpoint as ckpt
+from umpr_tpu_torch.train import step
 
 
 def set_f32_parity():
@@ -79,6 +85,12 @@ class Predictor:
                      torch.Generator().manual_seed(config.seed))
         ckpt.restore_best(model_path, model)  # the embedding included
         self.model = model.to(self.device).eval()
+        # --steps_per_dispatch k: k batches per dispatch (chunk_stream),
+        # on a card one replay of a DispatchGraph of k forwards
+        self._k = config.steps_per_dispatch
+        if self._k < 1:
+            raise ValueError(f"--steps_per_dispatch {self._k}: expected >= 1")
+        self._graph = None
         photos = not config.review_net_only
         # one decoded-photo cache for the Predictor's life: a cache per
         # request would decode every JPEG again on every request
@@ -138,6 +150,25 @@ class Predictor:
         return np.fromiter((lut[p] for p in flat), np.int32,
                            len(flat)).reshape(dataset.photo_paths.shape)
 
+    def _forward(self, batch):
+        """Predictions (B,) of one device batch at the full static padding:
+        the same row scores the same in any batch."""
+        batch = dict(batch, pad_maxima=(batch["u_tokens"].shape[1], batch["u_tokens"].shape[2],
+                                        batch["ui_tokens"].shape[1], batch["ui_tokens"].shape[2]))
+        return self.model(batch)[0]
+
+    def _forward_chunk(self, chunk):
+        """(k, B) predictions of k stacked batches: on a card one replay of
+        a graph of k forwards, captured at the first chunk."""
+        k = chunk["ratings"].shape[0]
+        if not step.graphed(chunk["ratings"]):
+            return torch.stack([self._forward(step.unstack(chunk, j)) for j in range(k)])
+        if self._graph is None:
+            self._graph = step.DispatchGraph(lambda static: (torch.stack(
+                [self._forward(step.unstack(static, j)) for j in range(k)]),), chunk)
+        # the next replay overwrites the graph's output
+        return self._graph.replay(chunk)[0].clone()
+
     @torch.inference_mode()
     def _predict_packed(self, dataset):
         """Predictions (N,) over a packed dataset's samples, in order."""
@@ -148,20 +179,22 @@ class Predictor:
                              resize=(cfg.photo_size, cfg.photo_size),
                              workers=cfg.data_workers, photo_cache=self._photo_cache)
         batches = iter(loader) if photo_idx is None else with_photo_idx(loader, photo_idx)
-        host_to_device = ((b["sample_mask"] > 0, to_device(b, self.device))
-                          for b in batches)
+        put = lambda hb: to_device(hb, self.device)
+        live = lambda hb: hb["sample_mask"] > 0
+        stream = (chunk_stream(batches, self._k, put, put, depth=cfg.prefetch_depth,
+                               extract=live) if self._k > 1 else
+                  prefetch_iter(((put(b), [live(b)], False) for b in batches),
+                                depth=cfg.prefetch_depth))
         outs = []  # read back after the last dispatch
-        for alive, batch in prefetch_iter(host_to_device, depth=cfg.prefetch_depth):
+        for payload, alive, chunked in stream:
             if photo_idx is not None:
-                batch["photos"] = self._bank[batch.pop("photo_idx").long()]
-            # full static padding: the same row scores the same in any batch
-            batch["pad_maxima"] = (batch["u_tokens"].shape[1],
-                                   batch["u_tokens"].shape[2],
-                                   batch["ui_tokens"].shape[1],
-                                   batch["ui_tokens"].shape[2])
-            pred, _, _ = self.model(batch)
-            outs.append((pred, alive))
-        preds = [pred.cpu().numpy()[alive] for pred, alive in outs]
+                # the gather stays outside any graph: growing the bank
+                # moves it, and a graph would read the old address
+                payload["photos"] = self._bank[payload.pop("photo_idx").long()]
+            pred = self._forward_chunk(payload) if chunked else self._forward(payload)
+            outs.append((pred.reshape(len(alive), -1), alive))
+        preds = [row.cpu().numpy()[mask] for pred, alive in outs
+                 for row, mask in zip(pred, alive)]
         return np.concatenate(preds) if preds else np.zeros(0, np.float32)
 
 

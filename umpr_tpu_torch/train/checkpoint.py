@@ -18,7 +18,10 @@ other's checkpoints.  Layout under a run directory:
   ``--resume_path`` reads.  ``trainable`` is every parameter but the
   frozen embedding; ``opt_state`` is the JAX optimizer's state, a chain of
   the masked weight decay (no leaves) and optax's
-  ``ScaleByAdamState(count, mu, nu)`` at position 1 (train/optim.py).
+  ``ScaleByAdamState(count, mu, nu)`` at position 1 (train/optim.py): a
+  bfloat16 mu is written widened to float32 and recorded as "bfloat16",
+  and a factored nu is optax's tuple over the leaves, ``.nu[i][0]`` /
+  ``.nu[i][1]`` (row, col) or ``.nu[i][0]`` (full).
 
 Every file is written to a temporary name and swapped in; ``last/``
 writes its arrays before its meta.
@@ -50,13 +53,16 @@ def keystr(path):
     return "".join(f".{k}" if isinstance(k, Attr) else f"[{k!r}]" for k in path)
 
 
-def save_items(path, items):
-    """(path tuple, array) pairs -> a path-keyed npz checkpoint at `path`."""
+def save_items(path, items, dtypes=None):
+    """(path tuple, array) pairs -> a path-keyed npz checkpoint at `path`.
+    dtypes: the leaves' logical dtype names, where an array holds a leaf
+    widened (a bfloat16 Adam mu is written as float32 and recorded as
+    "bfloat16", as the JAX package writes it); default the arrays' own."""
     os.makedirs(path, exist_ok=True)
     arrays = {f"leaf_{i:05d}": np.asarray(a) for i, (_, a) in enumerate(items)}
     meta = {"version": FORMAT_VERSION,
             "keys": [keystr(p) for p, _ in items],
-            "dtypes": [str(a.dtype) for a in arrays.values()],
+            "dtypes": dtypes or [str(a.dtype) for a in arrays.values()],
             "fingerprint": None, "n": len(items)}
     np.savez(os.path.join(path, "arrays.tmp.npz"), **arrays)
     os.replace(os.path.join(path, "arrays.tmp.npz"),
@@ -71,10 +77,11 @@ def _write_json(path, name, obj):
     os.replace(tmp, os.path.join(path, name))
 
 
-def restore_items(path, like_items):
+def restore_items(path, like_items, dtypes=None):
     """The arrays at `path` for (path tuple, like array) pairs, in their
-    order and dtypes; missing or extra keys, shapes and dtypes are
-    checked."""
+    order and dtypes; missing or extra keys, shapes and dtypes are checked,
+    the dtypes against `dtypes` where given (logical names, as
+    save_items records them)."""
     meta_path = os.path.join(path, "structure.json")
     if not os.path.exists(meta_path):
         if os.path.isdir(os.path.join(path, "orbax")):
@@ -97,16 +104,18 @@ def restore_items(path, like_items):
             f"missing keys {missing[:5]}, unexpected keys {extra[:5]}")
     out = []
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        for (_, old), k in zip(like_items, keys):
+        for i, ((_, old), k) in enumerate(zip(like_items, keys)):
             new = z[f"leaf_{index[k]:05d}"]
             dtype = np.asarray(old).dtype
             if tuple(np.shape(old)) != new.shape:
                 raise ValueError(f"checkpoint at {path}: leaf {k} has shape "
                                  f"{new.shape}, expected {np.shape(old)}")
             saved = meta["dtypes"][index[k]] if meta.get("dtypes") else None
-            if saved is not None and saved != str(dtype):
+            want = dtypes[i] if dtypes else str(dtype)
+            if saved is not None and saved != want:
                 raise ValueError(f"checkpoint at {path}: leaf {k} was saved as "
-                                 f"{saved}, the model expects {dtype}")
+                                 f"{saved}, the model expects {want} (resuming "
+                                 "across --adam_moment_dtype settings?)")
             out.append(new.astype(dtype))
     return out
 
@@ -154,38 +163,51 @@ def restore_module(path, module):
     module.load_state_dict(params_from_jax(tree))
 
 
-def _last_items(trainable, opt_state):
+def _last_items(trainable, opt_state, moment_dtype="float32"):
+    """(items, logical dtype names) of ``last/``.  opt_state is (count, mu,
+    nu): nu a tree like mu, or with factored nu a list over the leaves of
+    [row, col] or [full], keyed ``.nu[i][j]`` as optax's tuple of tuples."""
     count, mu, nu = opt_state
     adam = ("opt_state", ADAM_STATE)
     items = [(("trainable",) + p, a) for p, a in leaves_with_path(trainable)]
+    dtypes = ["float32"] * len(items) + ["int32"]
     items.append((adam + (Attr("count"),), np.asarray(count, np.int32)))
-    for field, tree in (("mu", mu), ("nu", nu)):
-        items += [(adam + (Attr(field),) + p, a) for p, a in leaves_with_path(tree)]
-    return items
+    for field, tree, dtype in (("mu", mu, moment_dtype), ("nu", nu, "float32")):
+        leaves = [(adam + (Attr(field),) + p, a) for p, a in leaves_with_path(tree)]
+        items += leaves
+        dtypes += [dtype] * len(leaves)
+    return items, dtypes
 
 
-def save_last(root, trainable, opt_state, **meta):
+def save_last(root, trainable, opt_state, moment_dtype="float32", **meta):
     """``<root>/last``: `trainable` (JAX-layout tree without the embedding)
-    and `opt_state` (count, mu, nu) in the JAX package's layout, then
-    ``meta.json``.  A crash between the two pairs new arrays with the
-    previous counters, so a resume trains those batches again."""
+    and `opt_state` (count, mu, nu; see _last_items) in the JAX package's
+    layout, mu recorded as `moment_dtype`, then ``meta.json``.  A crash
+    between the two pairs new arrays with the previous counters, so a
+    resume trains those batches again."""
     path = os.path.join(root, "last")
-    save_items(path, _last_items(trainable, opt_state))
+    save_items(path, *_last_items(trainable, opt_state, moment_dtype))
     _write_json(path, "meta.json", meta)
 
 
-def restore_last(root, like_trainable):
+def restore_last(root, like_trainable, like_opt_state=None, moment_dtype="float32"):
     """``<root>/last`` (written by either package) -> (trainable, (count,
-    mu, nu), meta), the trees in `like_trainable`'s structure."""
+    mu, nu), meta), each in the structure of its like (the optimizer's
+    state: float32 moments shaped as the parameters by default), mu
+    checked to be saved as `moment_dtype`.  Arrays come back in float32."""
     path = os.path.join(root, "last")
-    like = _last_items(like_trainable, (0, like_trainable, like_trainable))
-    arrays = restore_items(path, like)
+    if like_opt_state is None:
+        like_opt_state = (0, like_trainable, like_trainable)
+    like, dtypes = _last_items(like_trainable, like_opt_state, moment_dtype)
+    arrays = restore_items(path, like, dtypes)
     n = len(list(leaves_with_path(like_trainable)))
+    n_mu = len(list(leaves_with_path(like_opt_state[1])))
     strip = lambda items, k: nest([(p[k:], a) for (p, _), a in items])
     pairs = list(zip(like, arrays))
     trainable = strip(pairs[:n], 1)
     count = int(pairs[n][1])
-    mu, nu = strip(pairs[n + 1:2 * n + 1], 3), strip(pairs[2 * n + 1:], 3)
+    mu = strip(pairs[n + 1:n + 1 + n_mu], 3)
+    nu = strip(pairs[n + 1 + n_mu:], 3)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return trainable, (count, mu, nu), meta

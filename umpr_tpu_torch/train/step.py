@@ -1,4 +1,5 @@
-"""Train and eval steps (port of umpr_tpu/train/step.py, single-step path).
+"""Train and eval steps (port of umpr_tpu/train/step.py: the single-step
+and multi-step paths).
 
 Both run at the batch's runtime maxima: no ``pad_maxima`` in the batch, so
 a statically padded batch trains and scores like the reference's
@@ -6,26 +7,40 @@ dynamically padded one (serving pins the full padding instead).  Dead rows
 of a final partial batch (``sample_mask`` 0) reach neither the loss, its
 gradient nor ``n_real``.  Neither step reads a value back to the host.
 Dropout (full UMPR's VGG classifier) runs in the train step when it is
-given a generator, and never in the eval step.
+given a generator or pre-drawn masks, and never in the eval step.
+
+``--steps_per_dispatch k`` (``make_multi_train_step`` and the multi-step
+eval of the JAX package): ``MultiTrainStep`` and ``MultiEvalStep`` take a
+chunk of k batches stacked on a new leading axis (``data.loader.
+chunk_stream``) and run its steps in order.  On the CPU they are plain
+loops of ``train_step`` / ``eval_step``, so ``--device cpu`` gives the
+k = 1 bits.  On a card each is a ``DispatchGraph``: the k steps captured
+once into one ``torch.cuda.CUDAGraph`` over static (k, B, ...) input
+buffers, then one replay per chunk; a capture that fails raises, nothing
+runs the chunk eagerly instead.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.graph import increment_version
 
 from umpr_tpu_torch.models.umpr import masked_sq_sum
+from umpr_tpu_torch.models.visual_net import keep_masks
+from umpr_tpu_torch.ops import attention_cuda, gru_cuda, pool_cuda
 
 
-def train_step(model, opt, batch, lr, dropout_generator=None):
-    """One Adam step at learning rate `lr` -> (loss, n_real), 0-d device
-    tensors: the batch's loss before the step (masked-mean MSE, plus
-    loss_v_rate * loss_v for full UMPR) and its count of real samples.
-    dropout_generator: a torch.Generator on the model's device for the
-    dropout masks; None turns dropout off."""
-    for group in opt.param_groups:
-        group["lr"] = lr
+def train_step(model, opt, batch, lr=None, drop=None):
+    """One Adam step -> (loss, n_real), 0-d device tensors: the batch's
+    loss before the step (masked-mean MSE, plus loss_v_rate * loss_v for
+    full UMPR) and its count of real samples.  lr: the learning rate from
+    this step on (``opt.set_lr``; None keeps the optimizer's, as the
+    Trainer sets it once an epoch).  drop: the dropout masks' source
+    (UMPR.forward); None turns dropout off."""
+    if lr is not None:
+        opt.set_lr(lr)
     opt.zero_grad(set_to_none=True)
-    _, loss, _ = model(batch, dropout_generator)
+    _, loss, _ = model(batch, drop)
     loss.backward()
     opt.step()
     return loss.detach(), batch["sample_mask"].sum()
@@ -40,14 +55,15 @@ def eval_step(model, batch):
 
 
 def mse_from_parts(parts):
-    """(sq_sum, n) pairs -> dataset MSE = total squared error / sample
-    count, summed on the host in batch order in float64 (the reference's
-    evaluate_mse, src/evaluate.py:6-14); nan for an empty split.  One
-    device->host copy for all parts."""
+    """(sq_sum, n) pairs, 0-d or (k,) per chunk -> dataset MSE = total
+    squared error / sample count, summed on the host in batch order in
+    float64 (the reference's evaluate_mse, src/evaluate.py:6-14); nan for
+    an empty split.  One device->host copy for all parts."""
     parts = list(parts)
     if not parts:
         return float("nan")
-    flat = torch.stack([torch.stack([sq, n]) for sq, n in parts]).cpu()
+    flat = torch.cat([torch.stack([sq.reshape(-1), n.reshape(-1)], 1)
+                      for sq, n in parts]).cpu()
     total, count = 0.0, 0.0
     for sq, n in flat.tolist():
         total += sq
@@ -58,3 +74,159 @@ def mse_from_parts(parts):
 def evaluate_mse(model, batches):
     """Dataset MSE over a stream of device batches, one eval_step each."""
     return mse_from_parts(eval_step(model, b) for b in batches)
+
+
+def unstack(chunk, j):
+    """Batch j of a chunk of stacked batches (views)."""
+    return {key: v[j] for key, v in chunk.items()}
+
+
+def graphed(t):
+    """Does a chunk on t's device run as a CUDA graph?  On the CPU it runs
+    as a loop of single steps."""
+    return t.device.type == "cuda"
+
+
+def launch_counts():
+    """{kernel name: its wrapper's launch count} over the port's kernels."""
+    return {k.__name__: k.launches
+            for m in (gru_cuda, pool_cuda, attention_cuda) for k in m.KERNELS}
+
+
+class DispatchGraph:
+    """One ``torch.cuda.CUDAGraph`` of a multi-step function over static
+    input buffers (torch's whole-network capture recipe).
+
+    ``fn(static) -> tuple of tensors`` runs once under capture; before it,
+    ``warmup(static)`` (default fn) runs on a side stream, so that each
+    kernel's library is loaded and its ``cudaFuncSetAttribute`` has run,
+    and cuBLAS and cuDNN have their handles.  ``replay(inputs)`` copies
+    each input into its static buffer and replays; the outputs it returns
+    are overwritten by the next replay, so a caller copies what it keeps.
+    Nothing the graph runs may read the device from the host: an
+    ``.item()`` there fails the capture, which raises.
+
+    Launch accounting: the kernel wrappers count a launch where they are
+    called, so the capture counts once and a replay not at all.
+    ``warmup_launches`` and ``captured`` are the counts that the warm-up
+    and the capture added; the kernels ran ``warmup_launches + replays x
+    captured`` times for this graph."""
+
+    def __init__(self, fn, inputs, warmup=None):
+        self.static = {k: v.clone() for k, v in inputs.items()}
+        before = launch_counts()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            (warmup or fn)(self.static)
+        torch.cuda.current_stream().wait_stream(side)
+        warm = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's prefetch thread keeps copying batches
+        # to the device while this thread captures
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = fn(self.static)
+        after = launch_counts()
+        self.warmup_launches = {k: warm[k] - before[k] for k in before}
+        self.captured = {k: after[k] - warm[k] for k in before}
+        self.replays = 0
+
+    def replay(self, inputs):
+        for key, v in inputs.items():
+            self.static[key].copy_(v)
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs
+
+
+class MultiTrainStep:
+    """k train steps per call (port of ``make_multi_train_step``): the
+    chunk's batches in order, step j's dropout masks from its own
+    generator, as k single steps would draw them.  Returns (loss * n_real,
+    n_real), each (k,), fresh tensors.  A chunk holds only full steps;
+    the Trainer runs remainders as single steps."""
+
+    def __init__(self, model, opt):
+        self.model, self.opt = model, opt
+        self.graph = None
+
+    def __call__(self, chunk, generators):
+        """chunk: {field: (k, B, ...)} on the model's device; generators:
+        step j's dropout generator (Trainer.dropout_generator), or Nones
+        for UMPR-R."""
+        k = chunk["ratings"].shape[0]
+        if not graphed(chunk["ratings"]):
+            parts = [train_step(self.model, self.opt, unstack(chunk, j), drop=generators[j])
+                     for j in range(k)]
+            return (torch.stack([loss * n for loss, n in parts]),
+                    torch.stack([n for _, n in parts]))
+        inputs = dict(chunk)
+        shapes = self.model.dropout_shapes(unstack(chunk, 0))
+        if shapes:
+            # Dropout cannot be seeded inside a graph: step j's masks are
+            # drawn here, eagerly, by the generator and the calls of the
+            # k = 1 step, into a buffer that the captured dropout reads
+            inputs["keep"] = torch.stack([
+                torch.stack(keep_masks(shapes, g, chunk["ratings"].device))
+                for g in generators])
+        if self.graph is None:
+            self.graph = DispatchGraph(self._capture, inputs, warmup=self._warmup)
+        losses, ns = self.graph.replay(inputs)
+        # the replay changed the parameters in place behind autograd's
+        # version counters, which ops/gru.py's packed-operand cache reads
+        for p in self.opt.params:
+            increment_version(p)
+        # the next replay overwrites the graph's outputs
+        return losses.clone(), ns.clone()
+
+    def _batch(self, static, j):
+        batch = {key: v[j] for key, v in static.items() if key != "keep"}
+        return batch, (static["keep"][j] if "keep" in static else None)
+
+    def _warmup(self, static):
+        """Forward and backward of the chunk's first batch, no optimizer
+        step (the parameters stay as they are), then no grads: the capture
+        allocates its own from the graph's pool."""
+        batch, drop = self._batch(static, 0)
+        _, loss, _ = self.model(batch, drop)
+        loss.backward()
+        self.opt.zero_grad(set_to_none=True)
+
+    def _capture(self, static):
+        losses, ns = [], []
+        for j in range(static["ratings"].shape[0]):
+            batch, drop = self._batch(static, j)
+            loss, n = train_step(self.model, self.opt, batch, drop=drop)
+            losses.append(loss * n)
+            ns.append(n)
+        return torch.stack(losses), torch.stack(ns)
+
+
+class MultiEvalStep:
+    """k eval steps per call (the JAX package's multi-step eval): per
+    batch (sq_sum, n), each (k,), fresh tensors.  On a card one graph per
+    model it is called with: test() evaluates a fresh model restored from
+    ``best/``, whose parameters a graph captured on the training model's
+    does not read."""
+
+    def __init__(self):
+        self.graphs = {}  # id(model) -> (model, DispatchGraph); the model
+        #                   is held so that its id is not reused
+
+    def __call__(self, model, chunk):
+        k = chunk["ratings"].shape[0]
+        if not graphed(chunk["ratings"]):
+            parts = [eval_step(model, unstack(chunk, j)) for j in range(k)]
+            return torch.stack([sq for sq, _ in parts]), torch.stack([n for _, n in parts])
+        entry = self.graphs.get(id(model))
+        if entry is None:
+            capture = lambda static: tuple(torch.stack(t) for t in zip(*(
+                eval_step(model, unstack(static, j)) for j in range(k))))
+            entry = self.graphs[id(model)] = (model, DispatchGraph(capture, chunk))
+        sq, n = entry[1].replay(chunk)
+        # the next replay overwrites the graph's outputs, and the caller
+        # keeps them until its last dispatch
+        return sq.clone(), n.clone()
+
+    def dispatch_graphs(self):
+        return [g for _, g in self.graphs.values()]

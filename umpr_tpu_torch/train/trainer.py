@@ -1,5 +1,5 @@
 """Training / evaluation loop (port of umpr_tpu/train/trainer.py: the
-single-host path with one train step per batch and the host loader).
+single-host path with the host loader).
 
 The observable surface is the JAX trainer's: the same log lines at the
 same cadence (initial validation MSE; train loss and validation MSE
@@ -34,9 +34,23 @@ its dropout masks from a generator seeded by (``seed``, k): the JAX
 trainer's fold_in(PRNGKey(seed), k) gives other bits, but the same
 determinism.
 
-Not ported (their flags raise, ROADMAP A4/A5/A7): R-Net warm starts,
-bfloat16 and factored Adam moments, profiling, multi-step dispatch, the
-device-resident corpus (``--device_dataset on``) and multi-host runs.
+``--steps_per_dispatch k``: the train, validation and test passes take
+chunks of k batches (``data.loader.chunk_stream``) through
+``step.MultiTrainStep`` / ``MultiEvalStep``, CUDA graphs on a card, and
+the batches left at an epoch's end as single steps.  Evaluation,
+``--save_every_batches`` and the profiler fire where the batch counter
+crosses a multiple, as in the JAX trainer; ``eval_every`` must be a
+multiple of k.  Every run, k = 1 included, trains with the port's own Adam
+(train/optim.py): float32 moments, or ``--adam_moment_dtype bfloat16``
+and ``--adam_factored_nu``.  ``--rnet_pretrained`` loads a checkpoint of
+the R-Net subtree (a failure is logged and training goes on).
+``--profile_dir``: a torch.profiler trace from the first dispatch at batch
+2 over at least 4 steps (or to the epoch's end), written there as a
+Chrome trace (``*.pt.trace.json``).  Progress bars (``utils.logging.
+progress``) count dispatch items and show only on a terminal.
+
+Not ported (their flags raise, ROADMAP A5/A7): the device-resident corpus
+(``--device_dataset on``), gradient accumulation and multi-host runs.
 """
 
 from __future__ import annotations
@@ -50,14 +64,22 @@ import numpy as np
 import torch
 
 from umpr_tpu_torch.convert import (adam_from_jax, adam_to_jax, params_from_jax,
-                                    params_to_jax)
+                                    params_to_jax, shape_only)
 from umpr_tpu_torch.data.images import PhotoCache
-from umpr_tpu_torch.data.loader import BatchLoader, prefetch_iter, to_device
+from umpr_tpu_torch.data.loader import BatchLoader, chunk_stream, prefetch_iter, to_device
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.serve import set_f32_parity
 from umpr_tpu_torch.train import checkpoint as ckpt
 from umpr_tpu_torch.train.optim import lr_at_epoch, make_optimizer
-from umpr_tpu_torch.train.step import evaluate_mse, train_step
+from umpr_tpu_torch.train.step import (MultiEvalStep, MultiTrainStep, eval_step,
+                                       mse_from_parts, train_step)
+from umpr_tpu_torch.utils.logging import progress
+
+
+def dispatch_items(n_batches, k):
+    """Dispatches over n_batches batches at k steps each: full chunks, then
+    the rest one by one (what a progress total counts)."""
+    return n_batches // k + n_batches % k
 
 
 class Trainer:
@@ -65,6 +87,11 @@ class Trainer:
         self.config = config
         self.logger = logger
         self.device = config.torch_device
+        self.k_dispatch = config.steps_per_dispatch
+        if self.k_dispatch < 1 or config.eval_every % self.k_dispatch:
+            # keeps the eval cadence exact (umpr_tpu/train/trainer.py:104-112)
+            raise ValueError(f"--steps_per_dispatch {self.k_dispatch} must be >= 1 and "
+                             f"divide --eval_every {config.eval_every}")
         if config.device_dataset == "on":
             raise NotImplementedError(
                 "--device_dataset on (the training corpus resident on the "
@@ -79,6 +106,16 @@ class Trainer:
         self.dims = ModelDims.from_config(config)
         self.embedding = word2vec.embedding
         model = self._new_model()
+        if config.rnet_pretrained:
+            # the reference's RNet(pretrained=...) swallows a failed load
+            # with a message (model.py:30-34); so does the JAX trainer
+            try:
+                ckpt.restore_module(config.rnet_pretrained, model.review_net.rnet)
+                logger.info(f"Loaded R-Net pre-trained weights from "
+                            f'"{config.rnet_pretrained}"')
+            except Exception:
+                logger.info(f"Failed to load R-Net pre-trained weights from "
+                            f'"{config.rnet_pretrained}"')
         if config.vgg16_weights and not config.review_net_only:
             try:
                 ckpt.restore_module(config.vgg16_weights, model.visual_net.vgg16)
@@ -87,7 +124,11 @@ class Trainer:
                 logger.info(f'Failed to load VGG16 weights from "{config.vgg16_weights}"')
         self.model = model.to(self.device)
         self.opt = make_optimizer(self.model, config.l2_regularization,
-                                  config.learning_rate)
+                                  config.learning_rate, config.adam_moment_dtype,
+                                  config.adam_factored_nu)
+        if self.k_dispatch > 1:
+            self.multi_train_step = MultiTrainStep(self.model, self.opt)
+            self.multi_eval_step = MultiEvalStep()
         self.photo_cache = (PhotoCache(config.photo_cache_mb << 20)
                             if config.photo_cache_mb > 0 else None)
         self._host_embedding = np.asarray(word2vec.embedding, np.float32)
@@ -107,7 +148,9 @@ class Trainer:
         ``<path>/last`` (written by either package)."""
         like = params_to_jax({n: torch.empty(p.shape, dtype=p.dtype)
                               for n, p in self._trainable()})
-        trainable, (count, mu, nu), meta = ckpt.restore_last(path, like)
+        trainable, (count, mu, nu), meta = ckpt.restore_last(
+            path, like, adam_to_jax(self.model, self.opt, leaf=shape_only),
+            self.config.adam_moment_dtype)
         missing, unexpected = self.model.load_state_dict(params_from_jax(trainable),
                                                          strict=False)
         if missing != ["embedding.weight"] or unexpected:
@@ -150,7 +193,8 @@ class Trainer:
 
     def _save_last(self, model_path, **meta):
         self._write(ckpt.save_last, model_path, self._host_params(),
-                    adam_to_jax(self.model, self.opt), **meta)
+                    adam_to_jax(self.model, self.opt),
+                    moment_dtype=self.config.adam_moment_dtype, **meta)
 
     def _new_model(self):
         return UMPR(self.dims, self.embedding,
@@ -178,9 +222,51 @@ class Trainer:
         return prefetch_iter((to_device(b, self.device) for b in loader),
                              depth=self.config.prefetch_depth)
 
+    def _dispatch_stream(self, loader):
+        """("single", device batch) or ("chunk", k stacked device batches)
+        items over `loader`; with k > 1 the batches left that cannot fill a
+        chunk come as singles (a dead batch inside a chunk of train steps
+        would still apply weight decay)."""
+        if self.k_dispatch == 1:
+            for b in self._device_batches(loader):
+                yield "single", b
+            return
+        put = lambda hb: to_device(hb, self.device)
+        # extract: the host batches (decoded photos included) are dropped
+        # as soon as their transfer is made; nothing reads them back
+        for dev, _, chunked in chunk_stream(loader, self.k_dispatch, put, put,
+                                            depth=self.config.prefetch_depth,
+                                            extract=lambda hb: None):
+            yield ("chunk" if chunked else "single"), dev
+
     def _evaluate(self, loader, model=None):
-        return evaluate_mse(self.model if model is None else model,
-                            self._device_batches(loader))
+        """MSE over `loader` with the training model, or `model` (test()'s
+        restored one), through the same dispatch as training."""
+        model = self.model if model is None else model
+        parts = []
+        for kind, payload in progress(self._dispatch_stream(loader), "Evaluate",
+                                      dispatch_items(len(loader), self.k_dispatch)):
+            parts.append(self.multi_eval_step(model, payload) if kind == "chunk"
+                         else eval_step(model, payload))
+        return mse_from_parts(parts)
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof):
+        """Close the trace and write it under --profile_dir."""
+        prof.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir,
+                            f"train_{os.getpid()}_{self.batch_counter}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"Profile trace written to {path}")
 
     def _metric(self, event, **kv):
         """Append one JSON line to --metrics_jsonl; non-finite floats are
@@ -210,35 +296,43 @@ class Trainer:
                      valid_mse=valid_mse)
         start_time = time.perf_counter()
         batches_this_call = 0
+        profiled = False
 
         for epoch in range(self.start_epoch, cfg.train_epochs):
             lr = lr_at_epoch(cfg.learning_rate, cfg.lr_decay, epoch)
+            self.opt.set_lr(lr)
             # a mid-epoch resume fast-forwards the first epoch's order
-            batch_in_epoch = self.start_batch_in_epoch if epoch == self.start_epoch else 0
+            epoch_offset = self.start_batch_in_epoch if epoch == self.start_epoch else 0
+            batch_in_epoch = epoch_offset
             train_loader = self._loader(train_data, shuffle=True,
-                                        seed=cfg.seed + epoch, start_batch=batch_in_epoch)
-            # (loss * n_real, n_real) device scalars, summed only at the
-            # logging points: reading one per step would wait for the card
+                                        seed=cfg.seed + epoch, start_batch=epoch_offset)
+            # (loss * n_real, n_real) device tensors per dispatch, 0-d or
+            # (k,), summed only at the logging points in batch order:
+            # reading one per step would wait for the card
             parts = []
 
             def totals():
                 if not parts:
                     return 0.0, 0.0
-                ls = torch.stack([p[0] for p in parts]).sum()
-                ns = torch.stack([p[1] for p in parts]).sum()
+                ls = torch.cat([p[0].reshape(-1) for p in parts]).sum()
+                ns = torch.cat([p[1].reshape(-1) for p in parts]).sum()
                 parts[:] = [(ls, ns)]
                 return float(ls), float(ns)
 
-            stopped = False
-            for batch in self._device_batches(train_loader):
-                loss, n_real = train_step(self.model, self.opt, batch, lr,
-                                          self.dropout_generator(self.batch_counter))
-                parts.append((loss * n_real, n_real))
+            def after_steps(n_steps):
+                nonlocal batch_in_epoch, batches_this_call, profiled
                 before = self.batch_counter
-                self.batch_counter += 1
-                batch_in_epoch += 1
-                batches_this_call += 1
-                # crossing a multiple of eval_every, as the JAX trainer counts
+                self.batch_counter += n_steps
+                batch_in_epoch += n_steps
+                batches_this_call += n_steps
+                # the trace covers at least 4 steps, counted in dispatches
+                if prof is not None and not profiled and \
+                        self.batch_counter >= profile_start + 4:
+                    self._stop_profile(prof)
+                    profiled = True
+                # crossing a multiple of eval_every, as the JAX trainer
+                # counts: chunks after an epoch's remainder need not land
+                # on one
                 if self.batch_counter // cfg.eval_every > before // cfg.eval_every:
                     valid_mse = self._evaluate(valid_loader)
                     t_loss, t_n = totals()
@@ -259,9 +353,34 @@ class Trainer:
                                     batch_counter=self.batch_counter,
                                     best_loss=self.best_loss,
                                     batch_in_epoch=batch_in_epoch)
+
+            prof, profile_start = None, 0
+            stopped = False
+            # the bar counts dispatches, over the batches left after a
+            # mid-epoch resume
+            n_items = dispatch_items(len(train_loader) - epoch_offset, self.k_dispatch)
+            for kind, payload in progress(self._dispatch_stream(train_loader),
+                                          f"Training epoch {epoch}", n_items):
+                if cfg.profile_dir and not profiled and prof is None \
+                        and self.batch_counter >= 2:
+                    prof, profile_start = self._start_profile(), self.batch_counter
+                if kind == "chunk":
+                    k = payload["ratings"].shape[0]
+                    gens = [self.dropout_generator(self.batch_counter + j) for j in range(k)]
+                    parts.append(self.multi_train_step(payload, gens))
+                    after_steps(k)
+                else:
+                    loss, n_real = train_step(self.model, self.opt, payload,
+                                              drop=self.dropout_generator(self.batch_counter))
+                    parts.append((loss * n_real, n_real))
+                    after_steps(1)
                 if _stop_after_batches and batches_this_call >= _stop_after_batches:
                     stopped = True
                     break
+            if prof is not None and not profiled:
+                # a short epoch (or a stop) closes the trace
+                self._stop_profile(prof)
+                profiled = True
             if stopped:
                 self._ckpt_wait()  # the caller reads the files next
                 return

@@ -1,7 +1,8 @@
 """Logging helpers (the port's copy of umpr_tpu/utils/logging.py).
 
 A logger with a file handler at INFO and a stdout handler at DEBUG,
-timestamped records, and ``date()`` for per-run log and model names.
+timestamped records, ``date()`` for per-run log and model names, and
+``progress`` bars like the reference's.
 """
 
 from __future__ import annotations
@@ -35,3 +36,28 @@ def get_logger(log_file=None, file_level=logging.INFO, stdout_level=logging.DEBU
 
 def date(f="%Y-%m-%d %H:%M:%S"):
     return time.strftime(f, time.localtime())
+
+
+def progress(it, desc, total, stream=None):
+    """A progress bar over `it` on stderr, like the reference's tqdm bars
+    (main.py:31, evaluate.py:10), shown only when stderr is a terminal.
+    tqdm is optional: it is imported only then, and without it a plain
+    ``desc n/total`` counter takes its place.  Display only."""
+    stream = stream or sys.stderr
+    if not stream.isatty():
+        return it
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return _counter(it, desc, total, stream)
+    return tqdm(it, desc=desc, total=total, leave=False, file=stream)
+
+
+def _counter(it, desc, total, stream):
+    n = 0
+    for item in it:
+        yield item
+        n += 1
+        stream.write(f"\r{desc} {n}/{total}")
+        stream.flush()
+    stream.write("\n")
