@@ -84,12 +84,30 @@
    --adam_factored_nu True``: 6 steps card vs CPU within 1e-5, and a
    resume from last/ bit-exact on the card; and ``--rnet_pretrained``:
    the card's predictions against the CPU's.
-11. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
-   ``{"steps_per_dispatch": ...}`` line, and a ``{"kernels": [...]}``
-   line (launches: each kernel's main path -- the full-UMPR run for
-   K1-K6, the long-history training for K7/K8, the input-gradient run for
-   K9 -- and the other runs' beside them), then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+11. ROADMAP A5's training runtime (``a5_runtime_phase``): UMPR-R through
+   ``umpr_tpu_torch.main.main`` on the dispatch corpus, streaming
+   (``--device_dataset off``) and resident (the default) at k = 1 and 4:
+   the same parameters, logged values and best/ bits; the first run
+   caches the splits and every later one loads them (its log says so),
+   so the resident upload reads memmaps; fit wall per step, and ms per
+   step and idle share of both steps at k = 1 and as a graph of 4.  Full
+   UMPR at 224 px, 4 steps, streaming and resident with the training
+   photo bank: the same bits, each distinct photo decoded once.  On one
+   full-UMPR model: ``--grad_accum_steps 4`` against the single step
+   (loss, gradients, parameters after an Adam step at lr 1e-6, a lower
+   peak memory) and ``--remat_vgg`` against without (the same bits, a
+   peak within 1% and less memory held for the backward, K5 twice per
+   fused block, ms per step), then remat as a
+   graph of 2 steps against 2 single steps (the same bits).  Phases 4, 5,
+   9 and 10 pass ``--device_dataset off`` (and ``--cache_dataset False``
+   through the CLI), so that their numbers compare with earlier runs.
+12. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
+   ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line
+   and a ``{"kernels": [...]}`` line (launches: each kernel's main path --
+   the full-UMPR run for K1-K6, the long-history training for K7/K8, the
+   input-gradient run for K9 -- and the other runs' beside them, the
+   remat step's among them), then, as the last line, ``{"ok": true,
+   "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -102,6 +120,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import itertools
 import json
 import re
 import shutil
@@ -116,6 +135,7 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 import torch
+import torch.nn.functional as F
 
 from umpr_tpu_torch import main as train_main
 from umpr_tpu_torch.config import Config
@@ -158,6 +178,10 @@ MIN_SPREAD = 1e-3  # std of the served predictions: 10x E2E_TOL, so the
 # the seeded checkpoint: with seed 0 the ReLU head's input is positive on
 # this corpus, so predictions are not clamped to a constant 0
 CKPT_SEED = 0
+# the training phases of PRs 1-11 stream every batch and build every split,
+# as they did when their numbers were first taken (the resident corpus and
+# the dataset cache have their own phase, a5_runtime_phase)
+STREAMING = ("--device_dataset", "off", "--cache_dataset", "False")
 
 
 def write_corpus(root, seed=0, shards=3, users=12, items=12, per_user=8,
@@ -916,7 +940,6 @@ def pool_kernel_phase(device, shapes=POOL_SHAPES):
     windows occur: yp, idx and dx bit-equal, db against a float64 sum, a
     second launch the same bits.  Times each shape and adds them up: the
     kernel row's numbers are per train step."""
-    import torch.nn.functional as F
     g = torch.Generator(device=device).manual_seed(5)
     per_shape = {"bias_relu_pool": [], "bias_relu_pool_bwd": []}
     errs = dict.fromkeys(per_shape, 0.0)  # max |kernel - plain| of yp, dx
@@ -1500,7 +1523,7 @@ def train_phase(device_name, work="train", flags=(), corpus=None):
             "--word2vec_file", str(glove), "--train_epochs", "2",
             "--learning_rate", "1e-3", "--eval_every", "2",
             "--model_path", str(root / "model"), "--log_path", str(root / "train.log"),
-            "--metrics_jsonl", str(root / "metrics.jsonl"), *flags]
+            "--metrics_jsonl", str(root / "metrics.jsonl"), *STREAMING, *flags]
     with main_path_counts() as (launches, plain_calls):
         t0 = time.perf_counter()
         trainer = train_main.main(argv)  # default device: cuda
@@ -1640,7 +1663,7 @@ def full_train_phase(device_name):
             "--train_epochs", "2", "--learning_rate", "1e-3", "--eval_every", "4",
             "--data_workers", "4", "--model_path", str(root / "model"),
             "--log_path", str(root / "train.log"),
-            "--metrics_jsonl", str(root / "metrics.jsonl")]
+            "--metrics_jsonl", str(root / "metrics.jsonl"), *STREAMING]
     with main_path_counts() as (launches, plain_calls):
         t0 = time.perf_counter()
         trainer = train_main.main(argv)  # default device: cuda
@@ -2003,7 +2026,7 @@ def resume_phase(device_name, work, flags=(), corpus=None):
         shutil.rmtree(root)
     glove = write_splits(root, seed=1, shards=5, **(corpus or {}))
     base = ["--data_dir", str(root), "--word2vec_file", str(glove), "--train_epochs", "2",
-            "--learning_rate", "1e-3", "--eval_every", "4", *flags]
+            "--learning_rate", "1e-3", "--eval_every", "4", *STREAMING, *flags]
     if not Config(base).review_net_only:
         use_seeded_photos()
 
@@ -2104,10 +2127,15 @@ def _idle(busy, wall):
     return "not measured" if busy is None else f"{1 - busy / wall:.1%}"
 
 
+def _state_bits_equal(a, b):
+    """Two models' state dicts, bit for bit."""
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
 def _params_close(a, b):
     """(bits equal?, max abs diff, all within PARAM_RTOL/ATOL?) over two
     state dicts."""
-    equal = all(torch.equal(a[k], b[k]) for k in a)
+    equal = _state_bits_equal(a, b)
     diff = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
     close = all(torch.allclose(a[k].float(), b[k].float(), rtol=PARAM_RTOL, atol=PARAM_ATOL)
                 for k in a)
@@ -2133,7 +2161,8 @@ def dispatch_phase(device_name):
         shutil.rmtree(root)
     glove = write_splits(root, seed=1, shards=5, **DISPATCH_CORPUS)
     base = ["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file",
-            str(glove), "--train_epochs", "1", "--learning_rate", "1e-3", "--eval_every", "20"]
+            str(glove), "--train_epochs", "1", "--learning_rate", "1e-3", "--eval_every", "20",
+            *STREAMING]
     runs = {}
     for k in (1, DISPATCH_K):
         argv = base + ["--steps_per_dispatch", str(k), "--model_path", str(root / f"k{k}"),
@@ -2270,7 +2299,7 @@ def full_dispatch_phase(device_name):
     use_seeded_photos()
     argv = ["--review_net_only", "False", "--vgg_fused_pool", "True", "--seed", "2",
             "--data_dir", str(root), "--word2vec_file", str(glove), "--learning_rate", "1e-3",
-            "--eval_every", "4", "--data_workers", "4"]
+            "--eval_every", "4", "--data_workers", "4", "--device_dataset", "off"]
     w2v = Word2vec(str(glove))
     real = visual_net.keep_mask
     runs = {}
@@ -2386,7 +2415,7 @@ def adam_modes_phase(device_name):
     glove = write_splits(root, seed=1, shards=5)
     base = ["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file", str(glove),
             "--train_epochs", "2", "--learning_rate", "1e-4", "--eval_every", "100",
-            "--save_every_batches", "3", *ADAM_MODE_FLAGS]
+            "--save_every_batches", "3", "--device_dataset", "off", *ADAM_MODE_FLAGS]
     w2v = Word2vec(str(glove))
     cfg = Config(base)
     train, valid = (build_dataset(str(root / f"{s}.csv"), str(root / "photos.json"),
@@ -2471,6 +2500,387 @@ def rnet_pretrained_phase(device_name):
         raise AssertionError("--rnet_pretrained: card and CPU disagree")
     return {"max_abs_diff": err}
 
+
+
+A5_K = 4  # the graphs' k in the resident-corpus runs
+
+
+def _logged(events):
+    return [{k: v for k, v in e.items() if k not in ("ts", "elapsed_s")} for e in events]
+
+
+def _cpu_state(model):
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def _peak(fn):
+    """(fn's result, the device's peak allocated bytes during fn, bytes
+    allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(), base
+
+
+def a5_umpr_r_runs(device_name, root):
+    """UMPR-R through ``umpr_tpu_torch.main.main`` on the dispatch corpus
+    (20 steps of B = 64, P = 400): streaming (``--device_dataset off``)
+    and resident (the default) at k = 1 and k = A5_K, after a streaming
+    warm-up run that builds and caches the splits; every later run loads
+    them (memmaps: the resident upload copies them).  Resident and streaming at the same k
+    must give the same parameters, logged values and best/ bits."""
+    glove = write_splits(root, seed=1, shards=5, **DISPATCH_CORPUS)
+    base = ["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file",
+            str(glove), "--train_epochs", "1", "--learning_rate", "1e-3", "--eval_every", "20"]
+    runs = {}
+    # a streaming run first builds and caches the splits and warms the
+    # card up; then each pair, in turns
+    for mode, k in (("off", 0), ("auto", 1), ("off", 1), ("off", A5_K), ("auto", A5_K)):
+        name = f"{mode}_k{k}" if k else "warm-up"
+        k = k or 1
+        argv = base + ["--steps_per_dispatch", str(k), "--device_dataset", mode,
+                       "--model_path", str(root / name), "--log_path",
+                       str(root / f"{name}.log"), "--metrics_jsonl",
+                       str(root / f"{name}.jsonl")]
+        with main_path_counts() as (launches, plain_calls):
+            trainer = train_main.main(argv)
+        events = [json.loads(line) for line in open(root / f"{name}.jsonl")]
+        fit_s = next(e["elapsed_s"] for e in events if e["event"] == "epoch")
+        runs[name] = dict(trainer=trainer, launches=launches, plain=plain_calls[0],
+                          log=(root / f"{name}.log").read_text(), events=events,
+                          fit_ms_per_step=fit_s * 1e3 / trainer.batch_counter)
+    loaded = {name: [s for s in ("train", "valid", "test")
+                     if f"Loaded {s} dataset from {root / f'dataset_{s}.cache'}!" in r["log"]]
+              for name, r in runs.items()}
+    runs.pop("warm-up")
+    pairs = {}
+    for k in (1, A5_K):
+        off, res = runs[f"off_k{k}"], runs[f"auto_k{k}"]
+        t_off, t_res = off["trainer"], res["trainer"]
+        files = _npz_equal(root / f"off_k{k}" / "best" / "arrays.npz",
+                           root / f"auto_k{k}" / "best" / "arrays.npz")
+        memmapped = all(isinstance(d.u_tokens, np.memmap) for d, _ in t_res._dev_data.values())
+        n_train = max(len(d) for d, _ in t_res._dev_data.values())
+        pairs[k] = dict(
+            resident=t_res._resident and not t_off._resident, memmap_upload=memmapped,
+            params=_state_bits_equal(t_off.model.state_dict(), t_res.model.state_dict()),
+            logged=_logged(off["events"]) == _logged(res["events"]), best_files=files,
+            steps=(t_off.batch_counter, t_res.batch_counter,
+                   -(-n_train // t_res.config.batch_size)),
+            fit_ms_per_step={"streaming": off["fit_ms_per_step"],
+                             "resident": res["fit_ms_per_step"]})
+    B = runs["off_k1"]["trainer"].config.batch_size
+    print(f"resident corpus on {device_name}: UMPR-R through main, one epoch at B={B}, P=400; "
+          f"splits loaded from the cache {loaded}; resident against streaming {pairs}; "
+          f"plain versions on the card {[r['plain'] for r in runs.values()]}")
+    one = (runs["off_k1"]["launches"], runs["auto_k1"]["launches"])
+    if (loaded["warm-up"] or any(len(v) != 3 for n, v in loaded.items() if n != "warm-up")
+            or any(r["plain"] for r in runs.values()) or one[0] != one[1]
+            or not all(one[0][key] for key in FORWARD + GRU_BACKWARD)
+            or not all(p["resident"] and p["memmap_upload"] and p["params"] and p["logged"]
+                       and p["best_files"] and p["steps"][0] == p["steps"][1] == p["steps"][2]
+            for p in pairs.values())):
+        raise AssertionError("the resident corpus and streaming disagree, or the cache "
+                             "was not read")
+    return runs, pairs
+
+
+def a5_step_times(device_name, runs):
+    """ms per step of the resident and the streaming UMPR-R step, at k = 1
+    (the streaming step with its batch's copy to the card) and as a graph
+    of A5_K steps, CUDA events and the idle share, on the trained models."""
+    from umpr_tpu_torch.train.step import MultiTrainStep, gather_batch
+    t_off, t_res = runs[f"off_k{A5_K}"]["trainer"], runs[f"auto_k{A5_K}"]["trainer"]
+    dev, B = t_res.device, t_res.config.batch_size
+    # the training split (the larger of the two uploaded) and its tensors
+    train, data = max(t_res._dev_data.values(), key=lambda e: len(e[0]))
+    host = list(itertools.islice(BatchLoader(train, B), A5_K))
+    rows = torch.arange(B * A5_K, dtype=torch.int32, device=dev).reshape(A5_K, B)
+    full = torch.full((A5_K,), B, dtype=torch.int32, device=dev)
+    chunk = {"idx": rows, "n_real": full}
+    multi_off = MultiTrainStep(t_off.model, t_off.opt)
+    multi_res = MultiTrainStep(t_res.model, t_res.opt)
+    stacked = _stack(host, dev)
+    fns = {
+        "streaming_k1": lambda: train_step(t_off.model, t_off.opt, to_device(host[0], dev)),
+        "resident_k1": lambda: train_step(t_res.model, t_res.opt,
+                                          gather_batch(data, rows[0], full[0])),
+        f"streaming_k{A5_K}": lambda: multi_off(stacked, [None] * A5_K),
+        f"resident_k{A5_K}": lambda: multi_res(chunk, [None] * A5_K, data)}
+    out = {name: {"ms": []} for name in fns}
+    for k in (1, A5_K):
+        # in turns: streaming, resident, resident, streaming
+        for mode in ("streaming", "resident", "resident", "streaming"):
+            out[f"{mode}_k{k}"]["ms"].append(time_cuda(fns[f"{mode}_k{k}"], iters=10) / k)
+    for name, fn in fns.items():
+        busy, wall = idle_share(fn)
+        per = A5_K if name.endswith(f"k{A5_K}") else 1
+        out[name] = {"ms_per_step": sum(out[name]["ms"]) / 2, "turns": out[name]["ms"],
+                     "busy_ms_per_step": None if busy is None else busy / per,
+                     "idle": _idle(busy, wall)}
+    print(f"UMPR-R train step on {device_name}, resident against streaming (CUDA events, "
+          f"back to back, in turns; idle under torch.profiler): {out}")
+    return out
+
+
+def a5_full_bank_runs(device_name, root):
+    """Full UMPR at 224 px (B = 64, --vgg_fused_pool True, seed 2), 4 train
+    steps at k = 1, streaming and resident with the training photo bank:
+    the same parameter bits, each distinct photo decoded once for the
+    bank.  Returns the streaming trainer (its model is reused) and a
+    summary."""
+    from umpr_tpu_torch.data import images
+    from umpr_tpu_torch.train.trainer import Trainer
+    from umpr_tpu_torch.utils.logging import get_logger
+    glove = write_splits(root, seed=1, shards=5)
+    use_seeded_photos()
+    argv = ["--review_net_only", "False", "--vgg_fused_pool", "True", "--seed", "2",
+            "--data_dir", str(root), "--word2vec_file", str(glove), "--learning_rate", "1e-3",
+            "--eval_every", "100", "--data_workers", "4"]
+    w2v = Word2vec(str(glove))
+    cfg = Config(argv)
+    train, valid = (build_dataset(str(root / f"{s}.csv"), str(root / "photos.json"),
+                                  str(root / "photos"), w2v, cfg) for s in ("train", "valid"))
+    decode = images.get_image
+    out = {}
+    try:
+        for mode in ("off", "on"):
+            decoded = []
+            images.get_image = lambda path, *a: decoded.append(path) or decode(path, *a)
+            t = Trainer(Config(argv + ["--device_dataset", mode]),
+                        get_logger(logger_name=f"a5-full-{mode}"), w2v)
+            if mode == "off":
+                # the first VGG16 step of the process pays cuDNN's first-call
+                # costs: a forward and backward here, no step (the same
+                # parameters)
+                t.model(to_device(next(iter(t._loader(train))), t.device))[1].backward()
+                t.opt.zero_grad(set_to_none=True)
+            with main_path_counts() as (launches, plain_calls):
+                t0 = time.perf_counter()
+                t.fit(train, valid, str(root / mode), _stop_after_batches=4)
+                wall = time.perf_counter() - t0
+            out[mode] = dict(trainer=t, decoded=decoded, launches=launches,
+                             plain=plain_calls[0], wall=wall)
+    finally:
+        images.get_image = decode
+    t_off, t_res = out["off"]["trainer"], out["on"]["trainer"]
+    uniq = set(train.photo_paths.ravel()) | set(valid.photo_paths.ravel()) | {""}
+    once = sorted(out["on"]["decoded"]) == sorted(uniq)
+    equal = _state_bits_equal(t_off.model.state_dict(), t_res.model.state_dict())
+    bank = t_res._bank
+    summary = {"params_bit_equal": equal, "decoded_once": once,
+               "bank_rows": bank.shape[0], "bank_bytes": bank.numel(),
+               "decodes": {m: len(o["decoded"]) for m, o in out.items()},
+               "fit_ms_per_step": {m: o["wall"] * 1e3 / 4 for m, o in out.items()}}
+    print(f"full UMPR, 4 steps at {cfg.photo_size} px on {device_name}, streaming and "
+          f"resident with the "
+          f"photo bank: {summary}; launches streaming {out['off']['launches']}, resident "
+          f"{out['on']['launches']}; plain versions on the card {out['off']['plain']}, "
+          f"{out['on']['plain']} (fit wall: host clock, initial validation and bank upload "
+          f"included)")
+    if not (equal and once and t_res._resident and not t_off._resident
+            and t_res.batch_counter == 4 and not out["off"]["plain"] and not out["on"]["plain"]
+            and out["off"]["launches"] == out["on"]["launches"]):
+        raise AssertionError("full UMPR with the training photo bank disagrees with streaming")
+    return t_off, summary, (train, cfg)
+
+
+def a5_accum_and_remat(device_name, trainer, train, cfg):
+    """On one full-UMPR model (224 px, B = 64, fused pool): one step at
+    --grad_accum_steps 4 against the single step with dropout off (the
+    loss within 1e-5 relative, gradients within GRAD_RTOL l2-relative,
+    parameters within rtol 2e-5, atol 2e-6 after an Adam
+    step at the reference's lr 1e-6, and a lower peak); then a step with
+    --remat_vgg against without, with the same pre-drawn dropout masks
+    (the same bits, less memory held from the forward to the backward, a
+    peak within 1% of the plain step's, K5 twice per fused block), each
+    timed in turns, and block 1's second conv alone (its peak);
+    then remat at --steps_per_dispatch 2 (a graph of 2 steps) against 2
+    remat steps at k = 1: the same bits."""
+    from umpr_tpu_torch.models.visual_net import keep_masks
+    from umpr_tpu_torch.train.optim import make_optimizer
+    from umpr_tpu_torch.train.step import MultiTrainStep, train_step_accum
+    model, dev, px = trainer.model, trainer.device, cfg.photo_size
+    vgg = model.visual_net.vgg16
+    loader = BatchLoader(train, cfg.batch_size, ignore_photos=False, resize=(px, px),
+                         photo_cache=trainer.photo_cache)
+    host = list(itertools.islice(loader, 2))
+    batch = to_device(host[0], dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    fused = sum(1 for h in (px >> j for j in range(5)) if h >= FUSED_POOL_MIN_H and h % 2 == 0)
+
+    def fresh(lr=1e-3):
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        return make_optimizer(model, cfg.l2_regularization, lr)
+
+    # --grad_accum_steps 4 against 1, dropout off
+    accum = {}
+    for k in (1, 4):
+        opt = fresh(lr=1e-6)
+        step = ((lambda: train_step(model, opt, batch)) if k == 1 else
+                (lambda: train_step_accum(model, opt, batch, k)[:2]))
+        (loss, n), peak, base = _peak(step)
+        accum[k] = dict(loss=loss.item(), n=n.item(), peak=peak, base=base,
+                        grads={name: p.grad.detach().cpu() for name, p in
+                               model.named_parameters() if p.requires_grad},
+                        params=_cpu_state(model))
+        del opt
+    g1, g4 = accum[1]["grads"], accum[4]["grads"]
+    # l2-relative, a gradient below a thousandth of the largest one's norm
+    # held against that thousandth, as full_train_phase holds the card
+    # against the CPU (the visual linear's bias gradient is rounding alone)
+    floor = 1e-3 * max(g.norm() for g in g1.values())
+    grad_err = max(_l2_rel(g4[n], g1[n], floor) for n in g1)
+    p1, p4 = accum[1]["params"], accum[4]["params"]
+    param_diff = max((p4[k] - p1[k]).abs().max().item() for k in p1)
+    params_close = all(torch.allclose(p4[k], p1[k], rtol=2e-5, atol=2e-6) for k in p1)
+    loss_rel = abs(accum[4]["loss"] - accum[1]["loss"]) / max(1.0, abs(accum[1]["loss"]))
+    accum_out = {"loss": {k: accum[k]["loss"] for k in accum}, "loss_rel_diff": loss_rel,
+                 "grad_rel_err": grad_err, "param_max_abs_diff": param_diff,
+                 "params_within_tol": params_close,
+                 "peak_bytes": {k: accum[k]["peak"] for k in accum},
+                 "base_bytes": {k: accum[k]["base"] for k in accum}}
+    print(f"--grad_accum_steps 4 against 1 on {device_name}, one full-UMPR step "
+          f"(B={cfg.batch_size}, {px} px, dropout off, Adam at lr 1e-6): {accum_out}")
+    if not (loss_rel <= 1e-5 and grad_err <= GRAD_RTOL and params_close
+            and accum[1]["n"] == accum[4]["n"] and accum[4]["peak"] < accum[1]["peak"]):
+        raise AssertionError("--grad_accum_steps 4 disagrees with the single step, or its "
+                             "peak is not lower")
+
+    # --remat_vgg against without, the same pre-drawn masks
+    gens = [torch.Generator(device=dev).manual_seed(40 + j) for j in range(2)]
+    masks = [keep_masks(model.dropout_shapes(batch), g, dev) for g in gens]
+    remat = {}
+    for on in (False, True):
+        vgg.remat = on
+        opt = fresh()
+        held = []
+
+        def step():
+            # train_step's body, with the memory the forward leaves for the
+            # backward (the saved activations) read between the two
+            opt.zero_grad(set_to_none=True)
+            _, loss, _ = model(batch, masks[0])
+            torch.cuda.synchronize()
+            held.append(torch.cuda.memory_allocated())
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        with main_path_counts() as (launches, plain_calls):
+            loss, peak, base = _peak(step)
+        params = _cpu_state(model)
+        remat[on] = dict(params=params, peak=peak, base=base, held=held[0] - base,
+                         loss=loss.item(), launches=launches, plain=plain_calls[0])
+        del opt
+    # ms per step, in turns (off, on, on, off), on the stepped model
+    opt = fresh()
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        vgg.remat = on
+        times[on].append(time_cuda(lambda: train_step(model, opt, batch, drop=masks[0]),
+                                   iters=3, warmup=1))
+    del opt
+    for on in times:
+        remat[on]["ms"] = sum(times[on]) / len(times[on])
+    off, on = remat[False], remat[True]
+    bits = _state_bits_equal(off["params"], on["params"])
+    # block 1's second conv alone: its forward and backward on a (B, 64,
+    # px, px) input, the transient that remat cannot shorten
+    conv = vgg.features[1]
+    x = torch.randn((cfg.batch_size, conv.in_channels, px, px), device=dev).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    _, conv_peak, conv_base = _peak(lambda: F.conv2d(x, conv.weight, None, padding=1).backward(
+        torch.ones((cfg.batch_size, conv.out_channels, px, px), device=dev).contiguous(
+            memory_format=torch.channels_last)))
+    conv_bytes = x.numel() * x.element_size()
+    del x
+    model.zero_grad(set_to_none=True)
+    k5, k6 = "bias_relu_pool", "bias_relu_pool_bwd"
+    # remat at k = 2 (one graph of 2 steps) against 2 remat steps at k = 1
+    vgg.remat = True
+    opt = fresh()
+    for j in range(2):
+        train_step(model, opt, to_device(host[j], dev), drop=masks[j])
+    eager2 = _cpu_state(model)
+    del opt
+    opt = fresh()
+    multi = MultiTrainStep(model, opt)
+    gens = [torch.Generator(device=dev).manual_seed(40 + j) for j in range(2)]
+    with main_path_counts() as (graph_launches, graph_plain):
+        multi(_stack(host, dev), gens)
+    torch.cuda.synchronize()
+    graph2 = _cpu_state(model)
+    graph_on_card, _ = device_launches(graph_launches, [multi.graph])
+    captured = multi.graph.captured
+    vgg.remat = False
+    del opt, multi
+    graph_bits = _state_bits_equal(eager2, graph2)
+    remat_out = {"params_bit_equal": bits, "peak_bytes": {"off": off["peak"], "on": on["peak"]},
+                 "base_bytes": {"off": off["base"], "on": on["base"]},
+                 "held_after_forward_bytes": {"off": off["held"], "on": on["held"]},
+                 "conv1_2_alone": {"peak_above_base_bytes": conv_peak - conv_base,
+                                   "input_bytes": conv_bytes},
+                 "ms_per_step": {"off": off["ms"], "on": on["ms"]},
+                 "k5_launches": {"off": off["launches"][k5], "on": on["launches"][k5]},
+                 "k6_launches": {"off": off["launches"][k6], "on": on["launches"][k6]},
+                 "fused_blocks": fused, "graph_k2_bit_equal": graph_bits,
+                 "graph_k2_captured": {k5: captured[k5], k6: captured[k6]},
+                 "graph_k2_on_card": {k5: graph_on_card[k5], k6: graph_on_card[k6]},
+                 "launches": on["launches"]}
+    print(f"--remat_vgg on {device_name}, one full-UMPR step (B={cfg.batch_size}, {px} px, "
+          f"the same masks): "
+          f"{ {k: v for k, v in remat_out.items() if k != 'launches'} }; plain versions on the "
+          f"card {off['plain']}, {on['plain']}, {graph_plain[0]}")
+    # the step's peak is a transient of block 1's backward (conv1_2 alone
+    # is printed above), which remat leaves as it is: the two peaks differ
+    # by the caching allocator's block rounding (MiBs), held here to 1%.
+    # What remat removes is the activations held from the forward to the
+    # backward.
+    if not (bits and graph_bits and on["held"] < off["held"]
+            and on["peak"] - on["base"] <= 1.01 * (off["peak"] - off["base"])
+            and on["launches"][k5] == 2 * fused and off["launches"][k5] == fused
+            and on["launches"][k6] == off["launches"][k6] == fused
+            and captured[k5] == 2 * 2 * fused and captured[k6] == 2 * fused
+            and not (off["plain"] or on["plain"] or graph_plain[0])):
+        raise AssertionError("--remat_vgg changed the bits, did not lower the memory held "
+                             "for the backward, raised the peak past 1%, or did not run K5 "
+                             "in the recompute")
+    return accum_out, remat_out
+
+
+def a5_runtime_phase(device_name):
+    """ROADMAP A5's training runtime on the card: the resident corpus
+    (a5_umpr_r_runs, a5_step_times), the training photo bank
+    (a5_full_bank_runs), --grad_accum_steps and --remat_vgg
+    (a5_accum_and_remat).  Returns a summary; its remat step's launch
+    counts under "remat_launches"."""
+    root = WORK / "a5"
+    if root.exists():
+        shutil.rmtree(root)
+    seconds, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        seconds[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+
+    runs, pairs = a5_umpr_r_runs(device_name, root / "umpr_r")
+    lap("umpr_r_runs")
+    times = a5_step_times(device_name, runs)
+    lap("step_times")
+    trainer, bank, (train, cfg) = a5_full_bank_runs(device_name, root / "full")
+    lap("full_umpr_bank")
+    accum, remat = a5_accum_and_remat(device_name, trainer, train, cfg)
+    lap("accum_and_remat")
+    return {"umpr_r": {str(k): v for k, v in pairs.items()}, "step_times": times,
+            "full_umpr_bank": bank, "grad_accum": accum,
+            "remat": {k: v for k, v in remat.items() if k != "launches"},
+            "seconds": seconds, "remat_launches": remat["launches"]}
 
 
 def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20):
@@ -2647,6 +3057,9 @@ def main():
         "umpr_r_serving": phase("UMPR-R serving at k = 1 and 4", serve_dispatch_phase, card),
         "adam_bf16_factored": phase("bf16 mu + factored nu Adam", adam_modes_phase, card),
         "rnet_pretrained": phase("--rnet_pretrained", rnet_pretrained_phase, card)}
+    # ROADMAP A5's runtime: the resident corpus, the dataset cache,
+    # --grad_accum_steps and --remat_vgg
+    a5 = phase("a5_runtime", a5_runtime_phase, card)
     for k in kernels:
         k["launches_umpr_r_training_k4"] = dispatch["umpr_r_training"]["launches_on_card"][
             k["name"]]
@@ -2654,9 +3067,11 @@ def main():
             "launches_on_card"][k["name"]]
         k["launches_umpr_r_serving_k4"] = dispatch["umpr_r_serving"]["launches_on_card"][
             k["name"]]
+        k["launches_full_umpr_remat_step"] = a5["remat_launches"][k["name"]]
     print(f"phase seconds: {seconds}")
     print(json.dumps({"resume_bit_equal": resumed}))
     print(json.dumps({"steps_per_dispatch": dispatch}))
+    print(json.dumps({"a5_runtime": {k: v for k, v in a5.items() if k != "remat_launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -12,8 +12,8 @@
   rest of the run matches the JAX run at the 1e-4 of the fit test; a
   port-written ``last/`` restores in ``umpr_tpu`` (``restore_last`` and
   the JAX Trainer's ``--resume_path``).
-- The epoch cadence, async writes equal to sync ones, and the resident
-  training corpus raising.
+- The epoch cadence, async writes equal to sync ones, and every
+  ``--device_dataset`` mode building a Trainer.
 
 The CPU's thread count is fixed in each test, so that oneDNN's
 reductions keep one order."""
@@ -301,8 +301,11 @@ def test_async_checkpoint_equals_sync(tmp_path):
 
 
 def test_device_dataset_on_raises_in_trainer():
+    """--device_dataset on raised here until the resident training corpus
+    was ported: every mode now builds a Trainer, and on and auto keep a
+    small corpus on the device (tests/test_torch_device_dataset.py)."""
     flags = ["--device", "cpu", "--review_net_only", "True"]
-    with pytest.raises(NotImplementedError, match="A5"):
-        Trainer(Config(flags + ["--device_dataset", "on"]), logging.getLogger("on"), _W2v())
-    for mode in ("auto", "off"):  # the host loader streams every batch
-        Trainer(Config(flags + ["--device_dataset", mode]), logging.getLogger(mode), _W2v())
+    for mode in ("on", "auto", "off"):
+        trainer = Trainer(Config(flags + ["--device_dataset", mode]), logging.getLogger(mode),
+                          _W2v())
+        assert trainer._resident_mode(packed_dataset(8), packed_dataset(8)) == (mode != "off")

@@ -162,10 +162,10 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--review_net_only", "False", "--remat_vgg", "True"], "A5"),
+    (["--review_net_only", "False", "--compute_dtype", "bfloat16"], "A5"),
     (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A5"),
     (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A4"),
-    (["--review_net_only", "True", "--grad_accum_steps", "2"], "A5"),
+    (["--review_net_only", "False", "--build_chunk_rows", "4096"], "A5"),
     (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A5"),
     (["--review_net_only", "False", "--checkpoint_backend", "orbax"], "A4"),
     (["--review_net_only", "True", "--mesh_shape", "[8]"], "A7"),
@@ -210,7 +210,8 @@ def test_every_flag_is_read_or_raises():
     src = "".join(p.read_text() for p in Path(REPO, "umpr_tpu_torch").rglob("*.py")
                   if p.name != "config.py")
     read = set(re.findall(r"\b(?:config|cfg)\.([a-z_0-9]+)", src))
-    read |= {"device", "multi_gpu", "review_net_only", "review_level"}  # config.py
+    read |= {"device", "multi_gpu", "review_net_only", "review_level",
+             "use_pallas"}  # config.py
     flags = {k for k, _ in Config._attributes()}
     assert set(NOT_PORTED) <= flags
     assert flags - set(NOT_PORTED) == read & flags, (

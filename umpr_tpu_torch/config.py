@@ -10,14 +10,10 @@ Differences from the JAX package:
 - ``device`` defaults to ``"cuda"``.  A CUDA device that is not there
   raises; nothing carries on on the CPU.  ``--device cpu`` is the only way
   onto the CPU.
-- ``multi_gpu`` defaults to False (the port runs on one card),
-  ``build_chunk_rows`` to 0 (the port always takes the full-memory build)
-  and ``cache_dataset`` to False (each split is built in memory).
-- ``device_dataset``: serving full UMPR keeps the decode-once photo bank
-  on the card unless it is ``off`` (``device_dataset_mb`` caps it);
-  training streams every batch from the host loader under ``off`` and
-  ``auto``, and raises under ``on`` (the resident training corpus is
-  ROADMAP A5).
+- ``multi_gpu`` defaults to False (the port runs on one card) and
+  ``build_chunk_rows`` to 0 (the port always takes the full-memory build).
+- ``use_pallas False`` raises: the card always runs the port's CUDA
+  kernels, and only ``--device cpu`` runs their plain versions.
 - Every flag that nothing in the port reads yet keeps its name and
   default, and raises ``NotImplementedError`` naming the ROADMAP.md item
   that ports it when given another value (``NOT_PORTED``).  So a flag the
@@ -86,8 +82,8 @@ class Config:
                            # requests arriving within this window into one
                            # device batch (0 = every request alone)
     photo_cache_mb = 2048
-    use_pallas = True  # the port's bi-GRU always runs the kernels of
-                       # ops/gru_cuda.py (plain versions on CPU)
+    use_pallas = True  # the port always runs its CUDA kernels (plain
+                       # versions on the CPU); False raises
     mesh_shape = []
     shard_embedding = False
     resume_path = ""
@@ -102,13 +98,14 @@ class Config:
     adam_factored_nu = False
     profile_dir = ""
     metrics_jsonl = ""
-    cache_dataset = False  # the dataset cache is ROADMAP A5
+    cache_dataset = True
     checkpoint_backend = "npz"  # 'orbax' is a JAX library
     async_checkpoint = True
     coordinator_address = ""
     num_processes = 0
     process_id = -1
-    build_chunk_rows = 0  # 0 = the full-memory build; streaming is ROADMAP A5
+    build_chunk_rows = 0  # 0 = the full-memory build; the streaming build with the
+                          # native tokenizer is ROADMAP A5
 
     def __init__(self, argv=None):
         parser = argparse.ArgumentParser()
@@ -134,6 +131,10 @@ class Config:
         if self.photo_size <= 0 or self.photo_size % 32:
             raise ValueError(f"--photo_size {self.photo_size}: expected a positive "
                              "multiple of 32")
+        if not self.use_pallas:
+            raise NotImplementedError(
+                "--use_pallas False: no ROADMAP item, the card always runs the "
+                "CUDA kernels (--device cpu runs their plain versions)")
         defaults = dict(self._attributes())
         for key, item in NOT_PORTED.items():
             if getattr(self, key) != defaults[key]:
@@ -163,17 +164,12 @@ class Config:
 NOT_PORTED = {
     # orbax is a JAX library: the port reads and writes npz only
     "checkpoint_backend": "ROADMAP A4, training: orbax checkpoints",
-    **dict.fromkeys((
-        "compute_dtype", "grad_accum_steps", "build_chunk_rows", "cache_dataset",
-        "remat_vgg",
-    ), "ROADMAP A5, runtime features"),
+    "compute_dtype": "ROADMAP A5, runtime features: bf16-operand kernels",
+    "build_chunk_rows": "ROADMAP A5, runtime features: the streaming build",
     **dict.fromkeys((
         "mesh_shape", "shard_embedding", "coordinator_address",
         "num_processes", "process_id",
     ), "ROADMAP A7, parallelism"),
-    # the port has no kernel-free path on the card; --device cpu runs the
-    # plain versions
-    "use_pallas": "no ROADMAP item: the card always runs the CUDA kernels",
 }
 
 

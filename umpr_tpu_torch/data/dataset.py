@@ -19,6 +19,11 @@ result is packed into dense arrays: tokens (N, S, L), lengths (N, S) with
 pad sentences of length 1, counts (N,).  The native C++ tokenizer and the
 streaming build of the JAX package are ROADMAP A5; they give the same
 arrays.
+
+``UMPRDataset.save`` / ``load`` are the JAX package's split cache: a
+directory of one ``.npy`` per field and a ``complete.marker``, loaded as
+read-only memmaps, or a legacy ``.npz``; either package reads the
+other's.
 """
 
 from __future__ import annotations
@@ -54,6 +59,36 @@ class UMPRDataset:
 
     def __len__(self):
         return self.u_tokens.shape[0]
+
+    def save(self, path):
+        """A directory: one .npy per field, then ``complete.marker``; a
+        path ending in .npz: the legacy single file (uncompressed)."""
+        if str(path).endswith(".npz"):
+            np.savez(path, **{k: getattr(self, k) for k in self.__dataclass_fields__})
+            return
+        os.makedirs(path, exist_ok=True)
+        for k in self.__dataclass_fields__:
+            np.save(os.path.join(path, f"{k}.npy"), getattr(self, k))
+        with open(os.path.join(path, "complete.marker"), "w") as f:
+            f.write("1")
+
+    @classmethod
+    def load(cls, path):
+        """A saved dataset; a directory's arrays are read-only memmaps.  A
+        directory without its marker (a save cut short) raises
+        FileNotFoundError, as does a missing path."""
+        if os.path.isdir(path):
+            if not os.path.exists(os.path.join(path, "complete.marker")):
+                raise FileNotFoundError(f"incomplete dataset cache at {path}")
+            fields = {}
+            for k in cls.__dataclass_fields__:
+                p = os.path.join(path, f"{k}.npy")
+                if os.path.exists(p):
+                    fields[k] = np.load(p, mmap_mode="r")
+            return cls(**fields)
+        with np.load(path, allow_pickle=False) as z:
+            # older caches lack source_rows: it defaults
+            return cls(**{k: z[k] for k in cls.__dataclass_fields__ if k in z})
 
 
 def _tokenize_reviews(df, word2vec, config):

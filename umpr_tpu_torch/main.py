@@ -15,8 +15,11 @@ one, and with ``--save_every_batches N`` every N batches;
 ``--resume_path <run>`` continues from ``<run>/last``, mid-epoch
 included, as the uninterrupted run would have gone on.  Log lines are the
 JAX entry point's.  Runs on ``--device`` (default cuda; ``--device cpu``
-runs the kernels' plain versions); each split is built in memory
-(``--cache_dataset`` is ROADMAP A5).
+runs the kernels' plain versions).  With ``--cache_dataset`` (the
+default) each split is loaded from ``<data_dir>/dataset_<split>.cache``
+(or the legacy ``dataset_<split>.npz``) where one exists, else built and
+saved there; the cache is not keyed by the shaping flags, so a data_dir
+built again under other ones needs ``--cache_dataset False``.
 """
 
 from __future__ import annotations
@@ -25,10 +28,31 @@ import os
 import sys
 
 from umpr_tpu_torch.config import Config
-from umpr_tpu_torch.data.dataset import build_dataset
+from umpr_tpu_torch.data.dataset import UMPRDataset, build_dataset
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train.trainer import Trainer
 from umpr_tpu_torch.utils.logging import date, get_logger
+
+
+def load_split(name, csv_path, photo_json, photo_dir, w2v, config, logger):
+    """A packed split from its cache in data_dir or, failing that, built
+    (and cached, with --cache_dataset).  The single-process path of the
+    JAX entry point's load_split."""
+    cache_dir = os.path.join(config.data_dir, f"dataset_{name}.cache")
+    legacy = os.path.join(config.data_dir, f"dataset_{name}.npz")
+    if config.cache_dataset:
+        for cache in (cache_dir, legacy):
+            try:
+                ds = UMPRDataset.load(cache)
+            except (FileNotFoundError, NotADirectoryError):
+                continue
+            logger.info(f"Loaded {name} dataset from {cache}!")
+            return ds
+    logger.debug(f"Loading {name} dataset.")
+    ds = build_dataset(csv_path, photo_json, photo_dir, w2v, config)
+    if config.cache_dataset:
+        ds.save(cache_dir)
+    return ds
 
 
 def main(argv=None):
@@ -70,8 +94,7 @@ def main(argv=None):
     trainer = Trainer(config, logger, w2v)
 
     def load(split):
-        logger.debug(f"Loading {split} dataset.")
-        return build_dataset(paths[split], photo_json, photo_dir, w2v, config)
+        return load_split(split, paths[split], photo_json, photo_dir, w2v, config, logger)
 
     if not config.test_only:
         train_data, valid_data = load("train"), load("valid")

@@ -42,6 +42,7 @@ class ModelDims:
     loss_v_rate: float = 0.1
     photo_size: int = 224
     vgg_fused_pool: bool = False
+    remat_vgg: bool = False
     # the JAX package's width-folded VGG block 1 computes the same function
     # as the unfolded one; the port takes the flag and never folds
     vgg_fold_w: bool = True
@@ -58,6 +59,7 @@ class ModelDims:
                    loss_v_rate=config.loss_v_rate,
                    photo_size=config.photo_size,
                    vgg_fused_pool=config.vgg_fused_pool,
+                   remat_vgg=config.remat_vgg,
                    vgg_fold_w=config.vgg_fold_w)
 
 
@@ -79,7 +81,7 @@ class UMPR(nn.Module):
                 emb_size, dims.gru_size, dims.kernel_count, dims.kernel_size,
                 dims.view_size, dims.self_atte_size, generator)
             self.visual_net = VisualNet(dims.view_size, dims.photo_size,
-                                        dims.vgg_fused_pool, generator)
+                                        dims.vgg_fused_pool, generator, dims.remat_vgg)
             fusion_in += 2 * dims.view_size
         self.linear_fusion = linear(fusion_in, 1, generator=generator)
 

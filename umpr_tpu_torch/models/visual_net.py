@@ -29,6 +29,12 @@ every other conv is conv + bias -> ReLU, and every other pool PyTorch's
 2x2 max-pool.  The JAX package's
 width-folded block 1 (``vgg_fold_w``) is a TPU lane-layout trick that
 computes the same function; the port never folds.
+
+With ``remat`` (``--remat_vgg``, the JAX package's ``jax.checkpoint`` of
+each block) a forward that records gradients keeps only each block's
+pooled output and runs the block again in the backward
+(``torch.utils.checkpoint``): the same bits for about one more forward's
+convs, and a fused block's K5 launches twice per train step.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from umpr_tpu_torch.models.layers import linear, randn
 from umpr_tpu_torch.ops.pool import fused_bias_relu_pool
@@ -84,12 +91,13 @@ def dropout(x, keep):
 
 class VGG16(nn.Module):
     def __init__(self, num_classes=VGG_OUT, img_size=224, fused_pool=False,
-                 generator=None):
+                 generator=None, remat=False):
         super().__init__()
         if img_size <= 0 or img_size % 32:
             raise ValueError(f"photo size {img_size} must be a positive multiple "
                              "of 32 (five 2x2 pools)")
         self.fused_pool = fused_pool
+        self.remat = remat
         self.features = nn.ModuleList()
         in_ch = 3
         for v in (v for v in VGG16_CFG if v != "M"):
@@ -114,25 +122,34 @@ class VGG16(nn.Module):
         """The shapes of the forward's dropout calls, in order."""
         return [(n_images, fc.out_features) for fc in self.classifier[:2]]
 
+    def _block(self, x, first, widths):
+        """One conv block (convs ``features[first:]`` of `widths`) and the
+        pool that closes it, NCHW in channels_last -> the pooled output."""
+        for j in range(len(widths)):
+            conv = self.features[first + j]
+            H = x.shape[2]
+            if (self.fused_pool and j == len(widths) - 1
+                    and H >= FUSED_POOL_MIN_H and H % 2 == 0):
+                y = F.conv2d(x, conv.weight, None, padding=1)
+                return fused_bias_relu_pool(y.permute(0, 2, 3, 1), conv.bias).permute(0, 3, 1, 2)
+            x = F.relu(conv(x))
+        return F.max_pool2d(x, 2)
+
     def forward(self, images, drop=None):
         """images (N, H, W, 3) float NHWC -> (N, num_classes) logits.
         drop: None (no dropout), a torch.Generator on the images' device,
         or the keep masks of ``dropout_shapes(N)``, pre-drawn."""
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        convs = iter(self.features)
+        first = 0
         for widths in vgg_blocks():
-            for j in range(len(widths)):
-                conv = next(convs)
-                H = x.shape[2]
-                if (self.fused_pool and j == len(widths) - 1
-                        and H >= FUSED_POOL_MIN_H and H % 2 == 0):
-                    y = F.conv2d(x, conv.weight, None, padding=1)
-                    yp = fused_bias_relu_pool(y.permute(0, 2, 3, 1), conv.bias)
-                    x = yp.permute(0, 3, 1, 2)
-                    break
-                x = F.relu(conv(x))
-            else:  # no fused pool closed the block
-                x = F.max_pool2d(x, 2)
+            if self.remat and torch.is_grad_enabled():
+                # the blocks draw no random numbers, and saving the CUDA
+                # generator's state would fail under a graph's capture
+                x = checkpoint(self._block, x, first, widths, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(x, first, widths)
+            first += len(widths)
         x = x.reshape(x.shape[0], -1)  # (C, H, W) order, as torchvision's
         for i, fc in enumerate(self.classifier):
             x = fc(x)
@@ -144,9 +161,10 @@ class VGG16(nn.Module):
 
 
 class VisualNet(nn.Module):
-    def __init__(self, view_size, img_size=224, fused_pool=False, generator=None):
+    def __init__(self, view_size, img_size=224, fused_pool=False, generator=None,
+                 remat=False):
         super().__init__()
-        self.vgg16 = VGG16(VGG_OUT, img_size, fused_pool, generator)
+        self.vgg16 = VGG16(VGG_OUT, img_size, fused_pool, generator, remat)
         # torch.randn view embeddings (reference model.py:208)
         self.pos_v_emb = nn.Parameter(randn((view_size, VGG_OUT), generator))
         self.neg_v_emb = nn.Parameter(randn((view_size, VGG_OUT), generator))

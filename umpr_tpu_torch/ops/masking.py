@@ -33,3 +33,21 @@ def masked_softmax(scores, mask, dim=-1):
     scores = scores - scores.amax(dim=dim, keepdim=True)
     e = torch.where(mask, torch.exp(scores), 0.0)
     return e / e.sum(dim=dim, keepdim=True)
+
+
+def batch_max_count(*counts):
+    """Runtime max sentence count over the batch.  User and item histories
+    share one maximum in the reference (dataset.py:163-166)."""
+    m = counts[0].max()
+    for c in counts[1:]:
+        m = torch.maximum(m, c.max())
+    return m
+
+
+def batch_max_length(*lengths):
+    """Runtime max sentence length over the batch.  Pad sentences have
+    length 1 < 6 <= any real sentence, so a plain max is exact."""
+    m = lengths[0].max()
+    for l in lengths[1:]:
+        m = torch.maximum(m, l.max())
+    return m

@@ -18,6 +18,20 @@ k = 1 bits.  On a card each is a ``DispatchGraph``: the k steps captured
 once into one ``torch.cuda.CUDAGraph`` over static (k, B, ...) input
 buffers, then one replay per chunk; a capture that fails raises, nothing
 runs the chunk eagerly instead.
+
+The device-resident corpus (``--device_dataset``, ``RESIDENT_FIELDS`` ...
+``make_multi_eval_step_resident`` of the JAX package): ``gather_batch``
+builds the loader's batch on the device from the packed arrays held
+there, by a (B,) int32 row index and the count of live rows.  A single
+step gathers and then runs ``train_step`` / ``eval_step``; the multi-step
+classes take ``data=`` (the resident tensors) and a chunk of (k, B) row
+indices and (k,) live counts, and gather inside the CUDA graph, which then
+reads the resident tensors at their addresses: a graph captured over one
+corpus is dropped (``drop_resident``) when the Trainer uploads another.
+
+``--grad_accum_steps k`` (``make_train_step_accum``): ``train_step_accum``
+runs the batch as k micro-batches, each at the full batch's runtime
+maxima, with one ``backward()`` each into ``.grad`` and one Adam step.
 """
 
 from __future__ import annotations
@@ -27,7 +41,10 @@ from torch.autograd.graph import increment_version
 
 from umpr_tpu_torch.models.umpr import masked_sq_sum
 from umpr_tpu_torch.models.visual_net import keep_masks
-from umpr_tpu_torch.ops import attention_cuda, gru_cuda, pool_cuda
+from umpr_tpu_torch.ops import attention_cuda, gru_cuda, masking, pool_cuda
+
+RESIDENT_FIELDS = ("u_tokens", "u_lengths", "u_counts", "i_tokens", "i_lengths", "i_counts",
+                   "ui_tokens", "ui_lengths", "ui_counts", "ratings")
 
 
 def train_step(model, opt, batch, lr=None, drop=None):
@@ -44,6 +61,44 @@ def train_step(model, opt, batch, lr=None, drop=None):
     loss.backward()
     opt.step()
     return loss.detach(), batch["sample_mask"].sum()
+
+
+def train_step_accum(model, opt, batch, k, drop=None):
+    """One Adam step from k micro-batches of B / k samples (gradient
+    accumulation) -> (loss, n_real, aux): the loss and aux terms are the
+    sums of the micro-batches' terms, which add up to the single step's.
+    Each micro-batch runs at the full batch's runtime maxima
+    (``pad_maxima``) and its MSE term is its squared-error sum over the
+    full batch's real-sample count, so the gradients sum to the single
+    step's up to f32 rounding.  `drop` (a generator) draws the
+    micro-batches' dropout masks in their order."""
+    B = batch["sample_mask"].shape[0]
+    if B % k:
+        raise ValueError(f"batch {B} is not divisible by --grad_accum_steps {k}")
+    mask = batch["sample_mask"]
+    n_total = mask.sum().clamp(min=1.0)
+    pad_maxima = (masking.batch_max_count(batch["u_counts"], batch["i_counts"]),
+                  masking.batch_max_length(batch["u_lengths"], batch["i_lengths"]),
+                  batch["ui_counts"].max(), batch["ui_lengths"].max())
+    opt.zero_grad(set_to_none=True)
+    m = B // k
+    loss_sum, aux = 0.0, {}
+    for j in range(k):
+        micro = {key: v[j * m:(j + 1) * m] for key, v in batch.items()}
+        micro["pad_maxima"] = pad_maxima
+        pred, _, micro_aux = model(micro, drop)
+        terms = {"loss_r": masked_sq_sum(pred, micro["ratings"], micro["sample_mask"])
+                 / n_total}
+        loss = terms["loss_r"]
+        if "loss_v" in micro_aux:
+            terms["loss_v"] = micro_aux["loss_v"]
+            loss = loss + model.dims.loss_v_rate * micro_aux["loss_v"]
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+        for key, v in terms.items():
+            aux[key] = aux.get(key, 0.0) + v.detach()
+    opt.step()
+    return loss_sum, mask.sum(), aux
 
 
 @torch.no_grad()
@@ -79,6 +134,42 @@ def evaluate_mse(model, batches):
 def unstack(chunk, j):
     """Batch j of a chunk of stacked batches (views)."""
     return {key: v[j] for key, v in chunk.items()}
+
+
+def gather_batch(data, idx, n_real):
+    """The loader's batch of dataset rows `idx` (B,) int32, gathered on the
+    device from the resident tensors `data` (``RESIDENT_FIELDS``, and for
+    full UMPR ``photo_bank`` (C, H, W, 3) uint8 with ``photo_idx`` (N, V,
+    P) int32 bank rows).  Rows ``arange(B) >= n_real`` are dead and get
+    the loader's padding of a final partial batch (data/loader.py): row
+    0's values, sample_mask 0, counts 0, lengths 1 and bank row 0 (zeros,
+    the photos of the path '').  Selects, never multiplies."""
+    B = idx.shape[0]
+    alive = torch.arange(B, device=idx.device) < n_real
+    rows = torch.where(alive, idx, 0).long()
+    batch = {key: data[key][rows] for key in RESIDENT_FIELDS}
+    batch["sample_mask"] = alive.float()
+    for key in ("u_counts", "i_counts", "ui_counts"):
+        batch[key] = torch.where(alive, batch[key], 0)
+    for key in ("u_lengths", "i_lengths", "ui_lengths"):
+        batch[key] = torch.where(alive[:, None], batch[key], 1)
+    if "photo_bank" in data:
+        photo_rows = torch.where(alive[:, None, None], data["photo_idx"][rows], 0)
+        batch["photos"] = data["photo_bank"][photo_rows.long()]
+    return batch
+
+
+def batch_of(chunk, j, data=None):
+    """Batch j of a chunk: a view of its stacked batches or, with the
+    resident tensors `data`, gathered by its ``idx`` / ``n_real`` rows."""
+    if data is None:
+        return unstack(chunk, j)
+    return gather_batch(data, chunk["idx"][j], chunk["n_real"][j])
+
+
+def chunk_len(chunk):
+    """k, the number of batches of a chunk."""
+    return next(iter(chunk.values())).shape[0]
 
 
 def graphed(t):
@@ -140,36 +231,45 @@ class DispatchGraph:
 
 
 class MultiTrainStep:
-    """k train steps per call (port of ``make_multi_train_step``): the
-    chunk's batches in order, step j's dropout masks from its own
-    generator, as k single steps would draw them.  Returns (loss * n_real,
-    n_real), each (k,), fresh tensors.  A chunk holds only full steps;
-    the Trainer runs remainders as single steps."""
+    """k train steps per call (port of ``make_multi_train_step`` and
+    ``make_multi_train_step_resident``): the chunk's batches in order, step
+    j's dropout masks from its own generator, as k single steps would draw
+    them.  Returns (loss * n_real, n_real), each (k,), fresh tensors.  A
+    chunk holds only full steps; the Trainer runs remainders as single
+    steps.  ``graph`` is the CUDA graph of the last call's source (stacked
+    batches, or the resident tensors ``graph_data``)."""
 
     def __init__(self, model, opt):
         self.model, self.opt = model, opt
         self.graph = None
+        self.graph_data = None
 
-    def __call__(self, chunk, generators):
-        """chunk: {field: (k, B, ...)} on the model's device; generators:
-        step j's dropout generator (Trainer.dropout_generator), or Nones
-        for UMPR-R."""
-        k = chunk["ratings"].shape[0]
-        if not graphed(chunk["ratings"]):
-            parts = [train_step(self.model, self.opt, unstack(chunk, j), drop=generators[j])
-                     for j in range(k)]
+    def __call__(self, chunk, generators, data=None):
+        """chunk: {field: (k, B, ...)} on the model's device or, with the
+        resident tensors `data` (``gather_batch``), {"idx": (k, B),
+        "n_real": (k,)} int32; generators: step j's dropout generator
+        (Trainer.dropout_generator), or Nones for UMPR-R."""
+        k = chunk_len(chunk)
+        if not graphed(next(iter(chunk.values()))):
+            parts = [train_step(self.model, self.opt, batch_of(chunk, j, data),
+                                drop=generators[j]) for j in range(k)]
             return (torch.stack([loss * n for loss, n in parts]),
                     torch.stack([n for _, n in parts]))
         inputs = dict(chunk)
-        shapes = self.model.dropout_shapes(unstack(chunk, 0))
+        shapes = self._dropout_shapes(chunk, data)
         if shapes:
             # Dropout cannot be seeded inside a graph: step j's masks are
             # drawn here, eagerly, by the generator and the calls of the
             # k = 1 step, into a buffer that the captured dropout reads
-            inputs["keep"] = torch.stack([
-                torch.stack(keep_masks(shapes, g, chunk["ratings"].device))
-                for g in generators])
-        if self.graph is None:
+            device = next(iter(chunk.values())).device
+            inputs["keep"] = torch.stack([torch.stack(keep_masks(shapes, g, device))
+                                          for g in generators])
+        if self.graph is None or self.graph_data is not data:
+            # a graph reads its source's tensors at their addresses: one
+            # captured over other resident tensors is dropped (the reference
+            # held here keeps them alive until then)
+            self.graph = None
+            self.graph_data = data
             self.graph = DispatchGraph(self._capture, inputs, warmup=self._warmup)
         losses, ns = self.graph.replay(inputs)
         # the replay changed the parameters in place behind autograd's
@@ -179,9 +279,24 @@ class MultiTrainStep:
         # the next replay overwrites the graph's outputs
         return losses.clone(), ns.clone()
 
+    def drop_resident(self):
+        """Drop a graph captured over resident tensors (their corpus is
+        being replaced)."""
+        if self.graph_data is not None:
+            self.graph, self.graph_data = None, None
+
+    def _dropout_shapes(self, chunk, data):
+        if data is None:
+            return self.model.dropout_shapes(unstack(chunk, 0))
+        if self.model.dims.review_net_only:
+            return []
+        B, (V, P) = chunk["idx"].shape[1], data["photo_idx"].shape[1:]
+        return self.model.visual_net.vgg16.dropout_shapes(B * V * P)
+
     def _batch(self, static, j):
-        batch = {key: v[j] for key, v in static.items() if key != "keep"}
-        return batch, (static["keep"][j] if "keep" in static else None)
+        inputs = {key: v for key, v in static.items() if key != "keep"}
+        return (batch_of(inputs, j, self.graph_data),
+                static["keep"][j] if "keep" in static else None)
 
     def _warmup(self, static):
         """Forward and backward of the chunk's first batch, no optimizer
@@ -194,7 +309,7 @@ class MultiTrainStep:
 
     def _capture(self, static):
         losses, ns = [], []
-        for j in range(static["ratings"].shape[0]):
+        for j in range(chunk_len(static)):
             batch, drop = self._batch(static, j)
             loss, n = train_step(self.model, self.opt, batch, drop=drop)
             losses.append(loss * n)
@@ -203,30 +318,37 @@ class MultiTrainStep:
 
 
 class MultiEvalStep:
-    """k eval steps per call (the JAX package's multi-step eval): per
-    batch (sq_sum, n), each (k,), fresh tensors.  On a card one graph per
-    model it is called with: test() evaluates a fresh model restored from
-    ``best/``, whose parameters a graph captured on the training model's
-    does not read."""
+    """k eval steps per call (the JAX package's multi-step eval, and its
+    resident twin with ``data=``): per batch (sq_sum, n), each (k,), fresh
+    tensors.  On a card one graph per model and source it is called with:
+    test() evaluates a fresh model restored from ``best/``, whose
+    parameters a graph captured on the training model's does not read."""
 
     def __init__(self):
-        self.graphs = {}  # id(model) -> (model, DispatchGraph); the model
-        #                   is held so that its id is not reused
+        # (id(model), id(data) or None) -> (model, data, DispatchGraph);
+        # model and data are held so that their ids are not reused
+        self.graphs = {}
 
-    def __call__(self, model, chunk):
-        k = chunk["ratings"].shape[0]
-        if not graphed(chunk["ratings"]):
-            parts = [eval_step(model, unstack(chunk, j)) for j in range(k)]
+    def __call__(self, model, chunk, data=None):
+        k = chunk_len(chunk)
+        step = lambda src, j: eval_step(model, batch_of(src, j, data))
+        if not graphed(next(iter(chunk.values()))):
+            parts = [step(chunk, j) for j in range(k)]
             return torch.stack([sq for sq, _ in parts]), torch.stack([n for _, n in parts])
-        entry = self.graphs.get(id(model))
+        key = (id(model), None if data is None else id(data))
+        entry = self.graphs.get(key)
         if entry is None:
             capture = lambda static: tuple(torch.stack(t) for t in zip(*(
-                eval_step(model, unstack(static, j)) for j in range(k))))
-            entry = self.graphs[id(model)] = (model, DispatchGraph(capture, chunk))
-        sq, n = entry[1].replay(chunk)
+                step(static, j) for j in range(k))))
+            entry = self.graphs[key] = (model, data, DispatchGraph(capture, chunk))
+        sq, n = entry[2].replay(chunk)
         # the next replay overwrites the graph's outputs, and the caller
         # keeps them until its last dispatch
         return sq.clone(), n.clone()
 
+    def drop_resident(self):
+        """Drop the graphs captured over resident tensors."""
+        self.graphs = {key: e for key, e in self.graphs.items() if e[1] is None}
+
     def dispatch_graphs(self):
-        return [g for _, g in self.graphs.values()]
+        return [e[2] for e in self.graphs.values()]

@@ -49,8 +49,20 @@ the R-Net subtree (a failure is logged and training goes on).
 Chrome trace (``*.pt.trace.json``).  Progress bars (``utils.logging.
 progress``) count dispatch items and show only on a terminal.
 
-Not ported (their flags raise, ROADMAP A5/A7): the device-resident corpus
-(``--device_dataset on``), gradient accumulation and multi-host runs.
+``--device_dataset`` (the JAX trainer's resident corpus): under ``on``,
+and under ``auto`` where the packed text arrays of train + valid (for
+full UMPR with a bank of every distinct photo, decoded once) fit
+``--device_dataset_mb``, ``fit`` uploads them to the device once and each
+dispatch ships (B,) or (k, B) int32 row indices and the live-row counts
+(``_index_stream``: the loader's order, chunking and dead padding); the
+steps gather their batches on the device (``step.gather_batch``), the
+loader's batches bit for bit.  Evaluation of an uploaded split pads its
+last chunk with all-dead batches, which add (0, 0); any other split
+(test()'s) streams.  ``--grad_accum_steps k``: each train step is
+``step.train_step_accum`` over k micro-batches; it streams (``on`` is
+then logged as not honoured) and excludes ``--steps_per_dispatch``.
+
+Not ported (their flags raise, ROADMAP A7): multi-host runs.
 """
 
 from __future__ import annotations
@@ -60,26 +72,31 @@ import math
 import os
 import time
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
 from umpr_tpu_torch.convert import (adam_from_jax, adam_to_jax, params_from_jax,
                                     params_to_jax, shape_only)
-from umpr_tpu_torch.data.images import PhotoCache
+from umpr_tpu_torch.data.images import PhotoCache, load_photo_batch
 from umpr_tpu_torch.data.loader import BatchLoader, chunk_stream, prefetch_iter, to_device
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.serve import set_f32_parity
 from umpr_tpu_torch.train import checkpoint as ckpt
 from umpr_tpu_torch.train.optim import lr_at_epoch, make_optimizer
-from umpr_tpu_torch.train.step import (MultiEvalStep, MultiTrainStep, eval_step,
-                                       mse_from_parts, train_step)
+from umpr_tpu_torch.train.step import (RESIDENT_FIELDS, MultiEvalStep, MultiTrainStep,
+                                       chunk_len, eval_step, gather_batch, mse_from_parts,
+                                       train_step, train_step_accum)
 from umpr_tpu_torch.utils.logging import progress
 
 
-def dispatch_items(n_batches, k):
+def dispatch_items(n_batches, k, pad_final_chunk=False):
     """Dispatches over n_batches batches at k steps each: full chunks, then
-    the rest one by one (what a progress total counts)."""
-    return n_batches // k + n_batches % k
+    the rest one by one, or as one padded chunk (resident evaluation);
+    what a progress total counts."""
+    rest = n_batches % k
+    return n_batches // k + (min(rest, 1) if pad_final_chunk and k > 1 else rest)
 
 
 class Trainer:
@@ -92,11 +109,10 @@ class Trainer:
             # keeps the eval cadence exact (umpr_tpu/train/trainer.py:104-112)
             raise ValueError(f"--steps_per_dispatch {self.k_dispatch} must be >= 1 and "
                              f"divide --eval_every {config.eval_every}")
-        if config.device_dataset == "on":
-            raise NotImplementedError(
-                "--device_dataset on (the training corpus resident on the "
-                "device) is not ported yet (ROADMAP A5); 'auto' and 'off' "
-                "stream every batch from the host loader")
+        self.k_accum = config.grad_accum_steps
+        if self.k_accum < 1 or config.batch_size % self.k_accum:
+            raise ValueError(f"--grad_accum_steps {self.k_accum} must be >= 1 and divide "
+                             f"--batch_size {config.batch_size}")
         if self.device.type == "cuda":
             set_f32_parity()
             # a resumed run matches an uninterrupted one bit for bit only
@@ -133,6 +149,12 @@ class Trainer:
                             if config.photo_cache_mb > 0 else None)
         self._host_embedding = np.asarray(word2vec.embedding, np.float32)
         self._saver = ckpt.AsyncSaver() if config.async_checkpoint else None
+        # the resident corpus of the current fit: id(dataset) -> (dataset,
+        # its tensors), and the photo bank's sorted paths
+        self._resident = False
+        self._dev_data = {}
+        self._bank_uniq = None
+        self._bank = None
         self.batch_counter = 0
         self.start_epoch = 0
         self.start_batch_in_epoch = 0
@@ -239,15 +261,148 @@ class Trainer:
                                             extract=lambda hb: None):
             yield ("chunk" if chunked else "single"), dev
 
+    def _train_step(self, batch, drop):
+        """One train step of a device batch -> (loss, n_real)."""
+        if self.k_accum > 1:
+            return train_step_accum(self.model, self.opt, batch, self.k_accum, drop)[:2]
+        return train_step(self.model, self.opt, batch, drop=drop)
+
+    # ---- the device-resident corpus (--device_dataset) ----
+    def _resident_mode(self, *datasets):
+        """Does this fit keep `datasets` on the device (the JAX trainer's
+        gate)?  Sets ``_bank_uniq`` where full UMPR takes a photo bank."""
+        cfg = self.config
+        mode = cfg.device_dataset
+        self._bank_uniq = None
+        if mode == "off":
+            return False
+        reasons = []
+        if self.k_accum > 1:
+            reasons.append("grad_accum_steps uses the streaming micro-batch step")
+        total = sum(getattr(d, f).nbytes for d in datasets for f in RESIDENT_FIELDS)
+        if not reasons and mode == "auto" and total > (cfg.device_dataset_mb << 20):
+            reasons.append(f"packed arrays {total >> 20} MB exceed "
+                           f"device_dataset_mb={cfg.device_dataset_mb}")
+        bank_note = ""
+        if not reasons and not cfg.review_net_only:
+            # the bank of every distinct photo (uint8, row 0 the zeros of
+            # the path '') must fit the budget too
+            uniq = np.unique(np.concatenate([d.photo_paths.ravel() for d in datasets]))
+            if uniq.size == 0 or uniq[0] != "":
+                uniq = np.concatenate([np.array([""], dtype=uniq.dtype), uniq])
+            bank_bytes = uniq.size * cfg.photo_size * cfg.photo_size * 3
+            total += bank_bytes + sum(d.photo_paths.size * 4 for d in datasets)
+            if mode == "auto" and total > (cfg.device_dataset_mb << 20):
+                reasons.append(f"packed arrays + {uniq.size - 1}-photo bank = "
+                               f"{total >> 20} MB exceed "
+                               f"device_dataset_mb={cfg.device_dataset_mb}")
+            else:
+                self._bank_uniq = uniq
+                bank_note = f" (incl. a {uniq.size - 1}-photo {bank_bytes >> 20} MB bank)"
+        if reasons:
+            if mode == "on":
+                self.logger.info("device_dataset=on not honored (" + "; ".join(reasons)
+                                 + "); streaming.")
+            return False
+        self.logger.info(f"Device-resident dataset mode: {total >> 20} MB of packed "
+                         f"arrays on {self.device}{bank_note}, index-only dispatch.")
+        return True
+
+    def _device_data(self, dataset):
+        """The dataset's packed arrays on the device, uploaded once per fit
+        (and the bank with the (N, V, P) bank rows of its photos: the bank
+        holds the sorted distinct paths, so searchsorted is exact)."""
+        entry = self._dev_data.get(id(dataset))
+        if entry is None:
+            data = {f: self._upload(getattr(dataset, f)) for f in RESIDENT_FIELDS}
+            if self._bank_uniq is not None:
+                data["photo_bank"] = self._photo_bank()
+                data["photo_idx"] = self._upload(
+                    np.searchsorted(self._bank_uniq, dataset.photo_paths).astype(np.int32))
+            # the dataset is held so that its id is not reused
+            entry = self._dev_data[id(dataset)] = (dataset, data)
+        return entry[1]
+
+    def _upload(self, arr):
+        # a cached split's arrays are read-only memmaps: copy them first
+        arr = np.ascontiguousarray(arr) if arr.flags.writeable else np.array(arr)
+        return torch.from_numpy(arr).to(self.device)
+
+    def _photo_bank(self):
+        """The (C, H, W, 3) uint8 bank of ``_bank_uniq``, each photo decoded
+        once, by the streaming loader's decoder and cache (so '' and
+        unreadable files give its zeros)."""
+        if self._bank is None:
+            cfg = self.config
+            workers = cfg.data_workers
+            executor = ThreadPoolExecutor(max_workers=workers) if workers > 0 else None
+            try:
+                imgs = load_photo_batch(self._bank_uniq.reshape(-1, 1, 1),
+                                        (cfg.photo_size, cfg.photo_size), executor,
+                                        self.photo_cache)[:, 0, 0]
+            finally:
+                if executor is not None:
+                    executor.shutdown()
+            self._bank = torch.from_numpy(imgs).to(self.device)
+        return self._bank
+
+    def _index_stream(self, n, seed, start_batch, shuffle=True, pad_final_chunk=False):
+        """The resident twin of BatchLoader + chunk_stream over n rows:
+        ("chunk", {"idx": (k, B), "n_real": (k,)}) for full chunks and
+        ("single", {"idx": (B,), "n_real": ()}) for the rest, int32 numpy,
+        in the loader's order for `seed` from `start_batch` on, dead rows
+        pointing at row 0.  pad_final_chunk (evaluation only: a dead batch
+        in a train chunk would still apply weight decay) fills the rest
+        up to one last chunk with all-dead batches."""
+        B, k = self.config.batch_size, self.k_dispatch
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        chunk = lambda buf: ("chunk", {"idx": np.stack([r for r, _ in buf]),
+                                       "n_real": np.asarray([m for _, m in buf], np.int32)})
+        buf = []
+        for start in range(start_batch * B, n, B):
+            rows = order[start:start + B]
+            n_real = len(rows)
+            rows = np.concatenate([rows, np.zeros(B - n_real, rows.dtype)])
+            buf.append((rows.astype(np.int32), n_real))
+            if k > 1 and len(buf) == k:
+                yield chunk(buf)
+                buf = []
+        if pad_final_chunk and k > 1 and len(buf) > 1:
+            yield chunk(buf + [(np.zeros(B, np.int32), 0)] * (k - len(buf)))
+            return
+        for rows, n_real in buf:
+            yield "single", {"idx": rows, "n_real": np.asarray(n_real, np.int32)}
+
+    def _resident_stream(self, *args, **kwargs):
+        """_index_stream's items with their arrays on the device, made
+        ahead on the prefetch thread."""
+        put = lambda p: {key: torch.from_numpy(v).to(self.device) for key, v in p.items()}
+        return prefetch_iter(((kind, put(p)) for kind, p in self._index_stream(*args, **kwargs)),
+                             depth=self.config.prefetch_depth)
+
     def _evaluate(self, loader, model=None):
         """MSE over `loader` with the training model, or `model` (test()'s
-        restored one), through the same dispatch as training."""
+        restored one), through the same dispatch as training: resident
+        where fit() uploaded the loader's dataset."""
         model = self.model if model is None else model
+        entry = self._dev_data.get(id(loader.ds))
+        data = None if entry is None else entry[1]
+        if data is None:
+            stream = self._dispatch_stream(loader)
+            n_items = dispatch_items(len(loader), self.k_dispatch)
+        else:
+            stream = self._resident_stream(len(loader.ds), 0, 0, shuffle=False,
+                                           pad_final_chunk=True)
+            n_items = dispatch_items(len(loader), self.k_dispatch, pad_final_chunk=True)
         parts = []
-        for kind, payload in progress(self._dispatch_stream(loader), "Evaluate",
-                                      dispatch_items(len(loader), self.k_dispatch)):
-            parts.append(self.multi_eval_step(model, payload) if kind == "chunk"
-                         else eval_step(model, payload))
+        for kind, payload in progress(stream, "Evaluate", n_items):
+            if kind == "chunk":
+                parts.append(self.multi_eval_step(model, payload, data))
+            else:
+                parts.append(eval_step(model, payload if data is None else gather_batch(
+                    data, payload["idx"], payload["n_real"])))
         return mse_from_parts(parts)
 
     def _start_profile(self):
@@ -289,6 +444,17 @@ class Trainer:
         (whatever checkpoints exist, no epoch-end bookkeeping)."""
         cfg, logger = self.config, self.logger
         logger.info("Start to train!")
+        # a second fit() may bring other datasets: drop the last fit's
+        # resident tensors, its bank and every graph that reads them
+        self._dev_data, self._bank = {}, None
+        if self.k_dispatch > 1:
+            self.multi_train_step.drop_resident()
+            self.multi_eval_step.drop_resident()
+        self._resident = self._resident_mode(train_data, valid_data)
+        dev_train = None
+        if self._resident:
+            dev_train = self._device_data(train_data)
+            self._device_data(valid_data)
         valid_loader = self._loader(valid_data)
         valid_mse = self._evaluate(valid_loader)
         logger.info(f"Initial validation mse is {valid_mse:.6f}")
@@ -304,8 +470,11 @@ class Trainer:
             # a mid-epoch resume fast-forwards the first epoch's order
             epoch_offset = self.start_batch_in_epoch if epoch == self.start_epoch else 0
             batch_in_epoch = epoch_offset
-            train_loader = self._loader(train_data, shuffle=True,
-                                        seed=cfg.seed + epoch, start_batch=epoch_offset)
+            if self._resident:
+                stream = self._resident_stream(len(train_data), cfg.seed + epoch, epoch_offset)
+            else:
+                stream = self._dispatch_stream(self._loader(
+                    train_data, shuffle=True, seed=cfg.seed + epoch, start_batch=epoch_offset))
             # (loss * n_real, n_real) device tensors per dispatch, 0-d or
             # (k,), summed only at the logging points in batch order:
             # reading one per step would wait for the card
@@ -358,20 +527,22 @@ class Trainer:
             stopped = False
             # the bar counts dispatches, over the batches left after a
             # mid-epoch resume
-            n_items = dispatch_items(len(train_loader) - epoch_offset, self.k_dispatch)
-            for kind, payload in progress(self._dispatch_stream(train_loader),
-                                          f"Training epoch {epoch}", n_items):
+            n_batches = -(-len(train_data) // cfg.batch_size)
+            n_items = dispatch_items(n_batches - epoch_offset, self.k_dispatch)
+            for kind, payload in progress(stream, f"Training epoch {epoch}", n_items):
                 if cfg.profile_dir and not profiled and prof is None \
                         and self.batch_counter >= 2:
                     prof, profile_start = self._start_profile(), self.batch_counter
                 if kind == "chunk":
-                    k = payload["ratings"].shape[0]
+                    k = chunk_len(payload)
                     gens = [self.dropout_generator(self.batch_counter + j) for j in range(k)]
-                    parts.append(self.multi_train_step(payload, gens))
+                    parts.append(self.multi_train_step(payload, gens, dev_train))
                     after_steps(k)
                 else:
-                    loss, n_real = train_step(self.model, self.opt, payload,
-                                              drop=self.dropout_generator(self.batch_counter))
+                    if dev_train is not None:
+                        payload = gather_batch(dev_train, payload["idx"], payload["n_real"])
+                    loss, n_real = self._train_step(
+                        payload, self.dropout_generator(self.batch_counter))
                     parts.append((loss * n_real, n_real))
                     after_steps(1)
                 if _stop_after_batches and batches_this_call >= _stop_after_batches:
