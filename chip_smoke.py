@@ -101,13 +101,27 @@
    graph of 2 steps against 2 single steps (the same bits).  Phases 4, 5,
    9 and 10 pass ``--device_dataset off`` (and ``--cache_dataset False``
    through the CLI), so that their numbers compare with earlier runs.
-12. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
-   ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line
-   and a ``{"kernels": [...]}`` line (launches: each kernel's main path --
-   the full-UMPR run for K1-K6, the long-history training for K7/K8, the
-   input-gradient run for K9 -- and the other runs' beside them, the
-   remat step's among them), then, as the last line, ``{"ok": true,
-   "device": {...}}``.
+12. ROADMAP A5's streaming build: the dispatch corpus's splits built with
+   ``--build_chunk_rows 7`` (into a memmap cache) and 0 (full memory):
+   the same arrays, the cache loads, and the native tokenizer and the
+   streaming build ran (``data.dataset.PATHS``); each build's seconds.
+13. ``--compute_dtype bfloat16``: K1-K4's bf16 variants against their
+   plain bf16 versions (one bf16 ulp; dW/db within 1e-4 of their l2
+   norms; the same bits twice) at the UMPR-R shapes and K1/K4 at E = 400,
+   520, 521, timed beside the bf16 library calls; UMPR-R trained in bf16
+   through main (every K1-K4 launch bf16, no plain version, no other
+   kernel), its train step (k = 1 and a graph of 4) and serving forward
+   against f32 in turns; full UMPR at 224 px, one train step and the
+   serving forward against f32 (loss within 0.05, predictions within
+   0.08); a bf16 UMPR-R resume, bit-equal.
+14. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
+   ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line,
+   ``{"streaming_build": ...}``, ``{"bf16": ...}`` and a ``{"kernels":
+   [...]}`` line (launches: each kernel's main path -- the full-UMPR run
+   for K1-K6, the long-history training for K7/K8, the input-gradient run
+   for K9, bf16 UMPR-R training for the four bf16 rows -- and the other
+   runs' beside them, the remat step's among them), then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -131,6 +145,7 @@ import time
 import urllib.request
 import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pandas as pd
@@ -149,6 +164,7 @@ from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
 from umpr_tpu_torch import serve
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train import checkpoint as ckpt
+from umpr_tpu_torch.train.optim import make_optimizer
 from umpr_tpu_torch.train.step import evaluate_mse, train_step
 
 REPO = Path(__file__).resolve().parent
@@ -160,6 +176,7 @@ WORK = REPO / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 
 K1_TOL = 1e-5  # f32 sums of 50 products in another order
 K2_TOL = 1e-5  # masked GRU tolerance of PARITY.md, f32 over 20 steps
@@ -410,12 +427,14 @@ def _ms(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def bound(n_bytes, flops, tf32_flops=0):
+def bound(n_bytes, flops, tf32_flops=0, bf16_flops=0):
     """Least time on the card in ms, and what sets it: `flops` f32
     operations on the CUDA cores, `tf32_flops` TF32 products on the tensor
-    cores (3xTF32 counts its three)."""
+    cores (3xTF32 counts its three), `bf16_flops` products of bf16
+    operands at the bf16 tensor-core rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / F32_FLOP_PER_S + tf32_flops / TF32_FLOP_PER_S) * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + tf32_flops / TF32_FLOP_PER_S
+             + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -835,8 +854,8 @@ K2_STEPS = (
         ("bigru_recurrence.cu",
          "Tile tile_shape(int H) { return 4 * H <= MAX_THREADS ? Tile{1, 4} : Tile{2, 4}; }",
          "Tile tile_shape(int H) { return Tile{2, 8}; }"),
-        ("bigru_recurrence.cu", ": bigru_recurrence_kernel<2, 4>;",
-         ": bigru_recurrence_kernel<2, 8>;")]),
+        ("bigru_recurrence.cu", ": bigru_recurrence_kernel<2, 4, T>;",
+         ": bigru_recurrence_kernel<2, 8, T>;")]),
     ("k unrolled by 4", [("bigru_recurrence.cu",
                           "#pragma unroll 8\n    for (int k = 0; k < H; ++k) {",
                           "#pragma unroll 4\n    for (int k = 0; k < H; ++k) {")]),
@@ -2955,6 +2974,368 @@ def device_breakdown(fn, what, steps=10, top=10):
         print(f"  {ms:8.4f} ms  x{n:<4d} {name[:80]}")
 
 
+# ---- ROADMAP A5: the streaming dataset build and --compute_dtype bfloat16
+
+def streaming_build_phase(device_name):
+    """The dispatch corpus's three splits built by the streaming build
+    (--build_chunk_rows 7, straight into a memmap cache) and by the
+    full-memory build (0): the same arrays; the native tokenizer and the
+    streaming build must have run (``dataset.PATHS``); the cache loads and
+    equals them.  Host work: seconds of each build on the card's machine."""
+    from umpr_tpu_torch.data import dataset as ds_mod
+    root = WORK / "streaming_build"
+    shutil.rmtree(root, ignore_errors=True)
+    glove = write_splits(root, seed=1, shards=5, **DISPATCH_CORPUS)
+    w2v = Word2vec(str(glove))
+    photos = (str(root / "photos.json"), str(root / "photos"))
+    out = {}
+    for split in ("train", "valid", "test"):
+        built, secs, paths = {}, {}, {}
+        for chunk in (7, 0):
+            cfg = Config(["--review_net_only", "True", "--build_chunk_rows", str(chunk)])
+            before = dict(ds_mod.PATHS)
+            t0 = time.perf_counter()
+            built[chunk] = build_dataset(
+                str(root / f"{split}.csv"), *photos, w2v, cfg,
+                mmap_dir=str(root / f"cache_{split}") if chunk else None)
+            secs[chunk] = time.perf_counter() - t0
+            paths[chunk] = {k: ds_mod.PATHS[k] - before[k] for k in before}
+        cached = ds_mod.UMPRDataset.load(str(root / f"cache_{split}"))
+        for field in built[0].__dataclass_fields__:
+            for other in (built[7], cached):
+                if not np.array_equal(np.asarray(getattr(other, field)),
+                                      np.asarray(getattr(built[0], field))):
+                    raise AssertionError(f"streaming build differs in {split}.{field}")
+        s, f = paths[7], paths[0]
+        if not (s["streaming"] == 1 and s["native_tokenizer"] >= 1 and s["full_memory"] == 0
+                and s["python_tokenizer"] == 0):
+            raise AssertionError(f"the streaming build did not run natively: {s}")
+        if not (f["full_memory"] == 1 and f["native_tokenizer"] == 1
+                and f["native_histories"] == 1 and f["python_tokenizer"] == 0):
+            raise AssertionError(f"the full-memory build did not run natively: {f}")
+        out[split] = {"samples": len(built[0]), "streaming_s": secs[7],
+                      "full_memory_s": secs[0], "paths_streaming": s, "paths_full": f}
+    print(f"streaming build on the card's machine (host clock): {out}")
+    return out
+
+
+BF16_PAST_ULP = 1e-4  # the share of a bf16 output allowed past one ulp
+
+
+def _bf16_check(got, want, where):
+    """bf16 within one ulp of the plain version but for a share of at most
+    BF16_PAST_ULP of the elements, and those within one ulp at the tensor's
+    largest magnitude (tests/test_torch_kernels.py _within_ulp: a sum that
+    cancels, or an operand's rounding flip carried along K2/K3's
+    recurrence, moves a value near zero by many of its own ulps); returns
+    the max abs error."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -120))) - 7)
+    top = 2.0 ** (np.floor(np.log2(max(w.abs().max().item(), 2.0 ** -120))) - 7)
+    err = (g - w).abs()
+    past = int((err > ulp).sum())
+    print(f"{where}: max|kernel - plain| = {err.max().item():.3e}, "
+          f"{(err / ulp).max().item():.1f} ulp at most, {past} of {err.numel()} past one "
+          f"(one ulp at the largest |value|: {top:.3e})")
+    if not (past <= BF16_PAST_ULP * err.numel() and (err <= ulp + top).all()):
+        raise AssertionError(f"{where} disagrees with its plain bf16 version")
+    return err.max().item()
+
+
+def _l2_check(got, want, where, tol=SUM_RTOL):
+    rel = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+    print(f"{where}: |kernel - plain| / |plain| = {rel:.3e} (tolerance {tol:.0e})")
+    if not rel <= tol:
+        raise AssertionError(f"{where} disagrees with its plain version")
+    return (got - want).abs().max().item()
+
+
+def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=(400, 520, 521)):
+    """K1-K4's bf16 variants against their plain bf16 versions at the
+    UMPR-R shapes (and K1/K4 at E = 400, 520, 521), each launched twice for
+    the same bits, with their times beside the bf16 library calls."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(N, L, E, generator=g) * 0.5).to(device).to(bf)
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    lengths[0], lengths[1] = 1, L
+    lengths = lengths.to(device)
+    gru = BiGRU(E, H, generator=g).to(device)
+    w_ih, b_ih, w_hh, b_hh = (t.to(bf) for t in gru.kernel_operands())
+    x2 = x.reshape(N * L, E)
+    M, rows = N * L, []
+
+    def row(name, source, replaces, err, times, t_bound, by, lib_call, **extra):
+        r = {"name": name, "route": "cuda", "source": f"umpr_tpu_torch/csrc/{source}",
+             "replaces": f"umpr_tpu/ops/gru_pallas.py:{replaces}", "io": "bfloat16",
+             "max_abs_err": err, **times, "bound_ms": t_bound, "bound_by": by,
+             "library_call": lib_call, **extra}
+        print_row(r)
+        rows.append(r)
+
+    def same(fn, ref):
+        out = fn()
+        if not all(torch.equal(a, b) for a, b in zip(
+                out if isinstance(out, tuple) else (out,), ref if isinstance(ref, tuple)
+                else (ref,))):
+            raise AssertionError("a second launch gave other bits")
+
+    k1 = lambda: gru_cuda.gru_input_proj(x2, w_ih, b_ih)  # noqa: E731
+    xg = k1()
+    torch.cuda.synchronize()
+    err = _bf16_check(xg, gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih), "K1 bf16")
+    same(k1, xg)
+    at_e = {}
+    for e in widths:
+        gx = torch.Generator(device=device).manual_seed(e)
+        xe = torch.randn(M, e, generator=gx, device=device).to(bf)
+        we = (torch.randn(e, 6 * H, generator=gx, device=device) * (50 / e) ** 0.5).to(bf)
+        ge = torch.randn(M, 6 * H, generator=gx, device=device).to(bf)
+        k1e = lambda: gru_cuda.gru_input_proj(xe, we, b_ih)  # noqa: E731
+        k4e = lambda: gru_cuda.gru_input_proj_bwd(xe, ge)  # noqa: E731
+        out1, out4 = k1e(), k4e()
+        _bf16_check(out1, gru_cuda.gru_input_proj_ref(xe, we, b_ih), f"K1 bf16 at E = {e}")
+        want4 = gru_cuda.gru_input_proj_bwd_ref(xe, ge)
+        _l2_check(out4[0], want4[0], f"K4 bf16 dW at E = {e}")
+        _l2_check(out4[1], want4[1], f"K4 bf16 db at E = {e}")
+        same(k1e, out1)
+        same(k4e, out4)
+        at_e[e] = {"gru_input_proj_device_ms": device_ms(k1e),
+                   "gru_input_proj_bwd_device_ms": device_ms(k4e)}
+    t_bound, by = bound(2 * (x2.numel() + w_ih.numel() + b_ih.numel() + xg.numel()),
+                        M * 6 * H, bf16_flops=2 * M * E * 6 * H)
+    row("gru_input_proj_bf16", "gru_input_proj.cu", 319, err,
+        timed(k1, lambda: gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih),
+              lambda: torch.addmm(b_ih, x2, w_ih)),
+        t_bound, by, "torch.addmm (bf16)", at_E=at_e)
+
+    xg = xg.view(N, L, 6 * H)
+    k2 = lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)  # noqa: E731
+    y = k2()
+    torch.cuda.synchronize()
+    err = _bf16_check(y, gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), "K2 bf16")
+    past = torch.arange(L, device=device)[None, :] >= lengths[:, None]
+    if not bool((y[past] == 0).all()):
+        raise AssertionError("K2 bf16: a position past its length is not zero")
+    same(k2, y)
+    lib = torch.nn.GRU(E, H, batch_first=True, bidirectional=True).to(device)
+    lib.load_state_dict(gru.state_dict())
+    lib = lib.to(bf)
+    lengths_cpu = lengths.cpu()
+    pack = torch.nn.utils.rnn.pack_padded_sequence
+    library = lambda: lib(pack(x, lengths_cpu, batch_first=True, enforce_sorted=False))[0]  # noqa: E731,E501
+    valid = int(lengths.sum())
+    t_bound, by = bound(2 * (2 * valid * 3 * H + y.numel() + w_hh.numel() + b_hh.numel())
+                        + 4 * N, 0, bf16_flops=2 * valid * 2 * H * 3 * H)
+    row("bigru_recurrence_bf16", "bigru_recurrence.cu", 205, err,
+        timed(k2, lambda: gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), library,
+              plain_iters=3), t_bound, by,
+        "torch.nn.GRU(bidirectional, bf16) on pack_padded_sequence")
+
+    gd = torch.Generator(device=device).manual_seed(1)
+    dy_sent = torch.randn(N, L, 2 * H, generator=gd, device=device).to(bf)
+    dy_pos = torch.randn(N // 20, 20 * L, 2 * H, generator=gd, device=device).to(bf)
+    k3 = lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)  # noqa: E731,E501
+    dxg, dw, db = k3()
+    torch.cuda.synchronize()
+    want = gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    err = _bf16_check(dxg, want[0], "K3 bf16 dxg")
+    _l2_check(dw, want[1], "K3 bf16 dW_hh")
+    _l2_check(db, want[2], "K3 bf16 db_hh")
+    same(k3, (dxg, dw, db))
+    with torch.enable_grad():
+        lib_params = [p.requires_grad_() for p in lib.parameters()]
+        lib_out = library().data
+        lib_ct = torch.randn_like(lib_out)
+        library_bwd = lambda: torch.autograd.grad(lib_out, lib_params, lib_ct,  # noqa: E731
+                                                  retain_graph=True)
+        n_bytes = 2 * (2 * valid * 6 * H + dxg.numel() + w_hh.numel() + b_hh.numel()) + 4 * N
+        t_bound, by = bound(n_bytes, 0, bf16_flops=3 * 2 * valid * 2 * H * 3 * H)
+        row("bigru_backward_bf16", "bigru_backward.cu", 698, err,
+            timed(k3, lambda: gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths,
+                                                           w_hh, b_hh),
+                  library_bwd, plain_iters=2),
+            t_bound, by, "torch.autograd.grad of torch.nn.GRU(bidirectional, bf16)",
+            device_ms_by_kernel=part_split(k3, K3_PARTS))
+        for p in lib_params:
+            p.requires_grad_(False)
+
+    dxg2 = dxg.view(M, 6 * H)
+    k4 = lambda: gru_cuda.gru_input_proj_bwd(x2, dxg2)  # noqa: E731
+    dw4, db4 = k4()
+    torch.cuda.synchronize()
+    want = gru_cuda.gru_input_proj_bwd_ref(x2, dxg2)
+    err = _l2_check(dw4, want[0], "K4 bf16 dW_ih")
+    _l2_check(db4, want[1], "K4 bf16 db_ih")
+    same(k4, (dw4, db4))
+    t_bound, by = bound(2 * (x2.numel() + dxg2.numel()) + 4 * (dw4.numel() + db4.numel()),
+                        M * 6 * H, bf16_flops=2 * M * E * 6 * H)
+    row("gru_input_proj_bwd_bf16", "gru_input_proj_bwd.cu", 394, err,
+        timed(k4, lambda: gru_cuda.gru_input_proj_bwd_ref(x2, dxg2), lambda: x2.t() @ dxg2),
+        t_bound, by, "x.T @ dxg (bf16)")
+    return rows
+
+
+def _bf16_launches():
+    return {k.__name__: k.launches_bf16 for k in gru_cuda.BF16_KERNELS}
+
+
+def _predict_forward(model, batch):
+    """The Predictor's forward of one device batch (full static padding)."""
+    return serve.Predictor._forward(SimpleNamespace(model=model), batch)
+
+
+def _turns(fns, iters):
+    """ms per call of each named fn, timed in turns (a, b, b, a)."""
+    names = list(fns)
+    ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        ms[n].append(time_cuda(fns[n], iters=iters))
+    return {n: {"ms": sum(v) / len(v), "turns": v} for n, v in ms.items()}
+
+
+def bf16_phase(device_name):
+    """--compute_dtype bfloat16 through the port's entry points: UMPR-R
+    trained through main on the resident corpus (the main path of K1-K4's
+    bf16 variants: every launch bf16, no plain version on the card), its
+    train step at k = 1 and
+    as a graph of 4 and its serving forward against f32 in turns; full UMPR
+    at 224 px, one train step and the serving forward against f32 (within
+    the JAX package's bf16 bounds: loss 0.05, predictions 0.08); then a
+    bf16 UMPR-R resume, bit-equal.  Returns (the main path's launches,
+    numbers)."""
+    root = WORK / "bf16_train"
+    glove = write_splits(root, seed=1, shards=5)
+    argv = ["--review_net_only", "True", "--data_dir", str(root),
+            "--word2vec_file", str(glove), "--train_epochs", "2",
+            "--learning_rate", "1e-3", "--eval_every", "2", "--compute_dtype", "bfloat16",
+            "--model_path", str(root / "model"), "--log_path", str(root / "train.log"),
+            "--metrics_jsonl", str(root / "metrics.jsonl"), "--cache_dataset", "False"]
+    with main_path_counts() as (launches, plain_calls):
+        trainer = train_main.main(argv)  # the resident corpus (--device_dataset auto)
+        bf16_counts = _bf16_launches()
+    events = [json.loads(line) for line in open(root / "metrics.jsonl")]
+    values = [v for e in events for k, v in e.items()
+              if k in ("train_loss", "valid_mse", "test_mse")]
+    print(f"bf16 UMPR-R training: {trainer.batch_counter} steps, launches {launches}, "
+          f"bf16 launches {bf16_counts}, plain versions on the card {plain_calls[0]}; "
+          f"logged {[{k: v for k, v in e.items() if k != 'ts'} for e in events]}")
+    if plain_calls[0] or not values or not all(np.isfinite(v) for v in values):
+        raise AssertionError("bf16 training ran a plain version or logged a non-finite value")
+    for k in gru_cuda.BF16_KERNELS:
+        if not launches[k.__name__] or bf16_counts[k.__name__] != launches[k.__name__]:
+            raise AssertionError(f"{k.__name__}: not every launch was the bf16 variant")
+    if any(launches[k] for k in launches if k not in bf16_counts):
+        raise AssertionError(f"bf16 UMPR-R launched another kernel: {launches}")
+
+    # step and forward times, bf16 against f32 on the same weights
+    cfg16 = trainer.config
+    cfg32 = copy.copy(cfg16)
+    cfg32.compute_dtype = "float32"
+    dev = trainer.device
+    w2v = Word2vec(str(glove))
+    ds = build_dataset(str(root / "train.csv"), str(root / "photos.json"),
+                       str(root / "photos"), w2v, cfg16)
+    batch = to_device(next(iter(BatchLoader(ds, cfg16.batch_size))), dev)
+    models, opts, trainers = {}, {}, {}
+    for name, cfg in (("float32", cfg32), ("bfloat16", cfg16)):
+        m = UMPR(ModelDims.from_config(cfg), w2v.embedding).to(dev)
+        m.load_state_dict(trainer.model.state_dict())
+        models[name] = m
+        opts[name] = make_optimizer(m, cfg.l2_regularization, cfg.learning_rate)
+        trainers[name] = SimpleNamespace(model=m, opt=opts[name], config=cfg, device=dev)
+    out = {"launches_bf16": bf16_counts}
+    with torch.inference_mode():  # on the trained weights, before the timed steps
+        preds = {n: _predict_forward(m.eval(), batch).float() for n, m in models.items()}
+    for m in models.values():
+        m.train()
+    out["umpr_r_step_k1"] = _turns(
+        {n: (lambda n=n: train_step(models[n], opts[n], batch, 1e-3)) for n in models}, 20)
+    out[f"umpr_r_step_k{DISPATCH_K}"] = {}
+    for n in ("float32", "bfloat16", "bfloat16", "float32"):
+        ms, busy, wall = graph_step_ms(trainers[n], ds)
+        out[f"umpr_r_step_k{DISPATCH_K}"].setdefault(n, []).append(
+            {"ms": ms, "idle": _idle(busy, wall)})
+    with torch.inference_mode():
+        for m in models.values():
+            m.eval()
+        out["umpr_r_serving_forward"] = _turns(
+            {n: (lambda n=n: _predict_forward(models[n], batch)) for n in models}, 20)
+    gap = (preds["bfloat16"] - preds["float32"]).abs().max().item()
+    out["umpr_r_pred_gap"] = gap
+    print(f"UMPR-R on {device_name}, bf16 against f32 (CUDA events, in turns): {out}")
+    if not gap <= 0.08:
+        raise AssertionError(f"bf16 UMPR-R predictions {gap} from f32's")
+    del models, opts, trainers
+
+    out["full_umpr"] = bf16_full_umpr(device_name, batch, w2v)
+    out["resume_bit_equal"] = resume_phase(device_name, "resume_bf16",
+                                           ("--review_net_only", "True",
+                                            "--compute_dtype", "bfloat16"))
+    return launches, out
+
+
+BF16_FULL_PX = 224  # full UMPR's photo size in the bf16 phase
+
+
+def bf16_full_umpr(device_name, batch, w2v):
+    """Full UMPR at 224 px (the default --vgg_fused_pool False), one train
+    step and the serving forward, bf16 against f32 on the same weights and
+    seeded photos: loss within rtol/atol 0.05, predictions within 0.08
+    (the JAX package's bf16 test bounds), K1-K4 launched in bf16 only."""
+    cfg = Config(["--review_net_only", "False", "--seed", "2",
+                  "--photo_size", str(BF16_FULL_PX)])
+    dev, B, px = batch["ratings"].device, batch["ratings"].shape[0], BF16_FULL_PX
+    g = torch.Generator(device=dev).manual_seed(7)
+    fb = dict(batch, photos=torch.randint(0, 256, (B, 1, 1, px, px, 3), generator=g,
+                                          device=dev, dtype=torch.uint8))
+    models, opts = {}, {}
+    base = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                torch.Generator().manual_seed(cfg.seed))
+    with torch.no_grad():
+        base.linear_fusion.bias.fill_(3.0)  # above the ReLU: the predictions compare
+    for name in ("float32", "bfloat16"):
+        dims = dataclasses.replace(ModelDims.from_config(cfg), compute_dtype=name)
+        m = UMPR(dims, w2v.embedding).to(dev)
+        m.load_state_dict(base.state_dict())
+        models[name] = m
+        opts[name] = make_optimizer(m, cfg.l2_regularization, 1e-6)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the Trainer sets it
+    out = {}
+    with torch.inference_mode():
+        for m in models.values():
+            m.eval()
+        res = {n: m(fb) for n, m in models.items()}
+        out["serving_forward"] = _turns(
+            {n: (lambda n=n: _predict_forward(models[n], fb)) for n in models}, 5)
+    pred_gap = (res["bfloat16"][0] - res["float32"][0]).abs().max().item()
+    l16, l32 = res["bfloat16"][1].item(), res["float32"][1].item()
+    for m in models.values():
+        m.train()
+    gru_cuda.reset_launches()
+    train_step(models["bfloat16"], opts["bfloat16"], fb)
+    step_bf16 = _bf16_launches()
+    if not all(step_bf16.values()) or any(
+            k.launches != k.launches_bf16 for k in gru_cuda.BF16_KERNELS):
+        raise AssertionError(f"full UMPR bf16 step: not every K1-K4 launch in bf16: "
+                             f"{step_bf16}")
+    out["train_step"] = _turns(
+        {n: (lambda n=n: train_step(models[n], opts[n], fb)) for n in models}, 3)
+    for n in models:
+        torch.cuda.reset_peak_memory_stats()
+        train_step(models[n], opts[n], fb)
+        out["train_step"][n]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.backends.cudnn.deterministic = deterministic
+    out.update(loss_bf16=l16, loss_f32=l32, pred_gap=pred_gap, launches_bf16_step=step_bf16)
+    print(f"full UMPR at 224 px on {device_name}, bf16 against f32 (CUDA events, in "
+          f"turns, cudnn.deterministic): {out}")
+    if not (pred_gap <= 0.08 and abs(l16 - l32) <= 0.05 + 0.05 * abs(l32)):
+        raise AssertionError("bf16 full UMPR left the JAX package's bf16 bounds")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3005,6 +3386,8 @@ def main():
         kernels += phase("input-gradient kernel", input_grad_kernel_phase, device)
         kernels += phase("pool kernels", pool_kernel_phase, device)
         kernels += phase("attention kernels", attention_kernel_phase, device)
+        bf16_kernels = phase("bf16 gru kernels", bf16_kernel_phase, device)
+    streaming = phase("streaming build", streaming_build_phase, card)
     served = phase("UMPR-R serving", serve_phase, card)
     trained = phase("UMPR-R training", train_phase, card)
     full = phase("full UMPR training", full_train_phase, card)
@@ -3060,6 +3443,9 @@ def main():
     # ROADMAP A5's runtime: the resident corpus, the dataset cache,
     # --grad_accum_steps and --remat_vgg
     a5 = phase("a5_runtime", a5_runtime_phase, card)
+    # --compute_dtype bfloat16: its main path (UMPR-R training) launches the
+    # bf16 variants of K1-K4
+    bf16_launches, bf16 = phase("bf16", bf16_phase, card)
     for k in kernels:
         k["launches_umpr_r_training_k4"] = dispatch["umpr_r_training"]["launches_on_card"][
             k["name"]]
@@ -3068,10 +3454,17 @@ def main():
         k["launches_umpr_r_serving_k4"] = dispatch["umpr_r_serving"]["launches_on_card"][
             k["name"]]
         k["launches_full_umpr_remat_step"] = a5["remat_launches"][k["name"]]
+    for k in bf16_kernels:
+        base = k["name"][:-len("_bf16")]
+        k["launches"] = bf16["launches_bf16"][base]
+        k["launches_full_umpr_bf16_step"] = bf16["full_umpr"]["launches_bf16_step"][base]
+    kernels += bf16_kernels
     print(f"phase seconds: {seconds}")
     print(json.dumps({"resume_bit_equal": resumed}))
     print(json.dumps({"steps_per_dispatch": dispatch}))
     print(json.dumps({"a5_runtime": {k: v for k, v in a5.items() if k != "remat_launches"}}))
+    print(json.dumps({"streaming_build": streaming}))
+    print(json.dumps({"bf16": {k: v for k, v in bf16.items() if k != "launches_bf16"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -219,8 +219,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(8, 4, device=cuda)
     w = torch.randn(4, 12, device=cuda)
     b = torch.randn(12, device=cuda)
+    with pytest.raises(TypeError):  # bf16 is taken, but not mixed with f32
+        gru_cuda.gru_input_proj(x.bfloat16(), w, b)
     with pytest.raises(TypeError):
-        gru_cuda.gru_input_proj(x.bfloat16(), w.bfloat16(), b.bfloat16())
+        gru_cuda.gru_input_proj(x.half(), w.half(), b.half())
+    with pytest.raises(TypeError):  # K9 takes f32 only (bf16: ROADMAP A5)
+        gru_cuda.gru_input_proj_dx(torch.zeros(8, 12, device=cuda).bfloat16(), w.bfloat16())
     with pytest.raises(ValueError):
         gru_cuda.gru_input_proj(x, w.t().contiguous().t(), b)
     with pytest.raises(ValueError):  # w_hh of another H than xg's
@@ -243,6 +247,119 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gru_cuda.gru_input_proj_bwd(x, torch.zeros(7, 12, device=cuda))
     with pytest.raises(RuntimeError, match="BiGRUSplit"):
         gru_cuda.gru_input_proj(x, w.requires_grad_(), b)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+def _within_ulp(got, want):
+    """bf16 outputs within one bf16 ulp (of the larger magnitude) of the
+    plain version's, but for at most a 1e-4 share of the elements, and
+    those within one ulp at the tensor's largest magnitude: where an f32
+    sum cancels, its order moves the rounded value by many of its own
+    ulps, and in K2/K3 a rounding flip of the bf16 operand is carried along
+    the recurrence (on an H100: 38 of 19.7 million K1 outputs past one
+    ulp; 98 of 41.9 million K2 outputs, the largest 1.8e-4 off; K3's
+    largest 2.9e-3 at a largest |dxg| of 125)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -120)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    top = torch.exp2(torch.floor(torch.log2(w.abs().max().clamp(min=2.0 ** -120))) - 7)
+    err = (g - w).abs()
+    past = int((err > ulp).sum())
+    assert past <= 1e-4 * err.numel(), f"{past} of {err.numel()} past one ulp"
+    assert (err <= ulp + top).all(), f"{(err / ulp).max().item()} ulp, {err.max().item()} off"
+
+
+def _l2_close(got, want, tol=1e-4):
+    """f32 sums within tol of the plain version's l2 norm."""
+    assert got.dtype == want.dtype == torch.float32
+    assert (got - want).norm() <= tol * want.norm().clamp(min=1e-30)
+
+
+@pytest.mark.parametrize("M,E,N", [(51200, 50, 384), (130, 17, 102), (1000, 400, 384),
+                                   (3000, 520, 102), (777, 521, 384), (700, 800, 384)])
+def test_gru_input_proj_bf16_matches_plain(cuda, M, E, N):
+    """K1 in bf16: E = 50 the wgmma kernel (a 100-byte row: the tile
+    copies take 16-byte pieces of the whole span and 2-byte copies for the
+    tail), 400 .. 521 the mma.sync kernel, 800 the one that reads global
+    memory; within one bf16 ulp, the same bits twice."""
+    g = torch.Generator().manual_seed(M + E)
+    x, w, b = (_bf16(torch.randn(s, generator=g)).to(cuda) for s in ((M, E), (E, N), (N,)))
+    w = _bf16(w.float() * min(1.0, (50 / E) ** 0.5))
+    before = gru_cuda.gru_input_proj.launches
+    out = gru_cuda.gru_input_proj(x, w, b)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_input_proj.launches == before + 1 and out.dtype == torch.bfloat16
+    _within_ulp(out, gru_cuda.gru_input_proj_ref(x, w, b))
+    assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
+
+
+def _bf16_backward_inputs(cuda, N, L, H, kind, E=50):
+    x, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _backward_inputs(cuda, N, L, H, kind, E)
+    x, xg, w_hh, b_hh, dy_sent, dy_pos = map(_bf16, (x, xg, w_hh, b_hh, dy_sent, dy_pos))
+    y = gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
+    return x, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh
+
+
+BF16_GRU_SHAPES = [(2560, 20, 64, "mixed"), (37, 5, 8, "mixed"), (50, 9, 100, "mixed"),
+                   (40, 7, 256, "mixed"), (300, 20, 128, "all_L"), (40, 9, 64, "adjacent_L"),
+                   (16385, 20, 64, "mixed")]
+
+
+@pytest.mark.parametrize("N,L,H,kind", BF16_GRU_SHAPES)
+def test_bigru_recurrence_bf16_matches_plain(cuda, N, L, H, kind):
+    """K2 in bf16 (H = 8, 100: the ragged shared-memory tiles; 256: the
+    wide kernel): y within one bf16 ulp, exact zeros past each length, the
+    same bits twice."""
+    _, xg, _, _, _, lengths, w_hh, b_hh = _bf16_backward_inputs(cuda, N, L, H, kind)
+    before = gru_cuda.bigru_recurrence.launches
+    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_recurrence.launches == before + 1 and y.dtype == torch.bfloat16
+    _within_ulp(y, gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh))
+    past = torch.arange(L, device=cuda)[None, :] >= lengths[:, None]
+    assert (y[past] == 0).all()
+    assert torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
+
+
+@pytest.mark.parametrize("N,L,H,kind", BF16_GRU_SHAPES)
+def test_bigru_backward_bf16_matches_plain(cuda, N, L, H, kind):
+    """K3 in bf16: dxg within one bf16 ulp, dW_hh and db_hh (f32) within
+    1e-4 of their l2 norms, the same bits twice."""
+    _, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _bf16_backward_inputs(cuda, N, L, H, kind)
+    before = gru_cuda.bigru_backward.launches
+    dxg, dw, db = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_backward.launches == before + 1 and dxg.dtype == torch.bfloat16
+    want = gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    _within_ulp(dxg, want[0])
+    _l2_close(dw, want[1])
+    _l2_close(db, want[2])
+    again = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+    for a, b in zip(again, (dxg, dw, db)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,E,G", [(51200, 50, 384), (130, 17, 102), (1000, 400, 384),
+                                   (3000, 520, 102), (777, 521, 384)])
+def test_gru_input_proj_bwd_bf16_matches_plain(cuda, M, E, G):
+    """K4 in bf16: f32 dW and db within 1e-4 of their l2 norms (G = 102:
+    dxg rows copied 2 bytes at a time), the same bits twice."""
+    g = torch.Generator().manual_seed(M + E + 1)
+    x = _bf16(torch.randn(M, E, generator=g)).to(cuda)
+    dxg = _bf16(torch.randn(M, G, generator=g)).to(cuda)
+    before = gru_cuda.gru_input_proj_bwd.launches
+    dw, db = gru_cuda.gru_input_proj_bwd(x, dxg)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_input_proj_bwd.launches == before + 1
+    want_dw, want_db = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
+    _l2_close(dw, want_dw)
+    _l2_close(db, want_db)
+    again = gru_cuda.gru_input_proj_bwd(x, dxg)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
 
 
 @pytest.mark.parametrize("N,H,W,C,kind", [

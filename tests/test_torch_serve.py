@@ -162,11 +162,15 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--review_net_only", "False", "--compute_dtype", "bfloat16"], "A5"),
-    (["--review_net_only", "True", "--compute_dtype", "bfloat16"], "A5"),
+    (["--review_net_only", "False", "--compute_dtype", "bfloat16",
+      "--vgg_fused_pool", "True"], "A5"),
+    (["--review_net_only", "True", "--compute_dtype", "bfloat16",
+      "--max_sent_count", "128", "--max_sent_length", "64"], "A5"),
     (["--review_net_only", "True", "--checkpoint_backend", "orbax"], "A4"),
-    (["--review_net_only", "False", "--build_chunk_rows", "4096"], "A5"),
-    (["--review_net_only", "True", "--build_chunk_rows", "1000000"], "A5"),
+    (["--review_net_only", "True", "--compute_dtype", "bfloat16", "--gru_size", "100"],
+     "A5"),
+    (["--review_net_only", "False", "--compute_dtype", "bfloat16",
+      "--checkpoint_backend", "orbax"], "A4"),
     (["--review_net_only", "False", "--checkpoint_backend", "orbax"], "A4"),
     (["--review_net_only", "True", "--mesh_shape", "[8]"], "A7"),
     (["--review_net_only", "True", "--checkpoint_backend", "orbax",
@@ -232,6 +236,8 @@ def test_port_imports_neither_jax_nor_umpr_tpu():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'umpr_tpu' or m.startswith('umpr_tpu.')]\n"
         "assert not bad, bad\n"
+        "native = sys.modules['umpr_tpu_torch.native']\n"
+        "assert native._lib is None  # nothing compiles at import\n"
         "print(len([m for m in sys.modules if m.startswith('umpr_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)

@@ -10,10 +10,13 @@ Differences from the JAX package:
 - ``device`` defaults to ``"cuda"``.  A CUDA device that is not there
   raises; nothing carries on on the CPU.  ``--device cpu`` is the only way
   onto the CPU.
-- ``multi_gpu`` defaults to False (the port runs on one card) and
-  ``build_chunk_rows`` to 0 (the port always takes the full-memory build).
+- ``multi_gpu`` defaults to False (the port runs on one card).
 - ``use_pallas False`` raises: the card always runs the port's CUDA
   kernels, and only ``--device cpu`` runs their plain versions.
+- ``compute_dtype bfloat16`` runs K1-K4 in bf16; where it would reach
+  another kernel (``--vgg_fused_pool True`` in full UMPR, the long-history
+  attention route) or the JAX package's bf16 scan (``--gru_size`` not a
+  multiple of 64), it raises naming ROADMAP A5's next item.
 - Every flag that nothing in the port reads yet keeps its name and
   default, and raises ``NotImplementedError`` naming the ROADMAP.md item
   that ports it when given another value (``NOT_PORTED``).  So a flag the
@@ -104,8 +107,8 @@ class Config:
     coordinator_address = ""
     num_processes = 0
     process_id = -1
-    build_chunk_rows = 0  # 0 = the full-memory build; the streaming build with the
-                          # native tokenizer is ROADMAP A5
+    build_chunk_rows = 1000000  # rows per CSV chunk of the streaming build;
+                                # 0 = the full-memory build
 
     def __init__(self, argv=None):
         parser = argparse.ArgumentParser()
@@ -122,6 +125,9 @@ class Config:
         if self.device_dataset not in ("auto", "on", "off"):
             raise ValueError(f"--device_dataset {self.device_dataset!r}: expected "
                              "'auto', 'on' or 'off'")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"--compute_dtype {self.compute_dtype!r}: expected "
+                             "'float32' or 'bfloat16'")
         if self.adam_moment_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"--adam_moment_dtype {self.adam_moment_dtype!r}: expected "
                              "'float32' or 'bfloat16'")
@@ -135,6 +141,8 @@ class Config:
             raise NotImplementedError(
                 "--use_pallas False: no ROADMAP item, the card always runs the "
                 "CUDA kernels (--device cpu runs their plain versions)")
+        if self.compute_dtype == "bfloat16":
+            _check_bf16(self)
         defaults = dict(self._attributes())
         for key, item in NOT_PORTED.items():
             if getattr(self, key) != defaults[key]:
@@ -164,13 +172,34 @@ class Config:
 NOT_PORTED = {
     # orbax is a JAX library: the port reads and writes npz only
     "checkpoint_backend": "ROADMAP A4, training: orbax checkpoints",
-    "compute_dtype": "ROADMAP A5, runtime features: bf16-operand kernels",
-    "build_chunk_rows": "ROADMAP A5, runtime features: the streaming build",
     **dict.fromkeys((
         "mesh_shape", "shard_embedding", "coordinator_address",
         "num_processes", "process_id",
     ), "ROADMAP A7, parallelism"),
 }
+
+
+BF16_NEXT = "ROADMAP A5, bf16 K5-K9 and the bf16 scan"
+
+
+def _check_bf16(config):
+    """--compute_dtype bfloat16 runs where only K1-K4 (in bf16) are
+    reached; elsewhere it raises, so no flag runs half-ported."""
+    from umpr_tpu_torch.ops.attention import TILED_BYTES_THRESHOLD
+
+    P = config.max_sent_count * config.max_sent_length
+    if not config.review_net_only and config.vgg_fused_pool:
+        why = "--vgg_fused_pool True needs K5/K6 in bf16"
+    elif config.batch_size * P * P * 4 > TILED_BYTES_THRESHOLD:
+        why = (f"the long-history attention route (batch_size * P^2 * 4 > "
+               f"{TILED_BYTES_THRESHOLD}, P = {P}) needs K7/K8 in bf16")
+    elif config.gru_size % 64:
+        why = (f"--gru_size {config.gru_size} (not a multiple of 64) takes the "
+               "JAX package's bf16 scan, whose state is bf16")
+    else:
+        return
+    raise NotImplementedError(
+        f"--compute_dtype bfloat16: {why}, not ported yet ({BF16_NEXT})")
 
 
 def resolve_device(name, multi_gpu=False):

@@ -71,6 +71,17 @@
 //       first step: without the mask y_f[n-1, L-1] would meet ghh[n, 0].
 // No float atomics anywhere: the same bits on every run.
 //
+// bf16 IO (bigru_backward_bf16, --compute_dtype bfloat16; the TPU
+// kernel's bf16 path, _bwd_kernel and _gru_dy_kernel): xg, y, the
+// cotangents, W_hh and b_hh in bf16, dxg out in bf16, the gate math, g and
+// the dW / db sums in f32.  The rounding points are the TPU kernels': the
+// two cotangents' sum is rounded to bf16 (B7 adds them in bf16); h_prev is
+// y's bf16 value, as the TPU's bf16 hs; ghh is rounded to bf16 as the
+// operand of both products (g z + ghh W^T and h_prev^T ghh), while db sums
+// it unrounded; dxg is rounded on store.  Z cannot live in a bf16 dxg, so
+// it gets an f32 buffer of its own (zbuf), where the sweep leaves the
+// unrounded [dr | dz] for the dW pass, as the f32 sweep does in dxg.
+//
 // What bounds it on an H100: at the UMPR-R shapes (N=2560, L=20, H=64,
 // lengths uniform in 1..20, about 27,600 valid steps per direction) the
 // function must read xg, h_prev and both cotangents at the valid steps
@@ -90,10 +101,16 @@
 #include "bigru_backward_dw.cuh"
 #include "bigru_backward_hg.cuh"
 #include "row_order.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using row_order::load_tile;
+using tf32x3::bf16;
+using tf32x3::io_from;
+using tf32x3::is_bf16;
+using tf32x3::ld;
+using tf32x3::round_to;
 
 constexpr int ROWS = 16;  // sentence rows per sweep block
 // a block's shared memory on Hopper (227 KB), less the static arrays
@@ -142,14 +159,16 @@ SweepShape sweep_shape(int H) {
   return s;
 }
 
-template <int TR, int KS>
+// zbuf: the hg pass's Z (f32), overwritten with the unrounded [dr | dz]
+// for the dW pass; for f32 IO it is dxg itself.  (No __restrict__ on
+// dxg and zbuf: they alias for f32.)
+template <int TR, int KS, class T>
 __global__ void __launch_bounds__(256)
-bigru_backward_sweep(const float* __restrict__ xg, const float* __restrict__ y,
-                     const float* __restrict__ dy_sent, const float* __restrict__ dy_pos,
-                     const int* __restrict__ lengths, const float* __restrict__ w_hh,
-                     const float* __restrict__ b_hh, const int* __restrict__ order,
-                     float* __restrict__ dxg, float* __restrict__ ghn, int N, int L, int H,
-                     int BS, int GP) {
+bigru_backward_sweep(const T* __restrict__ xg, const T* __restrict__ y,
+                     const T* __restrict__ dy_sent, const T* __restrict__ dy_pos,
+                     const int* __restrict__ lengths, const T* __restrict__ w_hh,
+                     const T* __restrict__ b_hh, const int* __restrict__ order, T* dxg,
+                     float* zbuf, float* __restrict__ ghn, int N, int L, int H, int BS, int GP) {
   constexpr int GROUPS = KS * 4 / TR;  // threads / HP
   constexpr int RPT = ROWS / GROUPS;   // rows per thread in the gate phase
   extern __shared__ float4 smem4[];
@@ -166,13 +185,14 @@ bigru_backward_sweep(const float* __restrict__ xg, const float* __restrict__ y,
   // W_hh[d] into its 4-unit blocks: a warp per block, a lane per c, one
   // 16-byte store of the 4 units (an element at a time, with a division
   // per element, this took 19 us a block)
-  const float* W = w_hh + (size_t)d * H * G;
+  const T* W = w_hh + (size_t)d * H * G;
   const int warps = blockDim.x / 32;  // whole warps (200 threads at H = 100: 6)
   for (int jb = tid / 32; tid < warps * 32 && jb < HP / 4; jb += warps)
     for (int c = tid % 32; c < G; c += 32) {
       float w4[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) w4[u] = 4 * jb + u < H ? W[(size_t)(4 * jb + u) * G + c] : 0.f;
+      for (int u = 0; u < 4; ++u)
+        w4[u] = 4 * jb + u < H ? ld(W[(size_t)(4 * jb + u) * G + c]) : 0.f;
       *reinterpret_cast<float4*>(wq + jb * BS + 4 * c) = make_float4(w4[0], w4[1], w4[2], w4[3]);
     }
   if (tid < ROWS) load_tile(order, lengths, row0 + tid, N, L, row_s[tid], len_s[tid]);
@@ -195,9 +215,9 @@ bigru_backward_sweep(const float* __restrict__ xg, const float* __restrict__ y,
   const int cs = (G + KS - 1) / KS;
   const int c_begin = min(G, ps * cs), c_end = min(G, c_begin + cs);
 
-  const float b_r = unit ? b_hh[d * G + j] : 0.f;
-  const float b_z = unit ? b_hh[d * G + H + j] : 0.f;
-  const float b_n = unit ? b_hh[d * G + 2 * H + j] : 0.f;
+  const float b_r = unit ? ld(b_hh[d * G + j]) : 0.f;
+  const float b_z = unit ? ld(b_hh[d * G + H + j]) : 0.f;
+  const float b_n = unit ? ld(b_hh[d * G + 2 * H + j]) : 0.f;
   int row[RPT], len[RPT];
   float g[RPT], gz[RPT];
 #pragma unroll
@@ -209,17 +229,27 @@ bigru_backward_sweep(const float* __restrict__ xg, const float* __restrict__ y,
   const size_t y_stride = 2 * (size_t)H;
   const size_t xg_stride = 6 * (size_t)H;
 
+  // a step's outputs: dxg (rounded to T), for bf16 the unrounded [dr | dz]
+  // in zbuf, and dn r in ghn
+  auto store = [&](size_t at, float dr, float dz, float dn, float dhn) {
+    T* o = dxg + at * xg_stride + d * G;
+    o[j] = io_from<T>(dr);
+    o[H + j] = io_from<T>(dz);
+    o[2 * H + j] = io_from<T>(dn);
+    if constexpr (is_bf16<T>) {
+      float* zo = zbuf + at * xg_stride + d * G;
+      zo[j] = dr;
+      zo[H + j] = dz;
+    }
+    ghn[at * y_stride + d * H + j] = dhn;
+  };
+
   // steps no row of the tile reaches: dxg = 0, dn r = 0
   if (unit)
     for (int t = maxlen; t < L; ++t)
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
-        if (row[i] >= 0) {
-          const size_t at = (size_t)row[i] * L + t;
-          float* o = dxg + at * xg_stride + d * G;
-          o[j] = o[H + j] = o[2 * H + j] = 0.f;
-          ghn[at * y_stride + d * H + j] = 0.f;
-        }
+        if (row[i] >= 0) store((size_t)row[i] * L + t, 0.f, 0.f, 0.f, 0.f);
 
   // a step's loads per row: xg's three gates, Z's (0 where h_prev = 0),
   // h_prev, the two cotangents.  Up to 8 rows a thread, the next
@@ -236,20 +266,20 @@ bigru_backward_sweep(const float* __restrict__ xg, const float* __restrict__ y,
       for (int k = 0; k < 9; ++k) in[i][k] = 0.f;
       if (!unit || t >= len[i]) continue;
       const size_t at = (size_t)row[i] * L + t;
-      const float* x = xg + at * xg_stride + d * G;
-      in[i][0] = x[j];
-      in[i][1] = x[H + j];
-      in[i][2] = x[2 * H + j];
+      const T* x = xg + at * xg_stride + d * G;
+      in[i][0] = ld(x[j]);
+      in[i][1] = ld(x[H + j]);
+      in[i][2] = ld(x[2 * H + j]);
       const size_t o = at * y_stride + d * H + j;
-      in[i][7] = dy_sent[o];
-      in[i][8] = dy_pos[o];
+      in[i][7] = ld(dy_sent[o]);
+      in[i][8] = ld(dy_pos[o]);
       if (tp >= 0 && tp < len[i]) {  // else h_prev = 0: hg = b
         const size_t ap = (size_t)row[i] * L + tp;
-        const float* z = dxg + ap * xg_stride + d * G;  // the hg pass's Z
+        const float* z = zbuf + ap * xg_stride + d * G;  // the hg pass's Z
         in[i][3] = z[j];
         in[i][4] = z[H + j];
         in[i][5] = z[2 * H + j];
-        in[i][6] = y[ap * y_stride + d * H + j];
+        in[i][6] = ld(y[ap * y_stride + d * H + j]);
       }
     }
   };
@@ -267,25 +297,19 @@ bigru_backward_sweep(const float* __restrict__ xg, const float* __restrict__ y,
           const float r = sigmoid(in[i][0] + hg_r);
           const float zg = sigmoid(in[i][1] + hg_z);
           const float n = tanhf(in[i][2] + r * hg_n);
-          g[i] += in[i][7] + in[i][8];
+          g[i] += round_to<T>(in[i][7] + in[i][8]);
           dn = g[i] * (1.f - zg) * (1.f - n * n);
           dz = g[i] * (in[i][6] - n) * zg * (1.f - zg);
           dr = dn * hg_n * r * (1.f - r);
           dhn = dn * r;
           gz[i] = g[i] * zg;
         }
-        if (row[i] >= 0) {
-          const size_t at = (size_t)row[i] * L + t;
-          float* o = dxg + at * xg_stride + d * G;
-          o[j] = dr;
-          o[H + j] = dz;
-          o[2 * H + j] = dn;
-          ghn[at * y_stride + d * H + j] = dhn;
-        }
+        if (row[i] >= 0) store((size_t)row[i] * L + t, dr, dz, dn, dhn);
+        // ghh as the product's operand (bf16: rounded)
         const int rr = grp + GROUPS * i;
-        gh[j * GP + rr] = dr;
-        gh[(H + j) * GP + rr] = dz;
-        gh[(2 * H + j) * GP + rr] = dhn;
+        gh[j * GP + rr] = round_to<T>(dr);
+        gh[(H + j) * GP + rr] = round_to<T>(dz);
+        gh[(2 * H + j) * GP + rr] = round_to<T>(dhn);
       }
     }
     if (AHEAD && s + 1 < maxlen) fetch(d == 0 ? t - 1 : t + 1);
@@ -345,13 +369,14 @@ constexpr int WTHREADS = 256;  // threads of the wide sweep
 // h_prev (H x 16), ghh (3H x 16), g (H x 16): transposed, k-major
 size_t wide_state_bytes(int H) { return (size_t)5 * H * ROWS * sizeof(float); }
 
+template <class T>
 __global__ void __launch_bounds__(WTHREADS)
-bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
-                    const float* __restrict__ dy_sent, const float* __restrict__ dy_pos,
-                    const int* __restrict__ lengths, const float* __restrict__ w_hh_t,
-                    const float* __restrict__ b_hh, const int* __restrict__ order,
-                    float* __restrict__ dxg, float* __restrict__ ghn,
-                    float* __restrict__ scratch, int N, int L, int H) {
+bigru_backward_wide(const T* __restrict__ xg, const T* __restrict__ y,
+                    const T* __restrict__ dy_sent, const T* __restrict__ dy_pos,
+                    const int* __restrict__ lengths, const T* __restrict__ w_hh_t,
+                    const T* __restrict__ b_hh, const int* __restrict__ order, T* dxg,
+                    float* zbuf, float* __restrict__ ghn, float* __restrict__ scratch, int N,
+                    int L, int H) {
   extern __shared__ float4 smem4[];
   __shared__ int row_s[ROWS], len_s[ROWS];
   __shared__ int maxlen_s;
@@ -364,7 +389,7 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
                     : scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 5 * H * ROWS;
   float* gh_s = hp_s + H * ROWS;  // [c][row]
   float* g_s = gh_s + G * ROWS;   // [j][row]: only unit j's owner reads or writes it
-  const float* WT = w_hh_t + (size_t)d * G * H;  // (3H, H)
+  const T* WT = w_hh_t + (size_t)d * G * H;  // (3H, H)
 
   for (int i = tid; i < H * ROWS; i += WTHREADS) g_s[i] = 0.f;
   if (tid < ROWS) load_tile(order, lengths, row0 + tid, N, L, row_s[tid], len_s[tid]);
@@ -379,15 +404,26 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
   const size_t y_stride = 2 * (size_t)H;
   const size_t xg_stride = 6 * (size_t)H;
 
+  // a step's outputs of unit j: dxg (rounded to T), for bf16 the
+  // unrounded [dr | dz] in zbuf, and dn r in ghn
+  auto store = [&](size_t at, int j, float dr, float dz, float dn, float dhn) {
+    T* o = dxg + at * xg_stride + d * G;
+    o[j] = io_from<T>(dr);
+    o[H + j] = io_from<T>(dz);
+    o[2 * H + j] = io_from<T>(dn);
+    if constexpr (is_bf16<T>) {
+      float* zo = zbuf + at * xg_stride + d * G;
+      zo[j] = dr;
+      zo[H + j] = dz;
+    }
+    ghn[at * y_stride + d * H + j] = dhn;
+  };
+
   // steps no row of the tile reaches: dxg = 0, dn r = 0
   for (int t = maxlen; t < L; ++t)
     for (int i = tid; i < ROWS * H; i += WTHREADS) {
-      const int n = row_s[i / H], j = i % H;
-      if (n < 0) continue;
-      const size_t at = (size_t)n * L + t;
-      float* o = dxg + at * xg_stride + d * G;
-      o[j] = o[H + j] = o[2 * H + j] = 0.f;
-      ghn[at * y_stride + d * H + j] = 0.f;
+      const int n = row_s[i / H];
+      if (n >= 0) store((size_t)n * L + t, i % H, 0.f, 0.f, 0.f, 0.f);
     }
 
   for (int s = 0; s < maxlen; ++s) {
@@ -396,13 +432,14 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
     for (int i = tid; i < ROWS * H; i += WTHREADS) {
       const int r = i / H, k = i % H;
       hp_s[k * ROWS + r] = t < len_s[r] && tp >= 0 && tp < len_s[r]
-                               ? y[((size_t)row_s[r] * L + tp) * y_stride + d * H + k]
+                               ? ld(y[((size_t)row_s[r] * L + tp) * y_stride + d * H + k])
                                : 0.f;
     }
     __syncthreads();  // h_prev of every row; every read of the last ghh done
 
     for (int j = tid; j < H; j += WTHREADS) {
-      const float b_r = b_hh[d * G + j], b_z = b_hh[d * G + H + j], b_n = b_hh[d * G + 2 * H + j];
+      const float b_r = ld(b_hh[d * G + j]), b_z = ld(b_hh[d * G + H + j]);
+      const float b_n = ld(b_hh[d * G + 2 * H + j]);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int n = row_s[r];
@@ -411,18 +448,18 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
         if (t < len_s[r]) {
           float hg_r = b_r, hg_z = b_z, hg_n = b_n;
           if (tp >= 0 && tp < len_s[r]) {  // else h_prev = 0: hg = b
-            const float* z = dxg + ((size_t)n * L + tp) * xg_stride + d * G;  // the hg pass's Z
+            const float* z = zbuf + ((size_t)n * L + tp) * xg_stride + d * G;  // the hg pass's Z
             hg_r = z[j] + b_r;
             hg_z = z[H + j] + b_z;
             hg_n = z[2 * H + j] + b_n;
           }
           const size_t at = (size_t)n * L + t;
-          const float* x = xg + at * xg_stride + d * G;
-          const float rg = sigmoid(x[j] + hg_r);
-          const float z = sigmoid(x[H + j] + hg_z);
-          const float nn = tanhf(x[2 * H + j] + rg * hg_n);
+          const T* x = xg + at * xg_stride + d * G;
+          const float rg = sigmoid(ld(x[j]) + hg_r);
+          const float z = sigmoid(ld(x[H + j]) + hg_z);
+          const float nn = tanhf(ld(x[2 * H + j]) + rg * hg_n);
           const size_t o = at * y_stride + d * H + j;
-          g += dy_sent[o] + dy_pos[o];
+          g += round_to<T>(ld(dy_sent[o]) + ld(dy_pos[o]));
           const float hp = hp_s[j * ROWS + r];
           dn = g * (1.f - z) * (1.f - nn * nn);
           dz = g * (hp - nn) * z * (1.f - z);
@@ -430,17 +467,11 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
           dhn = dn * rg;
           g = g * z;  // ghh @ W^T is added below
         }
-        if (n >= 0) {
-          const size_t at = (size_t)n * L + t;
-          float* o = dxg + at * xg_stride + d * G;
-          o[j] = dr;
-          o[H + j] = dz;
-          o[2 * H + j] = dn;
-          ghn[at * y_stride + d * H + j] = dhn;
-        }
-        gh_s[j * ROWS + r] = dr;
-        gh_s[(H + j) * ROWS + r] = dz;
-        gh_s[(2 * H + j) * ROWS + r] = dhn;
+        if (n >= 0) store((size_t)n * L + t, j, dr, dz, dn, dhn);
+        // ghh as the product's operand (bf16: rounded)
+        gh_s[j * ROWS + r] = round_to<T>(dr);
+        gh_s[(H + j) * ROWS + r] = round_to<T>(dz);
+        gh_s[(2 * H + j) * ROWS + r] = round_to<T>(dhn);
         g_s[j * ROWS + r] = g;
       }
     }
@@ -455,7 +486,7 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
       for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 8
       for (int c = 0; c < G; ++c) {
-        const float w = __ldg(WT + (size_t)c * H + j);
+        const float w = ld(__ldg(WT + (size_t)c * H + j));
         const float4* g4 = reinterpret_cast<const float4*>(gh_s + c * ROWS);
 #pragma unroll
         for (int q = 0; q < ROWS / 4; ++q) {
@@ -475,33 +506,19 @@ bigru_backward_wide(const float* __restrict__ xg, const float* __restrict__ y,
   }
 }
 
-}  // namespace
-
-// xg (N, L, 6H), y (N, L, 2H), dy_sent and dy_pos (N, L, 2H) by address,
-// lengths (N,) int32, w_hh (2, H, 3H), b_hh (2, 3H) -> dxg (N, L, 6H), dw
-// (2, H, 3H) and db (2, 3H): f32, contiguous, on the device, any H >= 1.
-// Scratch: ghn (N, L, 2H); order (N,) int32; the partials dw_part
-// (chunks, 2, H, 3H) and db_part (chunks, 2, 3H), chunks = ceil(N*L /
-// chunk_rows) (1 when N*L = 0), chunk_rows a positive multiple of 32; past
-// H = 128, w_hh_t = w_hh transposed (2, 3H, H) and scratch
-// bigru_backward_scratch(N, H) floats (may be null where that is 0), else
-// both unused.  Launches the hg pass, the row order, the sweep and the dW
-// pass (two kernels) on `stream`; returns the first failure's
-// cudaError_t.
-extern "C" int bigru_backward(const float* xg, const float* y, const float* dy_sent,
-                              const float* dy_pos, const int* lengths, const float* w_hh,
-                              const float* w_hh_t, const float* b_hh, float* dxg, float* ghn,
-                              int* order, float* scratch, float* dw_part, float* db_part,
-                              float* dw, float* db, int N, int L, int H, int chunk_rows,
-                              void* stream) {
+template <class T>
+int run(const T* xg, const T* y, const T* dy_sent, const T* dy_pos, const int* lengths,
+        const T* w_hh, const T* w_hh_t, const T* b_hh, T* dxg, float* zbuf, float* ghn,
+        int* order, float* scratch, float* dw_part, float* db_part, float* dw, float* db, int N,
+        int L, int H, int chunk_rows, void* stream) {
   if (H <= 0 || N < 0 || L < 0 || (long long)N * L > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = N * L;
   cudaError_t err;
   if (M > 0) {
-    // (a) Z_d = y_d @ W_hh[d] into dxg's direction halves
-    const int e = hg::launch(y, w_hh, dxg, M, H, s);
+    // (a) Z_d = y_d @ W_hh[d] into zbuf's direction halves
+    const int e = hg::launch(y, w_hh, zbuf, M, H, s);
     if (e != 0) return e;
     // (b) the sweep, its rows longest first (row_order.cuh)
     const int o = row_order::launch(lengths, order, N, L, s);
@@ -509,34 +526,69 @@ extern "C" int bigru_backward(const float* xg, const float* y, const float* dy_s
     const SweepShape sh = sweep_shape(H);
     const dim3 grid((N + ROWS - 1) / ROWS, 2);
     if (sh.KS > 0) {
-      auto kernel = bigru_backward_sweep<4, 1>;
+      auto kernel = bigru_backward_sweep<4, 1, T>;
       switch (sh.KS) {
-        case 16: kernel = bigru_backward_sweep<8, 16>; break;
-        case 8: kernel = bigru_backward_sweep<8, 8>; break;
-        case 4: kernel = bigru_backward_sweep<8, 4>; break;
-        case 2: kernel = bigru_backward_sweep<8, 2>; break;
+        case 16: kernel = bigru_backward_sweep<8, 16, T>; break;
+        case 8: kernel = bigru_backward_sweep<8, 8, T>; break;
+        case 4: kernel = bigru_backward_sweep<8, 4, T>; break;
+        case 2: kernel = bigru_backward_sweep<8, 2, T>; break;
         default: break;
       }
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)sh.smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       kernel<<<grid, sh.threads, sh.smem, s>>>(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh, order,
-                                               dxg, ghn, N, L, H, sh.BS, sh.GP);
+                                               dxg, zbuf, ghn, N, L, H, sh.BS, sh.GP);
     } else {
       const bool shared = wide_state_bytes(H) <= SMEM_LIMIT;
       if (!shared && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
       const size_t smem = shared ? wide_state_bytes(H) : 0;
-      err = cudaFuncSetAttribute(bigru_backward_wide,
+      err = cudaFuncSetAttribute(bigru_backward_wide<T>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      bigru_backward_wide<<<grid, WTHREADS, smem, s>>>(xg, y, dy_sent, dy_pos, lengths, w_hh_t,
-                                                       b_hh, order, dxg, ghn,
-                                                       shared ? nullptr : scratch, N, L, H);
+      bigru_backward_wide<T><<<grid, WTHREADS, smem, s>>>(xg, y, dy_sent, dy_pos, lengths,
+                                                          w_hh_t, b_hh, order, dxg, zbuf, ghn,
+                                                          shared ? nullptr : scratch, N, L, H);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   // (c) dW_hh, db_hh over the rows' chunks, then their fixed-order sum
-  return dw::launch(y, dxg, ghn, dw_part, db_part, dw, db, M, L, H, chunk_rows, s);
+  return dw::launch(y, zbuf, ghn, dw_part, db_part, dw, db, M, L, H, chunk_rows, s);
+}
+
+}  // namespace
+
+// xg (N, L, 6H), y (N, L, 2H), dy_sent and dy_pos (N, L, 2H) by address,
+// lengths (N,) int32, w_hh (2, H, 3H), b_hh (2, 3H) -> dxg (N, L, 6H), dw
+// (2, H, 3H) and db (2, 3H): contiguous, on the device, any H >= 1; f32
+// (bigru_backward) or, but for dw and db (f32), bf16
+// (bigru_backward_bf16).  Scratch: zbuf (N, L, 6H) f32, dxg itself for
+// f32; ghn (N, L, 2H) f32; order (N,) int32; the partials dw_part (chunks,
+// 2, H, 3H) and db_part (chunks, 2, 3H), chunks = ceil(N*L / chunk_rows)
+// (1 when N*L = 0), chunk_rows a positive multiple of 32; past H = 128,
+// w_hh_t = w_hh transposed (2, 3H, H) and scratch
+// bigru_backward_scratch(N, H) floats (may be null where that is 0), else
+// both unused.  Launches the hg pass, the row order, the sweep and the dW
+// pass (two kernels) on `stream`; returns the first failure's
+// cudaError_t.
+extern "C" int bigru_backward(const float* xg, const float* y, const float* dy_sent,
+                              const float* dy_pos, const int* lengths, const float* w_hh,
+                              const float* w_hh_t, const float* b_hh, float* dxg, float* zbuf,
+                              float* ghn, int* order, float* scratch, float* dw_part,
+                              float* db_part, float* dw, float* db, int N, int L, int H,
+                              int chunk_rows, void* stream) {
+  return run(xg, y, dy_sent, dy_pos, lengths, w_hh, w_hh_t, b_hh, dxg, zbuf, ghn, order, scratch,
+             dw_part, db_part, dw, db, N, L, H, chunk_rows, stream);
+}
+
+extern "C" int bigru_backward_bf16(const bf16* xg, const bf16* y, const bf16* dy_sent,
+                                   const bf16* dy_pos, const int* lengths, const bf16* w_hh,
+                                   const bf16* w_hh_t, const bf16* b_hh, bf16* dxg, float* zbuf,
+                                   float* ghn, int* order, float* scratch, float* dw_part,
+                                   float* db_part, float* dw, float* db, int N, int L, int H,
+                                   int chunk_rows, void* stream) {
+  return run(xg, y, dy_sent, dy_pos, lengths, w_hh, w_hh_t, b_hh, dxg, zbuf, ghn, order, scratch,
+             dw_part, db_part, dw, db, N, L, H, chunk_rows, stream);
 }
 
 // floats of the scratch the wide sweep needs at (N, H): 0 up to H = 128

@@ -17,7 +17,10 @@
 // shifted, masked third; both directions run in one grid; a warpgroup
 // whose 64 rows of dW^T lie past 3H (the second half of 3H = 192's last
 // tile) skips its products.  The reduce kernel sums the partials in chunk
-// order.  No float atomics: the same bits on every run.
+// order.  No float atomics: the same bits on every run.  bf16 IO: y (and
+// its stage tiles) is bf16, ghh stays the sweep's unrounded f32; the
+// product rounds ghh to bf16 (the TPU kernel's dot of ghh.astype(bf16))
+// and takes one TF32 wgmma a k-step, db sums the unrounded ghh.
 
 #pragma once
 
@@ -37,7 +40,9 @@ constexpr int STAGES = 3;
 constexpr int GS = BG + 8;    // ghh stage row stride, in floats
 constexpr int XT = EW * 8;    // floats of one k-step's h_prev tile (big or small)
 constexpr int XB = STEP / 8 * 2 * XT;  // floats of one stage's split h_prev
-constexpr size_t SMEM = ((size_t)2 * XB + (size_t)STAGES * STEP * (GS + EW)) * sizeof(float);
+template <class T>
+constexpr size_t SMEM =
+    ((size_t)2 * XB + (size_t)STAGES * STEP * GS) * sizeof(float) + (size_t)STAGES * STEP * EW * sizeof(T);
 constexpr int MAX_CHUNKS = 65535;  // grid z: 79.7 million rows at 1,216 a chunk
 
 // Chunk blockIdx.z of direction d into its partials dw_part [chunk][d][H]
@@ -45,15 +50,16 @@ constexpr int MAX_CHUNKS = 65535;  // grid z: 79.7 million rows at 1,216 a chunk
 // and E tile e_tile: N = 8 * (column groups of H), 64 or 56.  The
 // partials' addresses are formed only at the end (live across the stages
 // they would hold registers).
-template <int N>
-__device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
+template <int N, class T>
+__device__ __forceinline__ void reduce_chunk(const T* __restrict__ y,
                                              const float* __restrict__ dxg,
                                              const float* __restrict__ ghn,
                                              float* __restrict__ dw_part,
                                              float* __restrict__ db_part, int M, int L, int H,
-                                             int rows_per_chunk, int d, int e_tile, bool vec,
-                                             float* smem) {
+                                             int rows_per_chunk, int d, int e_tile, bool vec_g,
+                                             bool vec_y, float* smem) {
   constexpr int NG = N / 8;
+  constexpr int PER = 16 / sizeof(T);  // elements of a 16-byte copy of y
   const int G = 3 * H;
   y += d * H;        // row stride 2H
   dxg += d * G;      // row stride 6H: [dr | dz] in its first 2H columns
@@ -62,7 +68,7 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
   const int first = d == 0 ? 0 : L - 1;  // the step whose h_prev is 0
   float* xb = smem;                         // [2][STEP / 8][big, small][XT]
   float* gs = xb + 2 * XB;                  // [STAGES][STEP][GS]
-  float* xs = gs + STAGES * STEP * GS;      // [STAGES][STEP][EW]
+  T* xs = reinterpret_cast<T*>(gs + STAGES * STEP * GS);  // [STAGES][STEP][EW]
   const int tid = threadIdx.x, wg = tid / 128;
   const int warp = (tid / 32) % 4, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
   const int g0 = blockIdx.x * BG;
@@ -72,47 +78,57 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
   const int m_begin = min(M, chunk * rows_per_chunk);
   const int m_end = min(M, m_begin + rows_per_chunk);
   const int n_stages = (m_end - m_begin + STEP - 1) / STEP;
-  // a stage's rows of ghh (this tile's BG columns) and of h_prev (EW
-  // columns), Q floats a copy (2H % 4 == 0 when Q = 4: a group of 4 lies
-  // wholly in dxg's [dr | dz] or in ghn)
-  auto copy = [&](auto q_, int s) {
-    constexpr int Q = decltype(q_)::value;
+  // a stage's rows of ghh (this tile's BG columns), QG floats a copy (2H %
+  // 4 == 0 when QG = 4: a group of 4 lies wholly in dxg's [dr | dz] or in
+  // ghn), and of h_prev (EW columns), QY elements a copy (16 bytes, or
+  // one element: 4-byte cp.async for f32, a plain copy for bf16)
+  auto copy = [&](auto qg_, auto qy_, int s) {
+    constexpr int QG = decltype(qg_)::value, QY = decltype(qy_)::value;
     const int m0 = m_begin + s * STEP, rows = min(STEP, m_end - m0);
     float* gd = gs + (s % STAGES) * STEP * GS;
-    for (int i = tid; i < rows * (BG / Q); i += THREADS) {
-      const int r = i / (BG / Q), c = Q * (i % (BG / Q)), gc = g0 + c;
+    for (int i = tid; i < rows * (BG / QG); i += THREADS) {
+      const int r = i / (BG / QG), c = QG * (i % (BG / QG)), gc = g0 + c;
       if (gc >= G) continue;
       const size_t m = (size_t)m0 + r;
       const float* src = gc < 2 * H ? dxg + m * 6 * H + gc : ghn + m * 2 * H + (gc - 2 * H);
-      if (Q == 4)
+      if (QG == 4)
         cp_async16(gd + r * GS + c, src);
       else
         cp_async4(gd + r * GS + c, src);
     }
-    float* xd = xs + (s % STAGES) * STEP * EW;
+    T* xd = xs + (s % STAGES) * STEP * EW;
     const int ew = min(EW, H - e0);
-    for (int i = tid; i < rows * (EW / Q); i += THREADS) {
-      const int r = i / (EW / Q), c = Q * (i % (EW / Q));
+    for (int i = tid; i < rows * (EW / QY); i += THREADS) {
+      const int r = i / (EW / QY), c = QY * (i % (EW / QY));
       const int p = m0 + r + shift;
       if (c >= ew || p < 0 || p >= M) continue;  // rows out of range are masked below
-      const float* src = y + (size_t)p * 2 * H + e0 + c;
-      if (Q == 4)
+      const T* src = y + (size_t)p * 2 * H + e0 + c;
+      if constexpr (QY > 1)
         cp_async16(xd + r * EW + c, src);
+      else if constexpr (is_bf16<T>)
+        xd[r * EW + c] = *src;
       else
         cp_async4(xd + r * EW + c, src);
     }
   };
   auto load = [&](int s) {
-    if (vec)
-      copy(std::integral_constant<int, 4>(), s);
+    using std::integral_constant;
+    if (vec_y && vec_g)
+      copy(integral_constant<int, 4>(), integral_constant<int, PER>(), s);
+    else if (vec_g)
+      copy(integral_constant<int, 4>(), integral_constant<int, 1>(), s);
     else
-      copy(std::integral_constant<int, 1>(), s);
+      copy(integral_constant<int, 1>(), integral_constant<int, 1>(), s);
   };
 
   // lo (the two small cross terms) and hi (big*big) over the whole chunk:
   // two chains the tensor core runs side by side, never waited for but to
   // reuse a register set or a buffer
   float lo[N / 2], hi[N / 2];
+  if constexpr (is_bf16<T>) {  // no cross terms: lo stays 0
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) lo[i] = 0.f;
+  }
   // db of this thread's rows g, g + 8 over its fragments' rows of ghh,
   // summed from the A fragments in plain f32 adds, in a fixed order
   float db_acc[2] = {0.f, 0.f};
@@ -139,7 +155,7 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
     // on rows past the chunk, masked rows and columns past H.  Item i: the
     // 4 stage rows 4 j .. 4 j + 3 of column n, one 16-byte store per part.
     float* xbs = xb + (s & 1) * XB;
-    const float* xt = xs + (s % STAGES) * STEP * EW;
+    const T* xt = xs + (s % STAGES) * STEP * EW;
     for (int i = tid; i < STEP / 4 * N; i += THREADS) {
       const int n = i % N, j = i / N;
       const bool in = e0 + n < H;
@@ -147,7 +163,7 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int k = 4 * j + r;
-        split(in && k < rows && !(masked >> k & 1u) ? xt[k * EW + n] : 0.f, big[r], small[r]);
+        split(in && k < rows && !(masked >> k & 1u) ? ld(xt[k * EW + n]) : 0.f, big[r], small[r]);
       }
       float* tb = xbs + (j >> 1) * 2 * XT + b_offset(n, (4 * j) & 7);
       *reinterpret_cast<uint4*>(tb) = make_uint4(big[0], big[1], big[2], big[3]);
@@ -169,18 +185,19 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
       db_acc[0] += a2;
       db_acc[1] += a1;
       db_acc[1] += a3;
-      split(a0, ah[0], al[0]);
-      split(a1, ah[1], al[1]);
-      split(a2, ah[2], al[2]);
-      split(a3, ah[3], al[3]);
+      // the product's operand: bf16 rounds ghh, db keeps it unrounded
+      split(round_to<T>(a0), ah[0], al[0]);
+      split(round_to<T>(a1), ah[1], al[1]);
+      split(round_to<T>(a2), ah[2], al[2]);
+      split(round_to<T>(a3), ah[3], al[3]);
     };
     auto issue = [&](int ks, const uint32_t(&ah)[4], const uint32_t(&al)[4]) {
       const float* tb = xbs + ks * 2 * XT;
       const int add = s > 0 || ks > 0;
       wgmma_fence();
-      Wgmma<N>::run(lo, al, b_desc(tb), add);
+      if constexpr (!is_bf16<T>) Wgmma<N>::run(lo, al, b_desc(tb), add);
       Wgmma<N>::run(hi, ah, b_desc(tb), add);
-      Wgmma<N>::run(lo, ah, b_desc(tb + XT), 1);
+      if constexpr (!is_bf16<T>) Wgmma<N>::run(lo, ah, b_desc(tb + XT), 1);
       wgmma_commit();
     };
     uint32_t ah0[4], al0[4], ah1[4], al1[4];
@@ -233,21 +250,23 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ y,
   }
 }
 
-// vec: 16-byte copies (H % 4 == 0, the tensors 16-byte aligned)
+// vec_g: 16-byte copies of ghh (H % 4 == 0, dxg and ghn 16-byte
+// aligned); vec_y: of y (16 bytes' elements divide H, y 16-byte aligned)
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-bigru_backward_dw(const float* __restrict__ y, const float* __restrict__ dxg,
+bigru_backward_dw(const T* __restrict__ y, const float* __restrict__ dxg,
                   const float* __restrict__ ghn, float* __restrict__ dw_part,
                   float* __restrict__ db_part, int M, int L, int H, int rows_per_chunk,
-                  int e_tiles, bool vec) {
+                  int e_tiles, bool vec_g, bool vec_y) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int d = blockIdx.y / e_tiles, e_tile = blockIdx.y % e_tiles;
   if (H - e_tile * EW > 56)
-    reduce_chunk<64>(y, dxg, ghn, dw_part, db_part, M, L, H, rows_per_chunk, d, e_tile, vec,
-                     smem);
+    reduce_chunk<64>(y, dxg, ghn, dw_part, db_part, M, L, H, rows_per_chunk, d, e_tile, vec_g,
+                     vec_y, smem);
   else
-    reduce_chunk<56>(y, dxg, ghn, dw_part, db_part, M, L, H, rows_per_chunk, d, e_tile, vec,
-                     smem);
+    reduce_chunk<56>(y, dxg, ghn, dw_part, db_part, M, L, H, rows_per_chunk, d, e_tile, vec_g,
+                     vec_y, smem);
 }
 
 // dw (n) = the sum over chunks of dw_part[c] (n floats each), db (G)
@@ -276,26 +295,28 @@ bigru_backward_reduce(const float* __restrict__ dw_part, const float* __restrict
   if (i < EG + G && j == 0) *dst = sum;
 }
 
-// Both kernels on `stream`: y (M, 2H), dxg (M, 6H), ghn (M, 2H) -> dw
+// Both kernels on `stream`: y (M, 2H) in T, dxg (M, 6H), ghn (M, 2H) -> dw
 // (2, H, 3H), db (2, 3H) through the partials dw_part (chunks, 2, H, 3H)
 // and db_part (chunks, 2, 3H), chunks = ceil(M / rows_per_chunk) (1 when
 // M = 0), rows_per_chunk a positive multiple of STEP.  Returns the first
 // failure's cudaError_t (0 = success).
-inline int launch(const float* y, const float* dxg, const float* ghn, float* dw_part,
-                  float* db_part, float* dw, float* db, int M, int L, int H,
-                  int rows_per_chunk, cudaStream_t s) {
+template <class T>
+int launch(const T* y, const float* dxg, const float* ghn, float* dw_part, float* db_part,
+           float* dw, float* db, int M, int L, int H, int rows_per_chunk, cudaStream_t s) {
   if (rows_per_chunk <= 0 || rows_per_chunk % STEP != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = M > 0 ? (M + rows_per_chunk - 1) / rows_per_chunk : 1;
   if (chunks > MAX_CHUNKS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      bigru_backward_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
+  cudaError_t err = cudaFuncSetAttribute(bigru_backward_dw<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(SMEM<T>));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = 3 * H, e_tiles = (H + EW - 1) / EW;
-  const bool vec = H % 4 == 0 && ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(dxg) |
-                                   reinterpret_cast<uintptr_t>(ghn)) & 15) == 0;
-  bigru_backward_dw<<<dim3((G + BG - 1) / BG, 2 * e_tiles, chunks), THREADS, SMEM, s>>>(
-      y, dxg, ghn, dw_part, db_part, M, L, H, rows_per_chunk, e_tiles, vec);
+  const bool vec_g = H % 4 == 0 && ((reinterpret_cast<uintptr_t>(dxg) |
+                                     reinterpret_cast<uintptr_t>(ghn)) & 15) == 0;
+  const bool vec_y = H % (16 / sizeof(T)) == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  bigru_backward_dw<T><<<dim3((G + BG - 1) / BG, 2 * e_tiles, chunks), THREADS, SMEM<T>, s>>>(
+      y, dxg, ghn, dw_part, db_part, M, L, H, rows_per_chunk, e_tiles, vec_g, vec_y);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int EG = 2 * H * G, PG = 2 * G;
   const long long n = (long long)(EG + PG) * REDUCE_LANES;

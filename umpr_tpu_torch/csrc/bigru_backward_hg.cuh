@@ -16,7 +16,9 @@
 //     adding its product to Z in f32), so W's slice and the ring fit the
 //     shared memory at any H.
 // Each output element is computed by one thread in a fixed order, so the
-// bits do not depend on the grid or on the run.
+// bits do not depend on the grid or on the run.  bf16 IO: y and W_hh are
+// bf16 (y's tiles in shared memory too), Z stays f32, and each k-step is
+// one TF32 wgmma (a bf16 value is exact in TF32: its small part is 0).
 
 #pragma once
 
@@ -35,32 +37,35 @@ constexpr int BN = 64;     // columns of a block (wgmma n)
 constexpr int WT = BN * 8;  // floats of one k-step's W tile (big or small)
 constexpr int KC = 128;    // the depth of one launch
 
-inline size_t smem_bytes(int K) {
-  return ((size_t)(K + 7) / 8 * 2 * WT + (size_t)WGS * 2 * BM * K) * sizeof(float);
+template <class T>
+size_t smem_bytes(int K) {
+  return (size_t)(K + 7) / 8 * 2 * WT * sizeof(float) + (size_t)WGS * 2 * BM * K * sizeof(T);
 }
 
 // the A fragment of k-step ks (columns 8 ks + tig, + 4) of rows p0, p8 of
 // an x tile in shared memory, split; zeros past K
-__device__ __forceinline__ void split_a(const float* p0, const float* p8, int ks, int K, int tig,
+template <class T>
+__device__ __forceinline__ void split_a(const T* p0, const T* p8, int ks, int K, int tig,
                                         uint32_t (&ah)[4], uint32_t (&al)[4]) {
   const int k0 = ks * 8 + tig, k1 = k0 + 4;
   const bool v0 = k0 < K, v1 = k1 < K;
-  split(v0 ? p0[k0] : 0.f, ah[0], al[0]);
-  split(v0 ? p8[k0] : 0.f, ah[1], al[1]);
-  split(v1 ? p0[k1] : 0.f, ah[2], al[2]);
-  split(v1 ? p8[k1] : 0.f, ah[3], al[3]);
+  split(v0 ? ld(p0[k0]) : 0.f, ah[0], al[0]);
+  split(v0 ? ld(p8[k0]) : 0.f, ah[1], al[1]);
+  split(v1 ? ld(p0[k1]) : 0.f, ah[2], al[2]);
+  split(v1 ? ld(p8[k1]) : 0.f, ah[3], al[3]);
 }
 
 // out[m][n] (+)= sum_k x[m][k] w[k][n] over this launch's K (<= KC) of
 // direction blockIdx.z: x at row stride lda (+ z * x_z), w (K, N) at row
 // stride N (+ z * w_z), out at row stride ldo (+ z * out_z).  add: add to out (a later depth chunk).
 // vec: 16-byte copies of x (x 16-byte aligned, K, lda and x_z multiples of
-// 4); pairs: 8-byte stores of out (N, ldo and out_z even).
+// 16 bytes' elements); pairs: 8-byte stores of out (N, ldo and out_z even).
+template <class T>
 __global__ void __launch_bounds__(WG * WGS, 1)
-bigru_backward_hg(const float* __restrict__ x, const float* __restrict__ w,
-                  float* __restrict__ out, int M, int K, int N, int lda, int ldo,
-                  long long x_z, long long w_z, long long out_z, bool add, bool vec,
-                  bool pairs) {
+bigru_backward_hg(const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ out,
+                  int M, int K, int N, int lda, int ldo, long long x_z, long long w_z,
+                  long long out_z, bool add, bool vec, bool pairs) {
+  constexpr int PER = 16 / sizeof(T);  // elements of a 16-byte copy
   extern __shared__ float4 smem4[];
   x += blockIdx.z * x_z;
   w += blockIdx.z * w_z;
@@ -69,25 +74,28 @@ bigru_backward_hg(const float* __restrict__ x, const float* __restrict__ w,
   float* wt = reinterpret_cast<float*>(smem4);  // [KS][big, small][WT]
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
   const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
-  float* ring = wt + KS * 2 * WT + wg * 2 * BM * K;  // this warpgroup's [2][BM * K]
+  T* ring = reinterpret_cast<T*>(wt + KS * 2 * WT) + wg * 2 * BM * K;  // this warpgroup's [2][BM * K]
   const int col0 = blockIdx.x * BN;
   const int walkers = gridDim.y * WGS;
   const int m_tiles = (M + BM - 1) / BM;
 
   // a tile's rows of x into the ring (row stride K)
-  auto copy_tile = [&](float* dst, int tile) {
-    const float* src = x + (size_t)tile * BM * lda;
+  auto copy_tile = [&](T* dst, int tile) {
+    const T* src = x + (size_t)tile * BM * lda;
     const int rows = min(BM, M - tile * BM);
     if (vec) {
-      const int k4 = K >> 2;
-      for (int i = t; i < rows * k4; i += WG) {
-        const int r = i / k4, c = 4 * (i % k4);
+      const int kq = K / PER;
+      for (int i = t; i < rows * kq; i += WG) {
+        const int r = i / kq, c = PER * (i % kq);
         cp_async16(dst + r * K + c, src + (size_t)r * lda + c);
       }
     } else {
       for (int i = t; i < rows * K; i += WG) {
         const int r = i / K, c = i % K;
-        cp_async4(dst + r * K + c, src + (size_t)r * lda + c);
+        if constexpr (is_bf16<T>)
+          dst[r * K + c] = src[(size_t)r * lda + c];  // no 2-byte cp.async
+        else
+          cp_async4(dst + r * K + c, src + (size_t)r * lda + c);
       }
     }
   };
@@ -105,7 +113,7 @@ bigru_backward_hg(const float* __restrict__ x, const float* __restrict__ w,
     const int ks = (i >> 5) / (BN / 4);
     const int k = ks * 8 + kh * 4 + (l & 3), n = ng * 8 + (l >> 2);
     uint32_t big, small;
-    split(k < K && col0 + n < N ? w[(size_t)k * N + col0 + n] : 0.f, big, small);
+    split(k < K && col0 + n < N ? ld(w[(size_t)k * N + col0 + n]) : 0.f, big, small);
     float* tb = wt + ks * 2 * WT + b_offset(n, k & 7);
     tb[0] = __uint_as_float(big);
     tb[WT] = __uint_as_float(small);
@@ -123,8 +131,8 @@ bigru_backward_hg(const float* __restrict__ x, const float* __restrict__ w,
 
     // rows past M hold stale values: they reach only their own outputs,
     // which are not stored
-    const float* p0 = ring + (it & 1) * BM * K + r0 * K;
-    const float* p8 = p0 + 8 * K;
+    const T* p0 = ring + (it & 1) * BM * K + r0 * K;
+    const T* p8 = p0 + 8 * K;
     // hi: big*big of a pair of k-steps, added to sum in f32; lo: the two
     // small cross terms over the whole depth
     float hi[BN / 2], lo[BN / 2], sum[BN / 2];
@@ -134,9 +142,9 @@ bigru_backward_hg(const float* __restrict__ x, const float* __restrict__ w,
     auto issue = [&](int ks, const uint32_t(&ah)[4], const uint32_t(&al)[4]) {
       const float* tb = wt + ks * 2 * WT;
       wgmma_fence();
-      Wgmma<BN>::run(lo, al, b_desc(tb), 1);
+      if constexpr (!is_bf16<T>) Wgmma<BN>::run(lo, al, b_desc(tb), 1);
       Wgmma<BN>::run(hi, ah, b_desc(tb), ks & 1);
-      Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
+      if constexpr (!is_bf16<T>) Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
       wgmma_commit();
     };
     split_a(p0, p8, 0, K, tig, ah0, al0);
@@ -182,23 +190,24 @@ bigru_backward_hg(const float* __restrict__ x, const float* __restrict__ w,
   cp_async_wait<0>();  // the last committed group is empty; leave none behind
 }
 
-// Z_d = y_d @ W_hh[d], d = 0, 1: y (M, 2H), w_hh (2, H, 3H), z in dxg's
-// layout (M, 6H).  One launch per depth chunk of KC, on `stream`; returns
-// the first failure's cudaError_t (0 = success).
-inline int launch(const float* y, const float* w_hh, float* z, int M, int H,
-                  cudaStream_t stream) {
+// Z_d = y_d @ W_hh[d], d = 0, 1: y (M, 2H), w_hh (2, H, 3H) in T, z f32 in
+// dxg's layout (M, 6H).  One launch per depth chunk of KC, on `stream`;
+// returns the first failure's cudaError_t (0 = success).
+template <class T>
+int launch(const T* y, const T* w_hh, float* z, int M, int H, cudaStream_t stream) {
   if (M == 0) return 0;
+  constexpr int PER = 16 / sizeof(T);
   const int G = 3 * H, K = std::min(H, KC);
-  const size_t smem = smem_bytes(K);
+  const size_t smem = smem_bytes<T>(K);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_backward_hg, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      bigru_backward_hg<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bigru_backward_hg, WG * WGS,
-                                                           smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bigru_backward_hg<T>,
+                                                           WG * WGS, smem)) != cudaSuccess)
     return static_cast<int>(err);
   const int col_tiles = (G + BN - 1) / BN;
   const int m_tiles = (M + BM - 1) / BM;
@@ -206,13 +215,14 @@ inline int launch(const float* y, const float* w_hh, float* z, int M, int H,
   const int walkers = std::max(1, std::min((m_tiles + WGS - 1) / WGS,
                                            (std::max(per_sm, 1) * sms + 2 * col_tiles - 1) /
                                                (2 * col_tiles)));
-  const bool vec = H % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  // y's rows start every 2H elements, its bwd half H further on
+  const bool vec = H % PER == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
   const bool pairs = G % 2 == 0 && (reinterpret_cast<uintptr_t>(z) & 7) == 0;
   for (int k0 = 0; k0 < H; k0 += KC) {
     const int kc = std::min(KC, H - k0);
-    bigru_backward_hg<<<dim3(col_tiles, walkers, 2), WG * WGS, smem, stream>>>(
+    bigru_backward_hg<T><<<dim3(col_tiles, walkers, 2), WG * WGS, smem, stream>>>(
         y + k0, w_hh + (size_t)k0 * G, z, M, kc, G, 2 * H, 6 * H, H, (long long)H * G, G,
-        k0 > 0, vec && kc % 4 == 0, pairs);
+        k0 > 0, vec && kc % PER == 0, pairs);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

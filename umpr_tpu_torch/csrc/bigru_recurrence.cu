@@ -56,16 +56,42 @@
 // reads (4 per 12 FMAs) and the issue slots of the few warps an SM holds
 // bound it.  Tensor-core (mma) steps are later work.
 //
+// bf16 IO (bigru_recurrence_bf16, --compute_dtype bfloat16): xg, W_hh,
+// b_hh and y in bf16, the carried state and the gate math in f32, and the
+// state rounded to bf16 only as the operand of h @ W_hh, as the TPU
+// kernel's bf16 path does (_fwd_step: dot(h.astype(bf16), W) with f32
+// accumulation); W_hh is widened into shared memory once, the shared
+// state holds the rounded operand, each thread its rows' f32 state.
+//
 // Any H: this shared-memory kernel takes H <= 128 (W_hh fits: 192 KB at
 // H = 128); past that a wide kernel (below) keeps W_hh in L2 and lets each
 // thread own whole hidden units of all 16 rows, as the JAX package's
 // bigru_scan takes any gru_size.
 
 #include "row_order.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using row_order::load_tile;
+using tf32x3::bf16;
+using tf32x3::io_from;
+using tf32x3::is_bf16;
+using tf32x3::ld;
+using tf32x3::round_to;
+using tf32x3::store_pair;
+
+// two neighbouring elements of xg (8- or 4-byte aligned) as floats
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load_pair(const bf16* p, float& a, float& b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = v.x;
+  b = v.y;
+}
 
 constexpr int ROWS = 16;         // sentence rows per block
 constexpr int HS = ROWS + 4;     // floats per k of the state h^T (16 rows, padded)
@@ -94,12 +120,11 @@ size_t smem_bytes(int H, Tile t) {
 
 int smem_threads(int H, Tile t) { return padded_h(H, t.TU) / t.TU * (ROWS / t.TR); }
 
-template <int TU, int TR>
+template <int TU, int TR, class T>
 __global__ void __launch_bounds__(MAX_THREADS)
-bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ lengths,
-                        const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-                        const int* __restrict__ order, float* __restrict__ y, int N, int L,
-                        int H) {
+bigru_recurrence_kernel(const T* __restrict__ xg, const int* __restrict__ lengths,
+                        const T* __restrict__ w_hh, const T* __restrict__ b_hh,
+                        const int* __restrict__ order, T* __restrict__ y, int N, int L, int H) {
   extern __shared__ float4 smem4[];
   __shared__ int row_s[ROWS], len_s[ROWS];
 
@@ -114,14 +139,15 @@ bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ le
   const int r0 = grp * TR;   // this thread's tile rows r0 .. r0 + TR - 1
 
   // W_hh[d]: [k][3H] is [k][gate][H]; 16-byte copies where H % 4 == 0
-  const float* W = w_hh + (size_t)d * H * G;
-  if (H % 4 == 0) {
+  // (f32), else (and bf16, widened) an element at a time
+  const T* W = w_hh + (size_t)d * H * G;
+  if (H % 4 == 0 && !is_bf16<T>) {
     const float4* src = reinterpret_cast<const float4*>(W);
     for (int i = tid; i < H * G / 4; i += blockDim.x) smem4[i] = __ldg(src + i);
   } else {
     for (int i = tid; i < 3 * H * HP; i += blockDim.x) {
       const int j = i % HP;
-      w_s[i] = j < H ? W[(size_t)(i / HP) * H + j] : 0.f;
+      w_s[i] = j < H ? ld(W[(size_t)(i / HP) * H + j]) : 0.f;
     }
   }
   for (int i = tid; i < HP * HS; i += blockDim.x) h_s[i] = 0.f;  // buffer 0: h = 0
@@ -136,7 +162,7 @@ bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ le
 #pragma unroll
   for (int gt = 0; gt < 3; ++gt)
 #pragma unroll
-    for (int u = 0; u < TU; ++u) b[gt][u] = j0 + u < H ? b_hh[d * G + gt * H + j0 + u] : 0.f;
+    for (int u = 0; u < TU; ++u) b[gt][u] = j0 + u < H ? ld(b_hh[d * G + gt * H + j0 + u]) : 0.f;
   int row[TR], len[TR];
   float h[TR][TU];
 #pragma unroll
@@ -149,16 +175,16 @@ bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ le
   const size_t y_stride = 2 * (size_t)H;
   const size_t xg_stride = 6 * (size_t)H;
   auto store_y = [&](int i, int t, const float (&v)[TU]) {
-    float* o = y + ((size_t)row[i] * L + t) * y_stride + d * H + j0;
+    T* o = y + ((size_t)row[i] * L + t) * y_stride + d * H + j0;
     if constexpr (TU == 2) {
       if (vec) {
-        *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+        store_pair(o, v[0], v[1]);
         return;
       }
     }
 #pragma unroll
     for (int u = 0; u < TU; ++u)
-      if (j0 + u < H) o[u] = v[u];
+      if (j0 + u < H) o[u] = io_from<T>(v[u]);
   };
 
   // positions past the tile's longest row: exact zeros
@@ -178,20 +204,18 @@ bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ le
 #pragma unroll
         for (int u = 0; u < TU; ++u) x[i][gt][u] = 0.f;
       if (t >= len[i]) continue;
-      const float* p = xg + ((size_t)row[i] * L + t) * xg_stride + d * G + j0;
+      const T* p = xg + ((size_t)row[i] * L + t) * xg_stride + d * G + j0;
 #pragma unroll
       for (int gt = 0; gt < 3; ++gt) {
         if constexpr (TU == 2) {
           if (vec) {
-            const float2 v = *reinterpret_cast<const float2*>(p + gt * H);
-            x[i][gt][0] = v.x;
-            x[i][gt][1] = v.y;
+            load_pair(p + gt * H, x[i][gt][0], x[i][gt][1]);
             continue;
           }
         }
 #pragma unroll
         for (int u = 0; u < TU; ++u)
-          if (j0 + u < H) x[i][gt][u] = p[gt * H + u];
+          if (j0 + u < H) x[i][gt][u] = ld(p[gt * H + u]);
       }
     }
   };
@@ -256,12 +280,14 @@ bigru_recurrence_kernel(const float* __restrict__ xg, const int* __restrict__ le
       }
       if (row[i] >= 0) store_y(i, t, out);
     }
+    // the state as the next product's operand (bf16: rounded)
 #pragma unroll
     for (int u = 0; u < TU; ++u)
 #pragma unroll
       for (int q = 0; q < TR / 4; ++q)
         *reinterpret_cast<float4*>(hn + (j0 + u) * HS + r0 + 4 * q) =
-            make_float4(h[4 * q][u], h[4 * q + 1][u], h[4 * q + 2][u], h[4 * q + 3][u]);
+            make_float4(round_to<T>(h[4 * q][u]), round_to<T>(h[4 * q + 1][u]),
+                        round_to<T>(h[4 * q + 2][u]), round_to<T>(h[4 * q + 3][u]));
     if (s + 1 < maxlen) fetch(d == 0 ? t + 1 : t - 1);
     __syncthreads();  // the new state is complete; every read of the old one done
   }
@@ -285,10 +311,11 @@ constexpr size_t SMEM_LIMIT = 232448 - 256;
 
 size_t wide_state_bytes(int H) { return (size_t)2 * ROWS * H * sizeof(float); }
 
+template <class T>
 __global__ void __launch_bounds__(WTHREADS)
-bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ lengths,
-                      const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-                      float* __restrict__ y, float* __restrict__ scratch, int N, int L, int H) {
+bigru_recurrence_wide(const T* __restrict__ xg, const int* __restrict__ lengths,
+                      const T* __restrict__ w_hh, const T* __restrict__ b_hh, T* __restrict__ y,
+                      float* __restrict__ scratch, int N, int L, int H) {
   extern __shared__ float4 smem4[];
   __shared__ int len_s[ROWS];
   __shared__ int maxlen_s;
@@ -299,7 +326,7 @@ bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ leng
   float* state = scratch == nullptr
                      ? reinterpret_cast<float*>(smem4)
                      : scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * ROWS * H;
-  const float* W = w_hh + (size_t)d * H * G;
+  const T* W = w_hh + (size_t)d * H * G;
 
   for (int i = tid; i < ROWS * H; i += WTHREADS) state[i] = 0.f;
   if (tid < ROWS) {
@@ -321,7 +348,7 @@ bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ leng
   for (int t = maxlen; t < L; ++t)
     for (int i = tid; i < ROWS * H; i += WTHREADS) {
       const int n = row0 + i / H;
-      if (n < N) y[((size_t)n * L + t) * y_stride + d * H + i % H] = 0.f;
+      if (n < N) y[((size_t)n * L + t) * y_stride + d * H + i % H] = io_from<T>(0.f);
     }
 
   for (int s = 0; s < maxlen; ++s) {
@@ -330,7 +357,8 @@ bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ leng
     float* hn = state + ((s + 1) & 1) * ROWS * H;  // after it
     for (int j = tid; j < H; j += WTHREADS) {
       float a_r[ROWS], a_z[ROWS], a_n[ROWS];
-      const float b_r = b_hh[d * G + j], b_z = b_hh[d * G + H + j], b_n = b_hh[d * G + 2 * H + j];
+      const float b_r = ld(b_hh[d * G + j]), b_z = ld(b_hh[d * G + H + j]);
+      const float b_n = ld(b_hh[d * G + 2 * H + j]);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         a_r[r] = b_r;
@@ -338,14 +366,16 @@ bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ leng
         a_n[r] = b_n;
       }
       for (int k = 0; k < H; ++k) {
-        const float w_r = __ldg(W + (size_t)k * G + j);
-        const float w_z = __ldg(W + (size_t)k * G + H + j);
-        const float w_n = __ldg(W + (size_t)k * G + 2 * H + j);
+        const float w_r = ld(__ldg(W + (size_t)k * G + j));
+        const float w_z = ld(__ldg(W + (size_t)k * G + H + j));
+        const float w_n = ld(__ldg(W + (size_t)k * G + 2 * H + j));
         const float4* h4 = reinterpret_cast<const float4*>(hc + k * ROWS);
 #pragma unroll
         for (int q = 0; q < ROWS / 4; ++q) {
           const float4 h = h4[q];
-          const float hv[4] = {h.x, h.y, h.z, h.w};
+          // the operand (bf16: rounded; the state stays f32)
+          const float hv[4] = {round_to<T>(h.x), round_to<T>(h.y), round_to<T>(h.z),
+                               round_to<T>(h.w)};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             a_r[4 * q + e] = fmaf(hv[e], w_r, a_r[4 * q + e]);
@@ -361,31 +391,23 @@ bigru_recurrence_wide(const float* __restrict__ xg, const int* __restrict__ leng
         const bool valid = t < len_s[r];
         float h_new = h_prev;
         if (valid) {
-          const float* x = xg + ((size_t)n * L + t) * xg_stride + d * G;
-          const float rg = sigmoid(x[j] + a_r[r]);
-          const float z = sigmoid(x[H + j] + a_z[r]);
-          const float c = tanhf(x[2 * H + j] + rg * a_n[r]);
+          const T* x = xg + ((size_t)n * L + t) * xg_stride + d * G;
+          const float rg = sigmoid(ld(x[j]) + a_r[r]);
+          const float z = sigmoid(ld(x[H + j]) + a_z[r]);
+          const float c = tanhf(ld(x[2 * H + j]) + rg * a_n[r]);
           h_new = (1.f - z) * c + z * h_prev;
         }
         hn[j * ROWS + r] = h_new;
-        if (n < N) y[((size_t)n * L + t) * y_stride + d * H + j] = valid ? h_new : 0.f;
+        if (n < N) y[((size_t)n * L + t) * y_stride + d * H + j] = io_from<T>(valid ? h_new : 0.f);
       }
     }
     __syncthreads();  // the new state is complete, and every read of the old one done
   }
 }
 
-}  // namespace
-
-// xg (N, L, 6H), lengths (N,) int32, w_hh (2, H, 3H), b_hh (2, 3H),
-// y (N, L, 2H): contiguous, on the device; any H >= 1.  Scratch: order
-// (N,) int32, the rows by length (H <= 128); scratch, 2 x ceil(N/16) x 2 x
-// 16 x H floats where bigru_recurrence_scratch says so, else unused (may
-// be null).  Launches the row order and the recurrence (H <= 128), or the
-// wide kernel, on `stream`; returns the first failure's cudaError_t.
-extern "C" int bigru_recurrence(const float* xg, const int* lengths, const float* w_hh,
-                                const float* b_hh, float* y, int* order, float* scratch, int N,
-                                int L, int H, void* stream) {
+template <class T>
+int run(const T* xg, const int* lengths, const T* w_hh, const T* b_hh, T* y, int* order,
+        float* scratch, int N, int L, int H, void* stream) {
   if (N == 0 || L == 0) return 0;
   if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -394,7 +416,7 @@ extern "C" int bigru_recurrence(const float* xg, const int* lengths, const float
     const int o = row_order::launch(lengths, order, N, L, s);
     if (o != 0) return o;
     const Tile t = tile_shape(H);
-    auto kernel = t.TU == 1 ? bigru_recurrence_kernel<1, 4> : bigru_recurrence_kernel<2, 4>;
+    auto kernel = t.TU == 1 ? bigru_recurrence_kernel<1, 4, T> : bigru_recurrence_kernel<2, 4, T>;
     const size_t smem = smem_bytes(H, t);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -406,11 +428,32 @@ extern "C" int bigru_recurrence(const float* xg, const int* lengths, const float
   if (!shared && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared ? wide_state_bytes(H) : 0;
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_recurrence_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bigru_recurrence_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bigru_recurrence_wide<<<grid, WTHREADS, smem, s>>>(xg, lengths, w_hh, b_hh, y,
-                                                     shared ? nullptr : scratch, N, L, H);
+  bigru_recurrence_wide<T><<<grid, WTHREADS, smem, s>>>(xg, lengths, w_hh, b_hh, y,
+                                                        shared ? nullptr : scratch, N, L, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// xg (N, L, 6H), lengths (N,) int32, w_hh (2, H, 3H), b_hh (2, 3H),
+// y (N, L, 2H): contiguous, on the device, f32 (bigru_recurrence) or bf16
+// (bigru_recurrence_bf16); any H >= 1.  Scratch: order (N,) int32, the
+// rows by length (H <= 128); scratch, 2 x ceil(N/16) x 2 x 16 x H floats
+// where bigru_recurrence_scratch says so, else unused (may be null).
+// Launches the row order and the recurrence (H <= 128), or the wide
+// kernel, on `stream`; returns the first failure's cudaError_t.
+extern "C" int bigru_recurrence(const float* xg, const int* lengths, const float* w_hh,
+                                const float* b_hh, float* y, int* order, float* scratch, int N,
+                                int L, int H, void* stream) {
+  return run(xg, lengths, w_hh, b_hh, y, order, scratch, N, L, H, stream);
+}
+
+extern "C" int bigru_recurrence_bf16(const bf16* xg, const int* lengths, const bf16* w_hh,
+                                     const bf16* b_hh, bf16* y, int* order, float* scratch,
+                                     int N, int L, int H, void* stream) {
+  return run(xg, lengths, w_hh, b_hh, y, order, scratch, N, L, H, stream);
 }
 
 // floats of the scratch the wide kernel needs at (N, H): 0 where its state

@@ -4,7 +4,12 @@
 //
 // M = N*L sentence-row tokens in true time; gate order per direction is
 // [r | z | n].  f32 in, f32 out, f32-accurate products (3xTF32, see
-// tf32x3.cuh) with f32 accumulation.
+// tf32x3.cuh) with f32 accumulation.  The bf16 variant
+// (gru_input_proj_bf16, --compute_dtype bfloat16) reads bf16 x, W and b,
+// accumulates in f32 and rounds xg to bf16 on store, as the TPU kernel's
+// bf16 IO does (_proj_fwd_kernel); a bf16 value is exact in TF32, so each
+// k-step is one TF32 wgmma (big*big), not three, and x's tiles in shared
+// memory are bf16.
 //
 // Replaces two TPU kernels of umpr_tpu/ops/gru_pallas.py:
 //   B3 _pallas_project_fwd / _proj_fwd_kernel (pallas_call at :319), the
@@ -70,33 +75,35 @@ constexpr int BM = 64;     // rows of a warpgroup's tile
 constexpr int BN = 128;    // columns of a block (wgmma n)
 constexpr int WT = BN * 8;  // floats of one k-step's W tile (big or small)
 
+template <class T>
 size_t wide_smem(int K) {
-  return ((size_t)(K + 7) / 8 * 2 * WT + BN + (size_t)WGS * 2 * BM * K) * sizeof(float);
+  return ((size_t)(K + 7) / 8 * 2 * WT + BN) * sizeof(float) + (size_t)WGS * 2 * BM * K * sizeof(T);
 }
 
 // the A fragment of k-step ks (columns 8 ks + tig, + 4) of rows p0, p8 of
 // an x tile in shared memory, split; zeros past K
-__device__ __forceinline__ void split_a(const float* p0, const float* p8, int ks, int K, int tig,
+template <class T>
+__device__ __forceinline__ void split_a(const T* p0, const T* p8, int ks, int K, int tig,
                                         uint32_t (&ah)[4], uint32_t (&al)[4]) {
   const int k0 = ks * 8 + tig, k1 = k0 + 4;
   const bool v0 = k0 < K, v1 = k1 < K;
-  split(v0 ? p0[k0] : 0.f, ah[0], al[0]);
-  split(v0 ? p8[k0] : 0.f, ah[1], al[1]);
-  split(v1 ? p0[k1] : 0.f, ah[2], al[2]);
-  split(v1 ? p8[k1] : 0.f, ah[3], al[3]);
+  split(v0 ? ld(p0[k0]) : 0.f, ah[0], al[0]);
+  split(v0 ? ld(p8[k0]) : 0.f, ah[1], al[1]);
+  split(v1 ? ld(p0[k1]) : 0.f, ah[2], al[2]);
+  split(v1 ? ld(p8[k1]) : 0.f, ah[3], al[3]);
 }
 
+template <class T>
 __global__ void __launch_bounds__(WG * WGS, 1)
-gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
-                     bool vec) {
+gru_input_proj_wgmma(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+                     T* __restrict__ out, int M, int K, int N, bool vec) {
   extern __shared__ float4 smem4[];
   const int KS = (K + 7) / 8;
   float* wt = reinterpret_cast<float*>(smem4);  // [KS][big, small][WT]
   float* bias = wt + KS * 2 * WT;                 // [BN]
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
   const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
-  float* ring = bias + BN + wg * 2 * BM * K;      // this warpgroup's [2][BM * K]
+  T* ring = reinterpret_cast<T*>(bias + BN) + wg * 2 * BM * K;  // this warpgroup's [2][BM * K]
   const int col0 = blockIdx.x * BN;
   const int walkers = gridDim.y * WGS;
   const int m_tiles = (M + BM - 1) / BM;
@@ -115,12 +122,12 @@ gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
     const int ks = (i >> 5) / (BN / 4);
     const int k = ks * 8 + kh * 4 + (l & 3), n = ng * 8 + (l >> 2);
     uint32_t big, small;
-    split(k < K && col0 + n < N ? w[(size_t)k * N + col0 + n] : 0.f, big, small);
+    split(k < K && col0 + n < N ? ld(w[(size_t)k * N + col0 + n]) : 0.f, big, small);
     float* tb = wt + ks * 2 * WT + b_offset(n, k & 7);
     tb[0] = __uint_as_float(big);
     tb[WT] = __uint_as_float(small);
   }
-  if (tid < BN) bias[tid] = col0 + tid < N ? b[col0 + tid] : 0.f;
+  if (tid < BN) bias[tid] = col0 + tid < N ? ld(b[col0 + tid]) : 0.f;
   fence_proxy_async();
   __syncthreads();
 
@@ -136,12 +143,13 @@ gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
 
     // rows past M hold stale values: they reach only their own outputs,
     // which are not stored
-    const float* p0 = ring + (it & 1) * BM * K + r0 * K;
-    const float* p8 = p0 + 8 * K;
+    const T* p0 = ring + (it & 1) * BM * K + r0 * K;
+    const T* p8 = p0 + 8 * K;
     // hi sums big*big, lo the two small cross terms: the tensor core's
-    // accumulation error then follows the 7 big*big steps only
+    // accumulation error then follows the 7 big*big steps only (bf16: lo
+    // stays 0, its terms are)
     float hi[BN / 2], lo[BN / 2];
-    if (KS == 0) {
+    if (KS == 0 || is_bf16<T>) {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) hi[i] = lo[i] = 0.f;
     }
@@ -152,9 +160,9 @@ gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
       const float* tb = wt + ks * 2 * WT;
       const int add = ks > 0;
       wgmma_fence();
-      Wgmma<BN>::run(lo, al, b_desc(tb), add);
+      if constexpr (!is_bf16<T>) Wgmma<BN>::run(lo, al, b_desc(tb), add);
       Wgmma<BN>::run(hi, ah, b_desc(tb), add);
-      Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
+      if constexpr (!is_bf16<T>) Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
       wgmma_commit();
     };
     split_a(p0, p8, 0, K, tig, ah0, al0);
@@ -176,17 +184,17 @@ gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
     for (int h = 0; h < 2; ++h) {
       const int r = tile * BM + r0 + 8 * h;
       if (r >= M) continue;
-      float* row = out + (size_t)r * N + col0;
+      T* row = out + (size_t)r * N + col0;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int c = j * 8 + 2 * tig;
         const float o0 = hi[4 * j + 2 * h] + lo[4 * j + 2 * h] + bias[c];
         const float o1 = hi[4 * j + 2 * h + 1] + lo[4 * j + 2 * h + 1] + bias[c + 1];
         if ((N & 1) == 0) {  // c even, so col0 + c < N implies col0 + c + 1 < N
-          if (col0 + c < N) *reinterpret_cast<float2*>(row + c) = make_float2(o0, o1);
+          if (col0 + c < N) store_pair(row + c, o0, o1);
         } else {
-          if (col0 + c < N) row[c] = o0;
-          if (col0 + c + 1 < N) row[c + 1] = o1;
+          if (col0 + c < N) row[c] = io_from<T>(o0);
+          if (col0 + c + 1 < N) row[c + 1] = io_from<T>(o1);
         }
       }
     }
@@ -199,19 +207,36 @@ gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
 constexpr int THREADS = 256;  // 8 warps: 2 x 4 warps of 16 x 8
 constexpr int NBM = 32, NBN = 32;
 
+template <class T>
 size_t narrow_smem(int K) {
-  return (size_t)(K + 7) / 8 * (NBN / 8) * 32 * sizeof(uint4) + 2 * (size_t)NBM * K * sizeof(float);
+  return (size_t)(K + 7) / 8 * (NBN / 8) * 32 * sizeof(uint4) + 2 * (size_t)NBM * K * sizeof(T);
 }
 
+// acc += a * b over one 8-deep step: 3xTF32 for f32; one TF32 product for
+// bf16, whose small parts are 0
+template <class T>
+__device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], uint32_t b0h, uint32_t b1h,
+                                         uint32_t b0l, uint32_t b1l) {
+  if constexpr (is_bf16<T>) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma(t, ah, b0h, b1h);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] += t[r];
+  } else {
+    mma3_add(acc, ah, al, b0h, b1h, b0l, b1l);
+  }
+}
+
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-gru_input_proj_mma(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
-                   bool vec) {
+gru_input_proj_mma(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+                   T* __restrict__ out, int M, int K, int N, bool vec) {
   constexpr int NT = NBN / 8;
   extern __shared__ uint4 smem[];
   const int KS = (K + 7) / 8;
-  uint4* wf = smem;                                           // [KS][NT][32]
-  float* ring = reinterpret_cast<float*>(wf + KS * NT * 32);  // [2][NBM * K]
+  uint4* wf = smem;                                   // [KS][NT][32]
+  T* ring = reinterpret_cast<T*>(wf + KS * NT * 32);  // [2][NBM * K]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm = warp / NT, wn = warp % NT;
@@ -230,12 +255,12 @@ gru_input_proj_mma(const float* __restrict__ x, const float* __restrict__ w,
     const int n = col0 + nt * 8 + (l >> 2);
     const int k0 = ks * 8 + (l & 3), k1 = k0 + 4;
     uint32_t b0h, b0l, b1h, b1l;
-    split(n < N && k0 < K ? w[(size_t)k0 * N + n] : 0.f, b0h, b0l);
-    split(n < N && k1 < K ? w[(size_t)k1 * N + n] : 0.f, b1h, b1l);
+    split(n < N && k0 < K ? ld(w[(size_t)k0 * N + n]) : 0.f, b0h, b0l);
+    split(n < N && k1 < K ? ld(w[(size_t)k1 * N + n]) : 0.f, b1h, b1l);
     wf[i] = make_uint4(b0h, b1h, b0l, b1l);
   }
   const int c = col0 + wn * 8 + 2 * tig;
-  const float bias0 = c < N ? b[c] : 0.f, bias1 = c + 1 < N ? b[c + 1] : 0.f;
+  const float bias0 = c < N ? ld(b[c]) : 0.f, bias1 = c + 1 < N ? ld(b[c + 1]) : 0.f;
 
   for (int it = 0; tile < m_tiles; ++it, tile += walkers) {
     cp_async_wait<0>();
@@ -245,20 +270,20 @@ gru_input_proj_mma(const float* __restrict__ x, const float* __restrict__ w,
       copy_span(ring + ((it + 1) & 1) * NBM * K, x + (size_t)next * NBM * K,
                 min(NBM, M - next * NBM) * K, vec, tid, THREADS);
     cp_async_commit();
-    const float* p0 = ring + (it & 1) * NBM * K + (wm * 16 + gid) * K;
+    const T* p0 = ring + (it & 1) * NBM * K + (wm * 16 + gid) * K;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t ah[4], al[4];
       split_a(p0, p0 + 8 * K, ks, K, tig, ah, al);
       const uint4 f = wf[(ks * NT + wn) * 32 + lane];
-      mma3_add(acc, ah, al, f.x, f.y, f.z, f.w);
+      mma_step<T>(acc, ah, al, f.x, f.y, f.z, f.w);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = tile * NBM + wm * 16 + gid + 8 * h;
       if (r >= M) continue;
-      if (c < N) out[(size_t)r * N + c] = acc[2 * h] + bias0;
-      if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[2 * h + 1] + bias1;
+      if (c < N) out[(size_t)r * N + c] = io_from<T>(acc[2 * h] + bias0);
+      if (c + 1 < N) out[(size_t)r * N + c + 1] = io_from<T>(acc[2 * h + 1] + bias1);
     }
   }
   cp_async_wait<0>();
@@ -270,10 +295,10 @@ gru_input_proj_mma(const float* __restrict__ x, const float* __restrict__ w,
 
 constexpr int DBM = 64, DBN = 64;
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-gru_input_proj_deep(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
-                    bool) {
+gru_input_proj_deep(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+                    T* __restrict__ out, int M, int K, int N, bool) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm = warp % 4, wn = warp / 4;
@@ -283,24 +308,24 @@ gru_input_proj_deep(const float* __restrict__ x, const float* __restrict__ w,
     const int r0 = tile * DBM + wm * 16 + gid, r8 = r0 + 8;
     // rows past M read row 0 (zero rows would do as well): their outputs
     // are not stored
-    const float* p0 = x + (size_t)(r0 < M ? r0 : 0) * K;
-    const float* p8 = x + (size_t)(r8 < M ? r8 : 0) * K;
+    const T* p0 = x + (size_t)(r0 < M ? r0 : 0) * K;
+    const T* p8 = x + (size_t)(r8 < M ? r8 : 0) * K;
     float acc[4][4] = {};
     for (int ks = 0; ks < (K + 7) / 8; ++ks) {
       const int k0 = ks * 8 + tig, k1 = k0 + 4;
       const bool v0 = k0 < K, v1 = k1 < K;
       uint32_t ah[4], al[4];
-      split(v0 ? p0[k0] : 0.f, ah[0], al[0]);
-      split(v0 ? p8[k0] : 0.f, ah[1], al[1]);
-      split(v1 ? p0[k1] : 0.f, ah[2], al[2]);
-      split(v1 ? p8[k1] : 0.f, ah[3], al[3]);
+      split(v0 ? ld(p0[k0]) : 0.f, ah[0], al[0]);
+      split(v0 ? ld(p8[k0]) : 0.f, ah[1], al[1]);
+      split(v1 ? ld(p0[k1]) : 0.f, ah[2], al[2]);
+      split(v1 ? ld(p8[k1]) : 0.f, ah[3], al[3]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = n0 + 8 * j + gid;
         uint32_t b0h, b0l, b1h, b1l;
-        split(n < N && v0 ? w[(size_t)k0 * N + n] : 0.f, b0h, b0l);
-        split(n < N && v1 ? w[(size_t)k1 * N + n] : 0.f, b1h, b1l);
-        mma3_add(acc[j], ah, al, b0h, b1h, b0l, b1l);
+        split(n < N && v0 ? ld(w[(size_t)k0 * N + n]) : 0.f, b0h, b0l);
+        split(n < N && v1 ? ld(w[(size_t)k1 * N + n]) : 0.f, b1h, b1l);
+        mma_step<T>(acc[j], ah, al, b0h, b1h, b0l, b1l);
       }
     }
 #pragma unroll
@@ -310,17 +335,16 @@ gru_input_proj_deep(const float* __restrict__ x, const float* __restrict__ w,
       for (int h = 0; h < 2; ++h) {
         const int r = h ? r8 : r0;
         if (r >= M) continue;
-        if (c < N) out[(size_t)r * N + c] = acc[j][2 * h] + b[c];
-        if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[j][2 * h + 1] + b[c + 1];
+        if (c < N) out[(size_t)r * N + c] = io_from<T>(acc[j][2 * h] + ld(b[c]));
+        if (c + 1 < N) out[(size_t)r * N + c + 1] = io_from<T>(acc[j][2 * h + 1] + ld(b[c + 1]));
       }
     }
   }
 }
 
-template <class Kernel>
-int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_block,
-           const float* x, const float* w, const float* b, float* out, int M, int K, int N,
-           cudaStream_t stream) {
+template <class Kernel, class T>
+int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_block, const T* x,
+           const T* w, const T* b, T* out, int M, int K, int N, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -337,28 +361,39 @@ int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_bloc
   // blocks per column tile; each block walks `per_block` row tiles at once
   const int walkers = std::max(1, std::min((m_tiles + per_block - 1) / per_block,
                                            (resident + col_tiles - 1) / col_tiles));
-  // 16-byte copies need x 16-byte aligned; each tile starts bm*K floats
-  // (a multiple of 4) further on
+  // 16-byte copies need x 16-byte aligned; each tile starts bm*K elements
+  // (4 bm K or 2 bm K bytes, bm a multiple of 32) further on
   const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   kernel<<<dim3(col_tiles, walkers), threads, smem, stream>>>(x, w, b, out, M, K, N, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x (M, K), w (K, N), b (N,), out (M, N): f32, contiguous, on the device.
-// Launches on `stream` and returns the launch's cudaError_t (0 = success).
-extern "C" int gru_input_proj(const float* x, const float* w, const float* b, float* out,
-                              int M, int K, int N, void* stream) {
+template <class T>
+int run(const T* x, const T* w, const T* b, T* out, int M, int K, int N, void* stream) {
   if (M == 0 || N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide_smem(K) <= SMEM_LIMIT)
-    return launch(gru_input_proj_wgmma, WG * WGS, wide_smem(K), BM, BN, WGS, x, w, b, out, M,
-                  K, N, s);
-  if (narrow_smem(K) <= SMEM_LIMIT)
-    return launch(gru_input_proj_mma, THREADS, narrow_smem(K), NBM, NBN, 1, x, w, b, out, M, K,
-                  N, s);
-  return launch(gru_input_proj_deep, THREADS, 0, DBM, DBN, 1, x, w, b, out, M, K, N, s);
+  if (wide_smem<T>(K) <= SMEM_LIMIT)
+    return launch(gru_input_proj_wgmma<T>, WG * WGS, wide_smem<T>(K), BM, BN, WGS, x, w, b, out,
+                  M, K, N, s);
+  if (narrow_smem<T>(K) <= SMEM_LIMIT)
+    return launch(gru_input_proj_mma<T>, THREADS, narrow_smem<T>(K), NBM, NBN, 1, x, w, b, out,
+                  M, K, N, s);
+  return launch(gru_input_proj_deep<T>, THREADS, 0, DBM, DBN, 1, x, w, b, out, M, K, N, s);
+}
+
+}  // namespace
+
+// x (M, K), w (K, N), b (N,), out (M, N): contiguous, on the device; f32
+// (gru_input_proj) or bf16 (gru_input_proj_bf16).  Launches on `stream`
+// and returns the launch's cudaError_t (0 = success).
+extern "C" int gru_input_proj(const float* x, const float* w, const float* b, float* out,
+                              int M, int K, int N, void* stream) {
+  return run(x, w, b, out, M, K, N, stream);
+}
+
+extern "C" int gru_input_proj_bf16(const bf16* x, const bf16* w, const bf16* b, bf16* out,
+                                   int M, int K, int N, void* stream) {
+  return run(x, w, b, out, M, K, N, stream);
 }
 
 extern "C" const char* error_string(int code) {

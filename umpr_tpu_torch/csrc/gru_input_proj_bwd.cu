@@ -54,6 +54,11 @@
 //     order, and a butterfly over the 4 lanes of a row group.
 // The reduce kernel sums the partials (6.5 MB at 51,200 rows, 85 chunks),
 // four lanes to an entry.
+//
+// bf16 IO (gru_input_proj_bwd_bf16, --compute_dtype bfloat16): x and dxg
+// are read as bf16 (and staged as bf16), dW and db are f32 sums, as the
+// TPU kernel's bf16 path accumulates in f32; a bf16 value is exact in
+// TF32, so each k-step is one TF32 wgmma (big*big) with no rounding.
 
 #include <algorithm>
 
@@ -74,22 +79,23 @@ constexpr int XB = STEP / 8 * 2 * XT;  // floats of one stage's split x
 
 // a stage's x rows are copied whole (one contiguous span, row stride E)
 // where that fits, else as the block's EW columns only (row stride EW)
+template <class T>
 size_t smem_bytes(int x_stride) {
-  return ((size_t)2 * XB + (size_t)STAGES * STEP * (GS + x_stride)) * sizeof(float);
+  return (size_t)2 * XB * sizeof(float) + (size_t)STAGES * STEP * (GS + x_stride) * sizeof(T);
 }
 
 // the block's stages: N = 8 * (column groups of E), 64 or 56
-template <int N>
-__device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
-                                             const float* __restrict__ dxg,
+template <int N, class T>
+__device__ __forceinline__ void reduce_chunk(const T* __restrict__ x, const T* __restrict__ dxg,
                                              float* __restrict__ dw_part,
                                              float* __restrict__ db_part, int M, int E, int G,
                                              int rows_per_chunk, int XS, bool vec_x,
                                              bool vec_g, float* smem) {
   constexpr int NG = N / 8;
-  float* xb = smem;                         // [2][STEP / 8][big, small][XT]
-  float* gs = xb + 2 * XB;                  // [STAGES][STEP][GS]
-  float* xs = gs + STAGES * STEP * GS;      // [STAGES][STEP * XS]
+  constexpr int PER = 16 / sizeof(T);  // elements of a 16-byte copy
+  float* xb = smem;                               // [2][STEP / 8][big, small][XT]
+  T* gs = reinterpret_cast<T*>(xb + 2 * XB);      // [STAGES][STEP][GS]
+  T* xs = gs + STAGES * STEP * GS;                // [STAGES][STEP * XS]
   const int tid = threadIdx.x, wg = tid / 128;
   const int warp = (tid / 32) % 4, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
   const int g0 = blockIdx.x * BG;
@@ -102,31 +108,37 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
   auto load = [&](int s) {
     const int m0 = m_begin + s * STEP;
     const int rows = min(STEP, m_end - m0);
-    float* gd = gs + (s % STAGES) * STEP * GS;
-    const float* src = dxg + (size_t)m0 * G + g0;
-    if (vec_g) {  // G % 4 == 0: a 4-column group is wholly inside or past G
-      for (int i = tid; i < rows * (BG / 4); i += THREADS) {
-        const int r = i / (BG / 4), c = 4 * (i % (BG / 4));
+    T* gd = gs + (s % STAGES) * STEP * GS;
+    const T* src = dxg + (size_t)m0 * G + g0;
+    if (vec_g) {  // G % PER == 0: a 16-byte group is wholly inside or past G
+      for (int i = tid; i < rows * (BG / PER); i += THREADS) {
+        const int r = i / (BG / PER), c = PER * (i % (BG / PER));
         if (g0 + c < G) cp_async16(gd + r * GS + c, src + (size_t)r * G + c);
       }
     } else {
       for (int i = tid; i < rows * BG; i += THREADS) {
         const int r = i / BG, c = i % BG;
-        if (g0 + c < G) cp_async4(gd + r * GS + c, src + (size_t)r * G + c);
+        if (g0 + c >= G) continue;
+        if constexpr (is_bf16<T>)
+          gd[r * GS + c] = src[(size_t)r * G + c];  // no 2-byte cp.async
+        else
+          cp_async4(gd + r * GS + c, src + (size_t)r * G + c);
       }
     }
-    float* xd = xs + (s % STAGES) * STEP * XS;
+    T* xd = xs + (s % STAGES) * STEP * XS;
     if (XS == E) {
       copy_span(xd, x + (size_t)m0 * E, rows * E, vec_x, tid, THREADS);
-    } else {  // columns e0 .. e0 + EW of each row; vec_x: E % 4 == 0
+    } else {  // columns e0 .. e0 + EW of each row; vec_x: E % PER == 0
       const int ew = min(EW, E - e0);
-      const float* src = x + (size_t)m0 * E + e0;
-      const int q = vec_x ? 4 : 1;
+      const T* src = x + (size_t)m0 * E + e0;
+      const int q = vec_x ? PER : 1;
       for (int i = tid; i < rows * (EW / q); i += THREADS) {
         const int r = i / (EW / q), c = q * (i % (EW / q));
         if (c >= ew) continue;
         if (vec_x)
           cp_async16(xd + r * EW + c, src + (size_t)r * E + c);
+        else if constexpr (is_bf16<T>)
+          xd[r * EW + c] = src[(size_t)r * E + c];
         else
           cp_async4(xd + r * EW + c, src + (size_t)r * E + c);
       }
@@ -137,6 +149,10 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
   // two chains the tensor core runs side by side, never waited for but to
   // reuse a register set or a buffer
   float lo[N / 2], hi[N / 2];
+  if constexpr (is_bf16<T>) {  // no cross terms: lo stays 0
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) lo[i] = 0.f;
+  }
   // db of this thread's rows g, g + 8 over its fragments' rows of dxg,
   // summed from the A fragments in plain f32 adds, in a fixed order
   float db_acc[2] = {0.f, 0.f};
@@ -153,20 +169,20 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
     cp_async_commit();
 
     const int rows = min(STEP, m_end - (m_begin + s * STEP));
-    const float* gt = gs + (s % STAGES) * STEP * GS;
+    const T* gt = gs + (s % STAGES) * STEP * GS;
     // x, the B operand both warpgroups share, split once into its big and
     // small tiles (two buffers: stage s - 1's may still be read); zeros on
     // rows past the chunk and columns past E.  Item i: the 4 stage rows
     // 4 q .. 4 q + 3 of column n, one 16-byte store per part.
     float* xbs = xb + (s & 1) * XB;
-    const float* xt = xs + (s % STAGES) * STEP * XS + (XS == E ? e0 : 0);
+    const T* xt = xs + (s % STAGES) * STEP * XS + (XS == E ? e0 : 0);
     for (int i = tid; i < STEP / 4 * N; i += THREADS) {
       const int n = i % N, q = i / N;
       const bool in = e0 + n < E;
       uint32_t big[4], small[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        split(in && 4 * q + r < rows ? xt[(4 * q + r) * XS + n] : 0.f, big[r], small[r]);
+        split(in && 4 * q + r < rows ? ld(xt[(4 * q + r) * XS + n]) : 0.f, big[r], small[r]);
       float* tb = xbs + (q >> 1) * 2 * XT + b_offset(n, (4 * q) & 7);
       *reinterpret_cast<uint4*>(tb) = make_uint4(big[0], big[1], big[2], big[3]);
       *reinterpret_cast<uint4*>(tb + XT) = make_uint4(small[0], small[1], small[2], small[3]);
@@ -176,12 +192,12 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
 
     // A = dxg^T: A[g][k] = dxg[k][g], this thread's rows g, g + 8; two
     // register sets, so that step ks + 1 is split while step ks runs
-    const float* ga = gt + wg * 64 + warp * 16 + gid;
+    const T* ga = gt + wg * 64 + warp * 16 + gid;
     auto split_a = [&](int ks, uint32_t(&ah)[4], uint32_t(&al)[4]) {
       const int k0 = ks * 8 + tig, k1 = k0 + 4;
       const bool v0 = k0 < rows, v1 = k1 < rows;
-      const float a0 = v0 ? ga[k0 * GS] : 0.f, a1 = v0 ? ga[k0 * GS + 8] : 0.f;
-      const float a2 = v1 ? ga[k1 * GS] : 0.f, a3 = v1 ? ga[k1 * GS + 8] : 0.f;
+      const float a0 = v0 ? ld(ga[k0 * GS]) : 0.f, a1 = v0 ? ld(ga[k0 * GS + 8]) : 0.f;
+      const float a2 = v1 ? ld(ga[k1 * GS]) : 0.f, a3 = v1 ? ld(ga[k1 * GS + 8]) : 0.f;
       db_acc[0] += a0;  // db of rows g, g + 8: this lane's k, in order
       db_acc[0] += a2;
       db_acc[1] += a1;
@@ -195,9 +211,9 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
       const float* tb = xbs + ks * 2 * XT;
       const int add = s > 0 || ks > 0;
       wgmma_fence();
-      Wgmma<N>::run(lo, al, b_desc(tb), add);
+      if constexpr (!is_bf16<T>) Wgmma<N>::run(lo, al, b_desc(tb), add);
       Wgmma<N>::run(hi, ah, b_desc(tb), add);
-      Wgmma<N>::run(lo, ah, b_desc(tb + XT), 1);
+      if constexpr (!is_bf16<T>) Wgmma<N>::run(lo, ah, b_desc(tb + XT), 1);
       wgmma_commit();
     };
     uint32_t ah0[4], al0[4], ah1[4], al1[4];
@@ -248,8 +264,9 @@ __device__ __forceinline__ void reduce_chunk(const float* __restrict__ x,
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-gru_input_proj_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dxg,
+gru_input_proj_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dxg,
                           float* __restrict__ dw_part, float* __restrict__ db_part, int M,
                           int E, int G, int rows_per_chunk, int XS, bool vec_x, bool vec_g) {
   extern __shared__ float4 smem4[];
@@ -285,40 +302,56 @@ gru_input_proj_bwd_reduce(const float* __restrict__ dw_part, const float* __rest
   if (i < EG + G && j == 0) *dst = sum;
 }
 
-}  // namespace
-
-// x (M, E), dxg (M, G) -> dw (E, G), db (G): f32, contiguous, on the
-// device.  dw_part (chunks, E, G) and db_part (chunks, G) are scratch, with
-// chunks = ceil(M / rows_per_chunk) (1 when M = 0) and rows_per_chunk a
-// positive multiple of 32.  Launches two kernels on `stream` and returns
-// the first failure's cudaError_t (0 = success).
-extern "C" int gru_input_proj_bwd(const float* x, const float* dxg, float* dw_part,
-                                  float* db_part, float* dw, float* db, int M, int E, int G,
-                                  int rows_per_chunk, void* stream) {
+template <class T>
+int run(const T* x, const T* dxg, float* dw_part, float* db_part, float* dw, float* db, int M,
+        int E, int G, int rows_per_chunk, void* stream) {
   if (G == 0) return 0;
   if (rows_per_chunk <= 0 || rows_per_chunk % STEP != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // whole x rows up to E = 384; past that each block copies its E tile
-  const int XS = smem_bytes(E) <= 232448 ? E : EW;
-  const size_t smem = smem_bytes(XS);
+  constexpr int PER = 16 / sizeof(T);
+  // whole x rows where they fit (f32: up to E = 384); past that each block
+  // copies its E tile
+  const int XS = smem_bytes<T>(E) <= 232448 ? E : EW;
+  const size_t smem = smem_bytes<T>(XS);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_input_proj_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_input_proj_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = M > 0 ? (M + rows_per_chunk - 1) / rows_per_chunk : 1;
   const int e_tiles = std::max(1, (E + EW - 1) / EW);
-  // 16-byte copies: x's stages start at multiples of 32 rows (32*E floats);
-  // an E tile's rows start at multiples of E (plus e0, a multiple of 64)
-  const bool vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (XS == E || E % 4 == 0);
-  const bool vec_g = (reinterpret_cast<uintptr_t>(dxg) & 15) == 0 && G % 4 == 0;
-  gru_input_proj_bwd_kernel<<<dim3((G + BG - 1) / BG, e_tiles, chunks), THREADS, smem, s>>>(
+  // 16-byte copies: x's stages start at multiples of 32 rows (32*E
+  // elements, a multiple of 16 bytes); an E tile's rows start at multiples
+  // of E (plus e0, a multiple of 64)
+  const bool vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (XS == E || E % PER == 0);
+  const bool vec_g = (reinterpret_cast<uintptr_t>(dxg) & 15) == 0 && G % PER == 0;
+  gru_input_proj_bwd_kernel<T><<<dim3((G + BG - 1) / BG, e_tiles, chunks), THREADS, smem, s>>>(
       x, dxg, dw_part, db_part, M, E, G, rows_per_chunk, XS, vec_x, vec_g);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int n = (E * G + G) * REDUCE_LANES;
   gru_input_proj_bwd_reduce<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
       dw_part, db_part, dw, db, chunks, E * G, G);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (M, E), dxg (M, G) -> dw (E, G), db (G) f32: contiguous, on the
+// device; x and dxg f32 (gru_input_proj_bwd) or bf16
+// (gru_input_proj_bwd_bf16).  dw_part (chunks, E, G) and db_part (chunks,
+// G) are f32 scratch, with chunks = ceil(M / rows_per_chunk) (1 when M =
+// 0) and rows_per_chunk a positive multiple of 32.  Launches two kernels
+// on `stream` and returns the first failure's cudaError_t (0 = success).
+extern "C" int gru_input_proj_bwd(const float* x, const float* dxg, float* dw_part,
+                                  float* db_part, float* dw, float* db, int M, int E, int G,
+                                  int rows_per_chunk, void* stream) {
+  return run(x, dxg, dw_part, db_part, dw, db, M, E, G, rows_per_chunk, stream);
+}
+
+extern "C" int gru_input_proj_bwd_bf16(const bf16* x, const bf16* dxg, float* dw_part,
+                                       float* db_part, float* dw, float* db, int M, int E, int G,
+                                       int rows_per_chunk, void* stream) {
+  return run(x, dxg, dw_part, db_part, dw, db, M, E, G, rows_per_chunk, stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -17,9 +17,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace tf32x3 {
 
@@ -95,20 +97,66 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
 }
 
-// Copy the n contiguous floats at src to dst (shared), all threads of the
-// block together; 16-byte copies where src and dst are 16-byte aligned
-// (vec), the tail and the unaligned case in 4-byte copies.
-__device__ __forceinline__ void copy_span(float* dst, const float* src, int n, bool vec,
-                                          int tid, int threads) {
-  int done = 0;
-  if (vec) {
-    const int n4 = n >> 2;
-    for (int i = tid; i < n4; i += threads) cp_async16(dst + 4 * i, src + 4 * i);
-    done = n4 << 2;
-  }
-  for (int i = done + tid; i < n; i += threads) cp_async4(dst + i, src + i);
+// ---- the IO types of K1-K4: float or bf16 in memory, f32 in registers.
+// A bf16 value is exact in TF32 (8 exponent bits, 7 of mantissa), so its
+// split has small = 0 and one TF32 product of two bf16 values is exact.
+
+using bf16 = __nv_bfloat16;
+
+template <class T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(bf16 v) { return __bfloat162float(v); }
+
+// f32 -> T, bf16 rounded to nearest even (as XLA's astype)
+template <class T>
+__device__ __forceinline__ T io_from(float v) {
+  if constexpr (is_bf16<T>)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
 }
 
+// v rounded to T's precision, in f32
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  return ld(io_from<T>(v));
+}
+
+// two neighbouring outputs as one 8-byte (f32) or 4-byte (bf16) store;
+// p 8- or 4-byte aligned
+template <class T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b) {
+  if constexpr (is_bf16<T>)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Copy the n contiguous T at src to dst (shared), all threads of the
+// block together; 16-byte cp.async where src and dst are 16-byte aligned
+// (vec), the tail and the unaligned case as 4-byte cp.async for f32 and
+// as plain 2-byte copies for bf16 (cp.async has none that small; the
+// caller's barrier before the data is read orders them as it does the
+// copies' completion).
+template <class T>
+__device__ __forceinline__ void copy_span(T* dst, const T* src, int n, bool vec, int tid,
+                                          int threads) {
+  constexpr int PER = 16 / sizeof(T);
+  int done = 0;
+  if (vec) {
+    const int nv = n / PER;
+    for (int i = tid; i < nv; i += threads) cp_async16(dst + PER * i, src + PER * i);
+    done = nv * PER;
+  }
+  for (int i = done + tid; i < n; i += threads) {
+    if constexpr (is_bf16<T>)
+      dst[i] = src[i];
+    else
+      cp_async4(dst + i, src + i);
+  }
+}
 
 // ---- wgmma (Hopper warpgroup MMA), TF32, A from registers, B from shared
 

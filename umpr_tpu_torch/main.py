@@ -49,9 +49,13 @@ def load_split(name, csv_path, photo_json, photo_dir, w2v, config, logger):
             logger.info(f"Loaded {name} dataset from {cache}!")
             return ds
     logger.debug(f"Loading {name} dataset.")
-    ds = build_dataset(csv_path, photo_json, photo_dir, w2v, config)
-    if config.cache_dataset:
-        ds.save(cache_dir)
+    # with caching on, the streaming build writes its packed arrays
+    # straight into the cache directory as memmaps
+    ds = build_dataset(csv_path, photo_json, photo_dir, w2v, config,
+                       mmap_dir=cache_dir if config.cache_dataset else None)
+    if config.cache_dataset and not os.path.exists(
+            os.path.join(cache_dir, "complete.marker")):
+        ds.save(cache_dir)  # the full-memory build: save it
     return ds
 
 

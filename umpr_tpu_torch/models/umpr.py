@@ -11,6 +11,15 @@
 - Dead rows are dropped with selects before every product they reach:
   eager PyTorch gives 0 * NaN = NaN, in the forward and in a matmul's
   weight gradient alike.
+- ``compute_dtype="bfloat16"`` is the JAX package's mixed precision
+  (umpr.py:142-150): every floating parameter, the frozen GloVe table
+  included, is cast to bf16 once per forward inside autograd (so the f32
+  masters get the gradients through the cast), the activations stay bf16
+  (the bi-GRU's kernels keep f32 state and accumulation), and the
+  prediction is cast to f32 before the losses, whose operands are f32.
+  Not ``torch.autocast``: its per-op policy runs softmax and reductions
+  in f32 where the JAX package runs them in bf16, and casts matmul
+  operands at other points.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ class ModelDims:
     # the JAX package's width-folded VGG block 1 computes the same function
     # as the unfolded one; the port takes the flag and never folds
     vgg_fold_w: bool = True
+    compute_dtype: str = "float32"  # or "bfloat16"
 
     @classmethod
     def from_config(cls, config):
@@ -60,7 +70,8 @@ class ModelDims:
                    photo_size=config.photo_size,
                    vgg_fused_pool=config.vgg_fused_pool,
                    remat_vgg=config.remat_vgg,
-                   vgg_fold_w=config.vgg_fold_w)
+                   vgg_fold_w=config.vgg_fold_w,
+                   compute_dtype=config.compute_dtype)
 
 
 class UMPR(nn.Module):
@@ -93,7 +104,7 @@ class UMPR(nn.Module):
         B, V, P = batch["photos"].shape[:3]
         return self.visual_net.vgg16.dropout_shapes(B * V * P)
 
-    def forward(self, batch, drop=None):
+    def forward(self, batch, drop=None, _cast=True):
         """batch: dict of tensors from data.loader (u_/i_/ui_ tokens,
         lengths, counts, ratings, photos for full UMPR, optional
         sample_mask and pad_maxima).  drop: the VGG classifier's dropout
@@ -101,7 +112,14 @@ class UMPR(nn.Module):
         model's device draws them; or they come pre-drawn
         (``visual_net.keep_masks`` of ``dropout_shapes(batch)``).
 
-        Returns (prediction (B,), loss, {"loss_r": ..., ["loss_v": ...]})."""
+        Returns (prediction (B,), loss, {"loss_r": ..., ["loss_v": ...]}),
+        all f32."""
+        if _cast and self.dims.compute_dtype != "float32":
+            dtype = getattr(torch, self.dims.compute_dtype)
+            params = {n: p.to(dtype) if p.is_floating_point() else p
+                      for n, p in self.named_parameters()}
+            return torch.func.functional_call(self, params, (batch, drop),
+                                              {"_cast": False})
         u_tok, i_tok = batch["u_tokens"], batch["i_tokens"]
         u_len, i_len = batch["u_lengths"], batch["i_lengths"]
         labels = batch["ratings"]
@@ -123,7 +141,7 @@ class UMPR(nn.Module):
         both_emb = self.embedding(torch.cat([u_tok, i_tok]).long())  # (2B, S, L, E)
         rn = self.review_net(both_emb, u_len, i_len, exists)
         if self.dims.review_net_only:
-            prediction = F.relu(self.linear_fusion(rn))[:, 0]
+            prediction = _widen(F.relu(self.linear_fusion(rn))[:, 0])
             loss = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
             return prediction, loss, {"loss_r": loss}
 
@@ -142,15 +160,22 @@ class UMPR(nn.Module):
 
         alive = mask[:, None] > 0
         fused = torch.where(alive, torch.cat([rn, final_pos, final_neg], dim=-1), 0.0)
-        prediction = F.relu(self.linear_fusion(fused))[:, 0]
+        prediction = _widen(F.relu(self.linear_fusion(fused))[:, 0])
         loss_r = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
-        # cross-batch (V, B) @ (B, V): dead rows selected out of both operands
+        # cross-batch (V, B) @ (B, V) in f32: dead rows selected out of both
+        # operands
         prefer_pos, prefer_neg, pos_match, neg_match = (
-            torch.where(alive, t, 0.0)
+            torch.where(alive, _widen(t), 0.0)
             for t in (prefer_pos, prefer_neg, pos_match, neg_match))
         loss_v = (prefer_pos.t() @ pos_match + prefer_neg.t() @ neg_match).mean()
         loss = loss_r + self.dims.loss_v_rate * loss_v
         return prediction, loss, {"loss_r": loss_r, "loss_v": loss_v}
+
+
+def _widen(t):
+    """bf16 activations to f32 for the losses (the JAX package's astype);
+    f32 and f64 as they are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def masked_sq_sum(pred, labels, mask):

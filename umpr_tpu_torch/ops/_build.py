@@ -92,12 +92,12 @@ def library(name):
         return _libs[name]
 
 
-def kernel_function(name, argtypes):
-    """The C function ``name`` of ``csrc/<name>.cu``, built and loaded at
-    first use, with its argument types set.  Returns (function,
-    error_string function)."""
+def kernel_function(name, argtypes, symbol=None):
+    """The C function ``symbol`` (default ``name``) of ``csrc/<name>.cu``,
+    built and loaded at first use, with its argument types set.  Returns
+    (function, error_string function)."""
     lib = library(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, symbol or name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn, lib.error_string

@@ -98,6 +98,11 @@ class BiGRUSplit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, lengths, S, w_ih, b_ih, w_hh, b_hh):
+        if x.dtype == torch.bfloat16 and ctx.needs_input_grad[0]:
+            raise NotImplementedError(
+                "bigru_split: a bfloat16 x that requires grad needs K9 "
+                "gru_input_proj_dx in bf16, not ported yet (ROADMAP A5, bf16 "
+                "K5-K9); UMPR's frozen embedding takes no input gradient")
         N, L, E = x.shape
         x2 = x.detach().reshape(N * L, E)
         w_ih, b_ih, w_hh, b_hh = (t.detach() for t in (w_ih, b_ih, w_hh, b_hh))
@@ -119,7 +124,8 @@ class BiGRUSplit(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             dx = gru_cuda.gru_input_proj_dx(dxg, w_ih).view(N, L, -1)
-        return dx, None, None, dw_ih, db_ih, dw_hh, db_hh
+        # f32 sums, cast once to the parameters' type (gru_pallas.py:839)
+        return dx, None, None, *(g.to(w_ih.dtype) for g in (dw_ih, db_ih, dw_hh, db_hh))
 
 
 def bigru_split(gru, x, lengths, S):
@@ -128,9 +134,14 @@ def bigru_split(gru, x, lengths, S):
       y_sent (N, L, 2H)     -- the per-sentence S-Net layout.
     y_pos is a view of y_sent's memory.  Differentiable in the GRU's
     parameters through BiGRUSplit, on every device, and in x when x
-    requires grad.
+    requires grad (f32 only).  A bfloat16 x runs the kernels' bf16 IO,
+    with the packed weights cast to it (as gru_pallas.py:780 casts the
+    parameters to x's type).
 
     x: (N, L, E) sentence rows, a free view of the (B, S, L, E) embedding
     lookup (the frozen embedding in every UMPR config); lengths: (N,)
     int32."""
-    return BiGRUSplit.apply(x, lengths, S, *gru.kernel_operands())
+    ops = gru.kernel_operands()
+    if x.dtype != ops[0].dtype:
+        ops = tuple(t.to(x.dtype) for t in ops)
+    return BiGRUSplit.apply(x, lengths, S, *ops)

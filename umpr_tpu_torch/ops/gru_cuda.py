@@ -35,13 +35,26 @@ Backward:
   only when x requires grad (every UMPR config feeds the frozen
   embedding, and pays nothing for it).
 
+K1-K4 also take bfloat16 IO (``--compute_dtype bfloat16``, the JAX
+package's bf16 path of the same kernels, gru_pallas.py:151-165): bf16
+loads and stores, f32 state and accumulation, and the JAX kernels'
+rounding points: K1 rounds xg on store; K2 rounds the carried f32 state
+to bf16 as the operand of h @ W_hh and stores y in bf16; K3 rounds the
+sum of the two cotangents, the ghh operand of both its products (ghh @
+W_hh^T and h_prev^T ghh) and dxg on store, keeps db_hh the f32 sum of the
+unrounded ghh and returns dW_hh / db_hh in f32; K4 returns f32 sums of
+the bf16 products.  A bf16 value is exact in TF32, so each of their
+tensor-core products is one TF32 product (no 3xTF32 split).  K5-K9
+take f32 only.  The plain versions carry the same rounding points.
+
 Each wrapper takes its plain PyTorch version for CPU tensors and only
 then.  For CUDA tensors it launches the kernel or raises; it never falls
 back.  The kernels write through raw pointers, so their results carry no
 autograd graph: on a non-CPU device the wrappers raise on an input that
 requires grad.  ``ops.gru.BiGRUSplit`` calls them on detached tensors and
 gives the graph its backward.  ``<wrapper>.launches`` counts kernel
-launches.
+launches; K1-K4's ``.launches_bf16`` counts those of them that ran the
+bf16 variant.
 """
 
 from __future__ import annotations
@@ -55,16 +68,38 @@ from umpr_tpu_torch.ops import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+BF16 = torch.bfloat16
+
+
+def _widen(t):
+    """A bf16 tensor in f32 (exact); any other as it is."""
+    return t.float() if t.dtype == BF16 else t
+
+
+def _rounder(io):
+    """The JAX bf16 kernels' rounding of an f32 product operand: to bf16
+    and back for bf16 IO, nothing otherwise."""
+    if io == BF16:
+        return lambda t: t.to(BF16).float()
+    return lambda t: t
+
+
 def gru_input_proj_ref(x, w, b):
-    """Plain version of K1: x (M, E) @ w (E, 6H) + b (6H,) -> (M, 6H)."""
-    return x @ w + b
+    """Plain version of K1: x (M, E) @ w (E, 6H) + b (6H,) -> (M, 6H); in
+    bf16 the f32 sum is rounded once, on store."""
+    return (_widen(x) @ _widen(w) + _widen(b)).to(x.dtype)
 
 
 def bigru_recurrence_ref(xg, lengths, w_hh, b_hh):
     """Plain version of K2, a Python loop over time with selects.
 
     xg (N, L, 6H) as [fwd r z n | bwd r z n]; lengths (N,) int; w_hh
-    (2, H, 3H); b_hh (2, 3H) -> y (N, L, 2H) = [fwd | bwd] in true time."""
+    (2, H, 3H); b_hh (2, 3H) -> y (N, L, 2H) = [fwd | bwd] in true time.
+    In bf16 the state stays f32, rounded to bf16 only as the operand of
+    h @ W_hh (gru_pallas.py:161), and y is stored bf16."""
+    io = xg.dtype
+    rnd = _rounder(io)
+    xg, w_hh, b_hh = _widen(xg), _widen(w_hh), _widen(b_hh)
     N, L, _ = xg.shape
     H = w_hh.shape[1]
     y = xg.new_zeros(N, L, 2 * H)
@@ -72,7 +107,7 @@ def bigru_recurrence_ref(xg, lengths, w_hh, b_hh):
         h = xg.new_zeros(N, H)
         for t in steps:
             x = xg[:, t, 3 * H * d:3 * H * (d + 1)]
-            hg = h @ w_hh[d] + b_hh[d]
+            hg = rnd(h) @ w_hh[d] + b_hh[d]
             r = torch.sigmoid(x[:, :H] + hg[:, :H])
             z = torch.sigmoid(x[:, H:2 * H] + hg[:, H:2 * H])
             c = torch.tanh(x[:, 2 * H:] + r * hg[:, 2 * H:])
@@ -80,7 +115,7 @@ def bigru_recurrence_ref(xg, lengths, w_hh, b_hh):
             valid = (t < lengths)[:, None]
             h = torch.where(valid, h_new, h)
             y[:, t, H * d:H * (d + 1)] = torch.where(valid, h_new, 0.0)
-    return y
+    return y.to(io)
 
 
 RECURRENCE_ROWS = 16  # rows per tile of K2 and K3's sweep (csrc/bigru_recurrence.cu ROWS)
@@ -124,16 +159,28 @@ def h_prev_from_y(y, t, d):
     return y[:, s, H * d:H * (d + 1)]
 
 
+def _dy_sum(dy_sent, dy_pos, shape):
+    """The two cotangents' sum, rounded to the IO type (JAX's B7 adds them
+    in bf16), in f32."""
+    return _widen(dy_sent + dy_pos.reshape(shape))
+
+
 def bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
     """Plain version of K3, a Python loop over time with selects.
 
     xg (N, L, 6H) and y (N, L, 2H) of the forward; dy_sent, dy_pos: the
     cotangents of y_sent (N, L, 2H) and of its view y_pos (N/S, S*L, 2H).
     -> dxg (N, L, 6H) in true time (zeros at invalid steps), dw_hh
-    (2, H, 3H), db_hh (2, 3H)."""
+    (2, H, 3H), db_hh (2, 3H).  In bf16 (gru_pallas.py:641-719) h_prev is
+    y's bf16 value, the cotangents' sum and the ghh operand of both
+    products are rounded to bf16, dxg is stored bf16, and dw_hh / db_hh
+    are f32 sums (db_hh of the unrounded ghh)."""
+    io = xg.dtype
+    rnd = _rounder(io)
     N, L, _ = xg.shape
     H = w_hh.shape[1]
-    dy = dy_sent + dy_pos.reshape(N, L, 2 * H)
+    dy = _dy_sum(dy_sent, dy_pos, (N, L, 2 * H))
+    xg, y, w_hh, b_hh = _widen(xg), _widen(y), _widen(w_hh), _widen(b_hh)
     dxg = xg.new_zeros(N, L, 6 * H)
     dw_hh, db_hh = torch.zeros_like(w_hh), torch.zeros_like(b_hh)
     for d, steps in ((0, range(L - 1, -1, -1)), (1, range(L))):
@@ -152,17 +199,18 @@ def bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
             dr = torch.where(valid, dn * hg[:, 2 * H:] * r * (1.0 - r), 0.0)
             dxg[:, t, 3 * H * d:3 * H * (d + 1)] = torch.cat([dr, dz, dn], 1)
             ghh = torch.cat([dr, dz, dn * r], 1)
-            dw_hh[d] += hp.t() @ ghh
+            dw_hh[d] += hp.t() @ rnd(ghh)
             db_hh[d] += ghh.sum(0)
-            g = torch.where(valid, g * z + ghh @ w_hh[d].t(), g)
-    return dxg, dw_hh, db_hh
+            g = torch.where(valid, g * z + rnd(ghh) @ w_hh[d].t(), g)
+    return dxg.to(io), dw_hh, db_hh
 
 
 def bigru_backward_hg_ref(y, w_hh):
     """Plain version of K3's hg pass: y (N, L, 2H), w_hh (2, H, 3H) ->
-    Z (N, L, 6H), Z[..., 3H d:3H (d+1)] = y_d @ w_hh[d] (no bias), the
-    gate pre-activations of the state y holds, for both directions."""
+    Z (N, L, 6H) f32, Z[..., 3H d:3H (d+1)] = y_d @ w_hh[d] (no bias),
+    the gate pre-activations of the state y holds, for both directions."""
     H = w_hh.shape[1]
+    y, w_hh = _widen(y), _widen(w_hh)
     return torch.cat([y[..., H * d:H * (d + 1)] @ w_hh[d] for d in (0, 1)], -1)
 
 
@@ -171,10 +219,14 @@ def bigru_backward_sweep_ref(xg, y, z, dy_sent, dy_pos, lengths, w_hh, b_hh):
     from the hg pass's Z (N, L, 6H) at the step where y holds h_prev, and
     no dW.  Where h_prev is known to be zero (tp outside [0, length)) hg
     is b_hh alone.  -> (dxg (N, L, 6H), ghn (N, L, 2H) = dn * r, the
-    third part of ghh; both zero at invalid steps)."""
+    third part of ghh; both zero at invalid steps), f32 and unrounded
+    (in bf16 the kernel stores dxg rounded and keeps [dr | dz] in f32
+    for the dW pass)."""
+    rnd = _rounder(xg.dtype)
     N, L, _ = xg.shape
     H = w_hh.shape[1]
-    dy = dy_sent + dy_pos.reshape(N, L, 2 * H)
+    dy = _dy_sum(dy_sent, dy_pos, (N, L, 2 * H))
+    xg, y, w_hh, b_hh = _widen(xg), _widen(y), _widen(w_hh), _widen(b_hh)
     dxg = xg.new_zeros(N, L, 6 * H)
     ghn = xg.new_zeros(N, L, 2 * H)
     for d, steps in ((0, range(L - 1, -1, -1)), (1, range(L))):
@@ -199,17 +251,20 @@ def bigru_backward_sweep_ref(xg, y, z, dy_sent, dy_pos, lengths, w_hh, b_hh):
             dxg[:, t, 3 * H * d:3 * H * (d + 1)] = torch.cat([dr, dz, dn], 1)
             ghn[:, t, H * d:H * (d + 1)] = dn * r
             ghh = torch.cat([dr, dz, dn * r], 1)
-            g = torch.where(valid, g * zg + ghh @ w_hh[d].t(), g)
+            g = torch.where(valid, g * zg + rnd(ghh) @ w_hh[d].t(), g)
     return dxg, ghn
 
 
 def bigru_backward_dw_ref(y, dxg, ghn):
     """Plain version of K3's dW pass over the N*L rows m = n L + t:
     dW_hh[d] = sum_m h_prev[m]^T ghh[m], db_hh[d] = sum_m ghh[m], with ghh
-    = [dr | dz | dn r] from dxg and ghn and h_prev the row m - 1 (fwd) or
-    m + 1 (bwd) of y, zero at each direction's first step (t = 0 fwd,
-    t = L - 1 bwd), where the shifted row belongs to another sentence.
-    -> (dw_hh (2, H, 3H), db_hh (2, 3H))."""
+    = [dr | dz | dn r] from dxg and ghn (f32, the sweep's) and h_prev the
+    row m - 1 (fwd) or m + 1 (bwd) of y, zero at each direction's first
+    step (t = 0 fwd, t = L - 1 bwd), where the shifted row belongs to
+    another sentence.  A bf16 y rounds the ghh operand of the product, not
+    db's.  -> (dw_hh (2, H, 3H), db_hh (2, 3H)), f32."""
+    rnd = _rounder(y.dtype)
+    y = _widen(y)
     N, L, H2 = y.shape
     H, M = H2 // 2, N * L
     yf, dxf, gnf = y.reshape(M, H2), dxg.reshape(M, 3 * H2), ghn.reshape(M, H2)
@@ -224,14 +279,15 @@ def bigru_backward_dw_ref(y, dxg, ghn):
         else:
             hp[:-1] = yf[1:, H:]
             hp[t == L - 1] = 0.0
-        dw.append(hp.t() @ ghh)
+        dw.append(hp.t() @ rnd(ghh))
         db.append(ghh.sum(0))
     return torch.stack(dw), torch.stack(db)
 
 
 def gru_input_proj_bwd_ref(x, dxg):
     """Plain version of K4: x (M, E), dxg (M, 6H) -> (dw_ih (E, 6H),
-    db_ih (6H,))."""
+    db_ih (6H,)), f32 sums of the products in f32 or bf16 IO."""
+    x, dxg = _widen(x), _widen(dxg)
     return x.t() @ dxg, dxg.sum(0)
 
 
@@ -244,7 +300,7 @@ def _check(name, t, dtype, ndim, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype} only")
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype} here")
     if t.dim() != ndim:
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
@@ -264,41 +320,56 @@ def _device_kernel(name, *tensors, node="ops.gru.BiGRUSplit"):
         raise ValueError(f"{name}: unsupported device {tensors[0].device}")
 
 
-def _launch(name, argtypes, *args):
-    fn, error_string = _build.kernel_function(name, argtypes)
+def _io(name, t):
+    """The IO type of a K1-K4 call: float32 or bfloat16 (K5-K9 take
+    float32 only: their bf16 variants are ROADMAP A5's next item)."""
+    if t.dtype not in (torch.float32, BF16):
+        raise TypeError(f"{name}: {t.dtype}; the kernel takes float32 or bfloat16")
+    return t.dtype
+
+
+def _launch(name, argtypes, *args, io=torch.float32):
+    """Launch the C entry point `name` (f32) or `name`_bf16 on torch's
+    current stream; raise if the launch failed."""
+    symbol = name if io == torch.float32 else f"{name}_bf16"
+    fn, error_string = _build.kernel_function(name, argtypes, symbol)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {error_string(err).decode()}")
 
 
 def gru_input_proj(x, w, b):
-    """K1: x (M, E) f32 @ w (E, 6H) f32 + b (6H,) f32 -> xg (M, 6H) f32."""
+    """K1: x (M, E) @ w (E, 6H) + b (6H,) -> xg (M, 6H), all float32 or
+    all bfloat16 (f32 accumulation, xg rounded on store)."""
     if x.device.type == "cpu":
         return gru_input_proj_ref(x, w, b)
     _device_kernel("gru_input_proj", x, w, b)
+    io = _io("gru_input_proj", x)
     for name, t, nd in (("x", x, 2), ("w", w, 2), ("b", b, 1)):
-        _check(name, t, torch.float32, nd, x.device)
+        _check(name, t, io, nd, x.device)
     M, E = x.shape
     if w.shape[0] != E or b.shape[0] != w.shape[1]:
         raise ValueError(f"gru_input_proj: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)} disagree")
-    out = torch.empty(M, w.shape[1], device=x.device, dtype=torch.float32)
+    out = torch.empty(M, w.shape[1], device=x.device, dtype=io)
     _launch("gru_input_proj", [_P] * 4 + [_I] * 3 + [_P],
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            M, E, w.shape[1])
+            M, E, w.shape[1], io=io)
     gru_input_proj.launches += 1
+    gru_input_proj.launches_bf16 += io == BF16
     return out
 
 
-gru_input_proj.launches = 0
+gru_input_proj.launches = gru_input_proj.launches_bf16 = 0
 
 
 def _check_recurrence(name, xg, lengths, w_hh, b_hh):
     """Checks shared by K2 and K3; returns (N, L, H)."""
-    _check("xg", xg, torch.float32, 3, xg.device)
+    io = _io(name, xg)
+    _check("xg", xg, io, 3, xg.device)
     _check("lengths", lengths, torch.int32, 1, xg.device)
-    _check("w_hh", w_hh, torch.float32, 3, xg.device)
-    _check("b_hh", b_hh, torch.float32, 2, xg.device)
+    _check("w_hh", w_hh, io, 3, xg.device)
+    _check("b_hh", b_hh, io, 2, xg.device)
     N, L, G6 = xg.shape
     H = w_hh.shape[1]
     if (G6 != 6 * H or tuple(w_hh.shape) != (2, H, 3 * H)
@@ -320,8 +391,8 @@ def _scratch(name, N, H, device):
 
 
 def bigru_recurrence(xg, lengths, w_hh, b_hh):
-    """K2: xg (N, L, 6H) f32, lengths (N,) int32, w_hh (2, H, 3H) f32,
-    b_hh (2, 3H) f32 -> y (N, L, 2H) f32.
+    """K2: xg (N, L, 6H), lengths (N,) int32, w_hh (2, H, 3H), b_hh
+    (2, 3H) -> y (N, L, 2H); float32 or bfloat16 IO, the state f32.
 
     Up to H = 128 one launch of the C entry point orders the rows by
     length (a counting sort) and runs the recurrence over 16-row tiles of
@@ -331,17 +402,18 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
         return bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
     _device_kernel("bigru_recurrence", xg, w_hh, b_hh)
     N, L, H = _check_recurrence("bigru_recurrence", xg, lengths, w_hh, b_hh)
-    y = torch.empty(N, L, 2 * H, device=xg.device, dtype=torch.float32)
+    y = torch.empty(N, L, 2 * H, device=xg.device, dtype=xg.dtype)
     order = torch.empty(N, device=xg.device, dtype=torch.int32)  # the rows by length (H <= 128)
     scratch = _scratch("bigru_recurrence", N, H, xg.device)
     _launch("bigru_recurrence", [_P] * 7 + [_I] * 3 + [_P],
             xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            y.data_ptr(), order.data_ptr(), scratch.data_ptr(), N, L, H)
+            y.data_ptr(), order.data_ptr(), scratch.data_ptr(), N, L, H, io=xg.dtype)
     bigru_recurrence.launches += 1
+    bigru_recurrence.launches_bf16 += xg.dtype == BF16
     return y
 
 
-bigru_recurrence.launches = 0
+bigru_recurrence.launches = bigru_recurrence.launches_bf16 = 0
 
 PROJ_BWD_STEP = 32  # rows per K4 pipeline stage (csrc/gru_input_proj_bwd.cu STEP)
 # K4 splits the rows into chunks, each one block per 128-column tile of 6H
@@ -384,20 +456,23 @@ def bwd_chunks(M):
 def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
     """K3: xg (N, L, 6H), y (N, L, 2H), dy_sent (N, L, 2H), dy_pos (any
     shape of N*L*2H elements, read as (N, L, 2H)), lengths (N,) int32,
-    w_hh (2, H, 3H), b_hh (2, 3H), f32 -> (dxg (N, L, 6H), dw_hh
-    (2, H, 3H), db_hh (2, 3H)).
+    w_hh (2, H, 3H), b_hh (2, 3H), float32 or bfloat16 -> (dxg (N, L, 6H)
+    in the IO type, dw_hh (2, H, 3H) f32, db_hh (2, 3H) f32).
 
     One launch of the C entry point runs the hg pass, the sweep (its rows
     ordered by length) and the dW pass, whose partials
     (``bwd_chunks(N*L)``) a last kernel sums in a fixed order (no float
-    atomics), so the result is the same on every run."""
+    atomics), so the result is the same on every run.  In f32 the hg
+    pass's Z lives in dxg's buffer; in bf16 in an f32 buffer of its own,
+    where the sweep leaves the unrounded [dr | dz] for the dW pass."""
     if xg.device.type == "cpu":
         return bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
     _device_kernel("bigru_backward", xg, y, dy_sent, dy_pos, w_hh, b_hh)
     N, L, H = _check_recurrence("bigru_backward", xg, lengths, w_hh, b_hh)
-    _check("y", y, torch.float32, 3, xg.device)
-    _check("dy_sent", dy_sent, torch.float32, 3, xg.device)
-    _check("dy_pos", dy_pos, torch.float32, dy_pos.dim(), xg.device)
+    io = xg.dtype
+    _check("y", y, io, 3, xg.device)
+    _check("dy_sent", dy_sent, io, 3, xg.device)
+    _check("dy_pos", dy_pos, io, dy_pos.dim(), xg.device)
     if (tuple(y.shape) != (N, L, 2 * H) or tuple(dy_sent.shape) != (N, L, 2 * H)
             or dy_pos.numel() != N * L * 2 * H):
         raise ValueError(
@@ -406,26 +481,28 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
             f"fit N={N}, L={L}, H={H}")
     dev, f32 = xg.device, torch.float32
     w_hh_t = (w_hh.transpose(1, 2).contiguous() if H > BWD_SWEEP_MAX_H
-              else torch.empty(0, device=dev, dtype=f32))
+              else torch.empty(0, device=dev, dtype=io))
     rows, chunks = bwd_chunks(N * L)
-    dxg = torch.empty(N, L, 6 * H, device=dev, dtype=f32)  # holds the hg pass's Z first
+    dxg = torch.empty(N, L, 6 * H, device=dev, dtype=io)  # f32: holds the hg pass's Z first
+    zbuf = dxg if io == f32 else torch.empty(N, L, 6 * H, device=dev, dtype=f32)
     ghn = torch.empty(N, L, 2 * H, device=dev, dtype=f32)
     order = torch.empty(N, device=dev, dtype=torch.int32)  # the sweep's rows by length
     scratch = _scratch("bigru_backward", N, H, dev)
     part = torch.empty(chunks * 2 * (H + 1) * 3 * H, device=dev, dtype=f32)
     out = torch.empty(2 * (H + 1) * 3 * H, device=dev, dtype=f32)
     n_dw = 2 * H * 3 * H
-    _launch("bigru_backward", [_P] * 16 + [_I] * 4 + [_P],
+    _launch("bigru_backward", [_P] * 17 + [_I] * 4 + [_P],
             xg.data_ptr(), y.data_ptr(), dy_sent.data_ptr(), dy_pos.data_ptr(),
             lengths.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-            dxg.data_ptr(), ghn.data_ptr(), order.data_ptr(), scratch.data_ptr(),
-            part.data_ptr(), part.data_ptr() + 4 * n_dw * chunks, out.data_ptr(),
-            out.data_ptr() + 4 * n_dw, N, L, H, rows)
+            dxg.data_ptr(), zbuf.data_ptr(), ghn.data_ptr(), order.data_ptr(),
+            scratch.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * n_dw * chunks,
+            out.data_ptr(), out.data_ptr() + 4 * n_dw, N, L, H, rows, io=io)
     bigru_backward.launches += 1
+    bigru_backward.launches_bf16 += io == BF16
     return dxg, out[:n_dw].view(2, H, 3 * H), out[n_dw:].view(2, 3 * H)
 
 
-bigru_backward.launches = 0
+bigru_backward.launches = bigru_backward.launches_bf16 = 0
 
 
 def proj_bwd_chunks(M):
@@ -436,7 +513,8 @@ def proj_bwd_chunks(M):
 
 
 def gru_input_proj_bwd(x, dxg):
-    """K4: x (M, E) f32, dxg (M, 6H) f32 -> (dw_ih (E, 6H), db_ih (6H,)).
+    """K4: x (M, E), dxg (M, 6H), both float32 or both bfloat16 ->
+    (dw_ih (E, 6H), db_ih (6H,)), f32.
 
     One launch of the C entry point runs two kernels: the first reduces
     each chunk of rows (``proj_bwd_chunks``) into a dW and a db partial,
@@ -445,8 +523,9 @@ def gru_input_proj_bwd(x, dxg):
     if x.device.type == "cpu":
         return gru_input_proj_bwd_ref(x, dxg)
     _device_kernel("gru_input_proj_bwd", x, dxg)
-    _check("x", x, torch.float32, 2, x.device)
-    _check("dxg", dxg, torch.float32, 2, x.device)
+    io = _io("gru_input_proj_bwd", x)
+    _check("x", x, io, 2, x.device)
+    _check("dxg", dxg, io, 2, x.device)
     M, E = x.shape
     G = dxg.shape[1]
     if dxg.shape[0] != M:
@@ -459,12 +538,13 @@ def gru_input_proj_bwd(x, dxg):
     _launch("gru_input_proj_bwd", [_P] * 6 + [_I] * 4 + [_P],
             x.data_ptr(), dxg.data_ptr(), part.data_ptr(),
             part.data_ptr() + 4 * E * G * chunks, out.data_ptr(),
-            out.data_ptr() + 4 * E * G, M, E, G, rows)
+            out.data_ptr() + 4 * E * G, M, E, G, rows, io=io)
     gru_input_proj_bwd.launches += 1
+    gru_input_proj_bwd.launches_bf16 += io == BF16
     return out[:E * G].view(E, G), out[E * G:]
 
 
-gru_input_proj_bwd.launches = 0
+gru_input_proj_bwd.launches = gru_input_proj_bwd.launches_bf16 = 0
 
 
 def gru_input_proj_dx(dxg, w):
@@ -493,6 +573,11 @@ KERNELS = (gru_input_proj, bigru_recurrence, bigru_backward, gru_input_proj_bwd,
            gru_input_proj_dx)
 
 
+BF16_KERNELS = KERNELS[:4]  # K1-K4 have bf16 variants
+
+
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+    for k in BF16_KERNELS:
+        k.launches_bf16 = 0
