@@ -114,14 +114,31 @@
    against f32 in turns; full UMPR at 224 px, one train step and the
    serving forward against f32 (loss within 0.05, predictions within
    0.08); a bf16 UMPR-R resume, bit-equal.
-14. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
+14. The rest of ``--compute_dtype bfloat16`` and export: K5/K6's bf16
+   variants at the three fused VGG blocks (yp, idx, dx bit-equal, db
+   within one ulp) and K9's at the UMPR-R shape (within one ulp), timed
+   beside the bf16 library calls; a bf16 x's gradient through
+   ``bigru_split`` (K9 bf16, card against CPU); then through
+   ``umpr_tpu_torch.main.main``, one epoch each in bf16: full UMPR at 224
+   px with ``--vgg_fused_pool True`` (every K5/K6 launch bf16; fused
+   against the composite pool in turns: step, forward, peak memory),
+   long-history UMPR-R (every K7/K8 launch on f32-widened inputs; step
+   and forward against f32) and ``--gru_size 100`` (the bf16 scan, no
+   kernel; step at k = 1 and as a graph of 4 against f32, predictions
+   within 0.08); then ``python -m umpr_tpu_torch.export`` on the card for
+   UMPR-R and full UMPR at 224 px, f32 and bf16, each artifact against
+   the Predictor's model (1e-4 in f32, 0.08 in bf16) and timed beside
+   it, and a UMPR-R artifact traced on the CPU moved to the card (1e-5).
+15. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
    ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line,
-   ``{"streaming_build": ...}``, ``{"bf16": ...}`` and a ``{"kernels":
-   [...]}`` line (launches: each kernel's main path -- the full-UMPR run
-   for K1-K6, the long-history training for K7/K8, the input-gradient run
-   for K9, bf16 UMPR-R training for the four bf16 rows -- and the other
-   runs' beside them, the remat step's among them), then, as the last
-   line, ``{"ok": true, "device": {...}}``.
+   ``{"streaming_build": ...}``, ``{"bf16": ...}``, ``{"bf16_paths":
+   ...}``, ``{"export": ...}`` and a ``{"kernels": [...]}`` line
+   (launches: each kernel's main path -- the full-UMPR run for K1-K6, the
+   long-history training for K7/K8, the input-gradient run for K9, bf16
+   UMPR-R training for the bf16 K1-K4 rows, bf16 full UMPR with the fused
+   pool for the bf16 K5/K6 rows, the bf16 input gradient for K9's -- and
+   the other runs' beside them, the remat step's among them), then, as
+   the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
@@ -1022,23 +1039,31 @@ def pool_kernel_phase(device, shapes=POOL_SHAPES):
         del x, dyp, yp, idx, dx, xr, br, out, dout
         torch.cuda.empty_cache()
 
+    return pool_rows(per_shape, errs)
+
+
+POOL_ROWS = (("bias_relu_pool", "bias_relu_pool.cu", "umpr_tpu/ops/pool_pallas.py:127",
+              "F.max_pool2d(F.relu(x + b), 2, return_indices=True) on the NCHW view"),
+             ("bias_relu_pool_bwd", "bias_relu_pool_bwd.cu", "umpr_tpu/ops/pool_pallas.py:152",
+              "torch.autograd.grad of that max_pool2d(relu(x + b)) w.r.t. x and b"))
+
+
+def pool_rows(per_shape, errs, suffix="", **extra):
+    """K5's and K6's kernel rows: each timing summed over the shapes (the
+    numbers of one train step), the shapes' own beside them."""
     kernel_rows = []
-    for name, src, replaces, call in (
-            ("bias_relu_pool", "bias_relu_pool.cu", "umpr_tpu/ops/pool_pallas.py:127",
-             "F.max_pool2d(F.relu(x + b), 2, return_indices=True) on the NCHW view"),
-            ("bias_relu_pool_bwd", "bias_relu_pool_bwd.cu",
-             "umpr_tpu/ops/pool_pallas.py:152",
-             "torch.autograd.grad of that max_pool2d(relu(x + b)) w.r.t. x and b")):
+    for base, src, replaces, call in POOL_ROWS:
+        name = base + suffix
         parts = per_shape[name]
         total = {k: None if any(p[k] is None for p in parts) else sum(p[k] for p in parts)
                  for k in ("ms", "plain_ms", "device_ms", "library_ms", "library_device_ms",
                            "bound_ms")}
         kernel_rows.append({
             "name": name, "route": "cuda", "source": f"umpr_tpu_torch/csrc/{src}",
-            "replaces": replaces, "max_abs_err": errs[name], **total,
+            "replaces": replaces, **extra, "max_abs_err": errs[name], **total,
             "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in parts)
             else "operations",
-            "library_call": call, "per_shape": parts})
+            "library_call": call + (" (bf16)" if suffix else ""), "per_shape": parts})
         print_row(kernel_rows[-1], f" per train step over {len(parts)} shapes")
         print("  per shape " + ", ".join(
             f"{p['x']}: {p['ms']:.4f}, device {_ms(p['device_ms'])} vs bound "
@@ -2902,12 +2927,18 @@ def a5_runtime_phase(device_name):
             "seconds": seconds, "remat_launches": remat["launches"]}
 
 
-def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20):
+BF16_GRAD_TOL = 5e-2  # bf16 gradients: l2-relative (tests/test_torch_bf16.py)
+
+
+def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20,
+                     dtype=torch.float32):
     """A gradient through ``bigru_split`` with x requiring grad, at the
     UMPR-R shapes, on the card (K1-K4 and K9) and on the CPU (plain
-    versions).  Returns the card run's launch counts."""
+    versions); in f32 within SUM_RTOL, with a bf16 x (every launch the
+    bf16 variant) within BF16_GRAD_TOL of the l2 norms.  Returns the card
+    run's launch counts."""
     g = torch.Generator().manual_seed(8)
-    x = torch.randn(N, L, E, generator=g) * 0.5
+    x = (torch.randn(N, L, E, generator=g) * 0.5).to(dtype)
     lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
     c_pos = torch.randn(N // S, S * L, 2 * H, generator=g)
     c_sent = torch.randn(N, L, 2 * H, generator=g)
@@ -2917,22 +2948,29 @@ def input_grad_phase(device_name, device="cuda", N=2560, L=20, E=50, H=64, S=20)
         xd = x.to(dev).detach().requires_grad_()  # a leaf on either device
         with main_path_counts() as (launches, plain_calls):
             pos, sent = bigru_split(gru, xd, lengths.to(dev), S)
-            ((pos * c_pos.to(dev)).sum() + (sent * c_sent.to(dev)).sum()).backward()
+            ((pos.float() * c_pos.to(dev)).sum()
+             + (sent.float() * c_sent.to(dev)).sum()).backward()
             torch.cuda.synchronize()
-        grads[dev] = (xd.grad.cpu(), {n: p.grad.cpu() for n, p in gru.named_parameters()})
+            bf16_counts = {k.__name__: k.launches_bf16 for k in gru_cuda.KERNELS}
+        grads[dev] = (xd.grad.float().cpu(),
+                      {n: p.grad.cpu() for n, p in gru.named_parameters()})
     (card_dx, card_w), (cpu_dx, cpu_w) = grads[device], grads["cpu"]
-    dx_rel = _rel_err(card_dx, cpu_dx)
-    w_rel = max(_rel_err(card_w[n], w) for n, w in cpu_w.items())
-    print(f"bigru_split with x requiring grad (N={N}, L={L}, E={E}, H={H}) on "
-          f"{device_name}: dx card vs "
-          f"CPU max relative diff {dx_rel:.3e}, weights {w_rel:.3e} (tolerance "
-          f"{SUM_RTOL:.0e}); launches {launches}; plain versions on the card "
-          f"{plain_calls[0]}")
+    if dtype == torch.float32:
+        err, tol = _rel_err, SUM_RTOL
+    else:
+        err, tol = (lambda a, b: _l2_rel(a, b, 1e-30)), BF16_GRAD_TOL
+    dx_rel = err(card_dx, cpu_dx)
+    w_rel = max(err(card_w[n], w) for n, w in cpu_w.items())
+    print(f"bigru_split with a {dtype} x requiring grad (N={N}, L={L}, E={E}, H={H}) on "
+          f"{device_name}: dx card vs CPU relative diff {dx_rel:.3e}, weights {w_rel:.3e} "
+          f"(tolerance {tol:.0e}); launches {launches}, bf16 {bf16_counts}; plain "
+          f"versions on the card {plain_calls[0]}")
     want = (dict.fromkeys(launches, 0)
             | dict.fromkeys(FORWARD + GRU_BACKWARD + ("gru_input_proj_dx",), 1))
-    if plain_calls[0] or launches != want:
+    if plain_calls[0] or launches != want or (
+            dtype == torch.bfloat16 and bf16_counts != {k: launches[k] for k in bf16_counts}):
         raise AssertionError(f"input-gradient launches {launches}, expected {want}")
-    if not (dx_rel <= SUM_RTOL and w_rel <= SUM_RTOL):
+    if not (dx_rel <= tol and w_rel <= tol):
         raise AssertionError("card and CPU input gradients disagree")
     return launches
 
@@ -3177,8 +3215,11 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=(400, 520, 521)):
     return rows
 
 
+BF16_GRU = gru_cuda.KERNELS[:4]  # K1-K4: bf16 UMPR-R's main path
+
+
 def _bf16_launches():
-    return {k.__name__: k.launches_bf16 for k in gru_cuda.BF16_KERNELS}
+    return {k.__name__: k.launches_bf16 for k in BF16_GRU}
 
 
 def _predict_forward(model, batch):
@@ -3223,7 +3264,7 @@ def bf16_phase(device_name):
           f"logged {[{k: v for k, v in e.items() if k != 'ts'} for e in events]}")
     if plain_calls[0] or not values or not all(np.isfinite(v) for v in values):
         raise AssertionError("bf16 training ran a plain version or logged a non-finite value")
-    for k in gru_cuda.BF16_KERNELS:
+    for k in BF16_GRU:
         if not launches[k.__name__] or bf16_counts[k.__name__] != launches[k.__name__]:
             raise AssertionError(f"{k.__name__}: not every launch was the bf16 variant")
     if any(launches[k] for k in launches if k not in bf16_counts):
@@ -3318,7 +3359,7 @@ def bf16_full_umpr(device_name, batch, w2v):
     train_step(models["bfloat16"], opts["bfloat16"], fb)
     step_bf16 = _bf16_launches()
     if not all(step_bf16.values()) or any(
-            k.launches != k.launches_bf16 for k in gru_cuda.BF16_KERNELS):
+            k.launches != k.launches_bf16 for k in BF16_GRU):
         raise AssertionError(f"full UMPR bf16 step: not every K1-K4 launch in bf16: "
                              f"{step_bf16}")
     out["train_step"] = _turns(
@@ -3333,6 +3374,368 @@ def bf16_full_umpr(device_name, batch, w2v):
           f"turns, cudnn.deterministic): {out}")
     if not (pred_gap <= 0.08 and abs(l16 - l32) <= 0.05 + 0.05 * abs(l32)):
         raise AssertionError("bf16 full UMPR left the JAX package's bf16 bounds")
+    return out
+
+
+# ---- ROADMAP A5's end: bf16 K5, K6 and K9, the bf16 long-history route and
+# the bf16 scan; then A6, export
+
+def bf16_pool_dx_kernel_phase(device, shapes=POOL_SHAPES, M=51200, E=50, H=64):
+    """K5/K6's and K9's bf16 variants against their plain bf16 versions:
+    K5/K6 at the three fused VGG blocks (B=64, 224 px) on a coarse grid
+    (ties and all-negative windows occur), each row summed over the shapes
+    as the f32 rows are: yp, idx and dx bit-equal, db within one bf16 ulp;
+    K9 at the UMPR-R shape (M = 51,200, E = 50, H = 64), within one ulp but
+    for BF16_PAST_ULP's share near zero; the same bits twice.  Times beside
+    the bf16 library calls."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(15)
+    names = ("bias_relu_pool_bf16", "bias_relu_pool_bwd_bf16")
+    per_shape = {n: [] for n in names}
+    errs = dict.fromkeys(names, 0.0)
+    for shape in shapes:
+        N, Hh, W, C = shape
+        x = ((torch.randn(shape, generator=g, device=device) * 2).round() / 2).to(bf)
+        b = ((torch.randn(C, generator=g, device=device) * 0.4).round() / 4).to(bf)
+        dyp = torch.randn(N, Hh // 2, W // 2, C, generator=g, device=device).to(bf)
+        yp, idx = pool_cuda.bias_relu_pool(x, b)
+        dx, db = pool_cuda.bias_relu_pool_bwd(dyp, idx, yp)
+        torch.cuda.synchronize()
+        ref_yp, ref_idx = pool_cuda.bias_relu_pool_ref(x, b)
+        ref_dx, ref_db = pool_cuda.bias_relu_pool_bwd_ref(dyp, ref_idx, ref_yp)
+        exact = (torch.equal(yp, ref_yp), torch.equal(idx, ref_idx), torch.equal(dx, ref_dx))
+        errs[names[0]] = max(errs[names[0]], (yp.float() - ref_yp.float()).abs().max().item())
+        errs[names[1]] = max(errs[names[1]], (dx.float() - ref_dx.float()).abs().max().item(),
+                             _bf16_check(db, ref_db, f"K6 bf16 db at x {shape}"))
+        dead = (ref_yp == 0).float().mean().item()
+        del ref_yp, ref_idx, ref_dx
+        again = (*pool_cuda.bias_relu_pool(x, b), *pool_cuda.bias_relu_pool_bwd(dyp, idx, yp))
+        same = all(torch.equal(a, c) for a, c in zip(again, (yp, idx, dx, db)))
+        del again
+        print(f"K5/K6 bf16 at x {shape}: yp, idx, dx bit-equal to plain {exact}; second "
+              f"launch same bits {same}; windows pooled exactly 0 {dead:.1%}")
+        if not (all(exact) and same):
+            raise AssertionError(f"K5/K6 bf16 disagree with their plain versions at {shape}")
+        xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        br = b.view(1, C, 1, 1).detach().requires_grad_()
+        with torch.enable_grad():
+            out, _ = F.max_pool2d(F.relu(xr + br), 2, return_indices=True)
+        dout = dyp.permute(0, 3, 1, 2)
+        n_in, n_out = x.numel(), yp.numel()
+        rows = ((names[0], lambda: pool_cuda.bias_relu_pool(x, b),
+                 lambda: pool_cuda.bias_relu_pool_ref(x, b),
+                 lambda: F.max_pool2d(F.relu(xr.detach() + br.detach()), 2,
+                                      return_indices=True),
+                 bound(2 * (n_in + C + n_out) + n_out, 5 * n_in)),
+                (names[1], lambda: pool_cuda.bias_relu_pool_bwd(dyp, idx, yp),
+                 lambda: pool_cuda.bias_relu_pool_bwd_ref(dyp, idx, yp),
+                 lambda: torch.autograd.grad(out, (xr, br), dout, retain_graph=True),
+                 bound(2 * (2 * n_out + n_in + C) + n_out, 8 * n_out)))
+        for name, kernel, plain, library, (t_bound, by) in rows:
+            per_shape[name].append({
+                "x": list(shape),
+                **timed(kernel, plain, library, iters=10, plain_iters=3, lib_iters=10),
+                "bound_ms": t_bound, "bound_by": by})
+        del x, dyp, yp, idx, dx, xr, br, out, dout
+        torch.cuda.empty_cache()
+    kernel_rows = pool_rows(per_shape, errs, "_bf16", io="bfloat16")
+
+    gd = torch.Generator(device=device).manual_seed(7)
+    dxg = torch.randn(M, 6 * H, generator=gd, device=device).to(bf)
+    w = (torch.randn(E, 6 * H, generator=gd, device=device) / (6 * H) ** 0.5).to(bf)
+    k9 = lambda: gru_cuda.gru_input_proj_dx(dxg, w)  # noqa: E731
+    dx9 = k9()
+    torch.cuda.synchronize()
+    err = _bf16_check(dx9, gru_cuda.gru_input_proj_dx_ref(dxg, w), "K9 bf16")
+    if not torch.equal(k9(), dx9):
+        raise AssertionError("K9 bf16: a second launch gave other bits")
+    # bf16 products at the bf16 rate; the two directions' rounded sum on the CUDA cores
+    t_bound, by = bound(2 * (dxg.numel() + w.numel() + dx9.numel()), M * E,
+                        bf16_flops=2 * M * 6 * H * E)
+    row = {"name": "gru_input_proj_dx_bf16", "route": "cuda",
+           "source": "umpr_tpu_torch/csrc/gru_input_proj_dx.cu",
+           "replaces": "umpr_tpu/ops/gru_pallas.py:394", "replaces_branch": "emit_dxc=True",
+           "io": "bfloat16", "max_abs_err": err,
+           **timed(k9, lambda: gru_cuda.gru_input_proj_dx_ref(dxg, w),
+                   lambda: torch.mm(dxg, w.t())),
+           "bound_ms": t_bound, "bound_by": by, "library_call": "torch.mm(dxg, w_ih.t()) (bf16)"}
+    print_row(row)
+    return kernel_rows + [row]
+
+
+def _bf16_train(device_name, work, flags, corpus=None):
+    """bf16 training through ``umpr_tpu_torch.main.main`` (one epoch, the
+    initial validation and the test pass) on a fresh corpus: (trainer,
+    launches, glove path).  No plain version may run on the card, every
+    launch of K1-K6 and K9 must be its bf16 variant and every logged value
+    finite."""
+    root = WORK / work
+    shutil.rmtree(root, ignore_errors=True)
+    glove = write_splits(root, seed=1, shards=5, **(corpus or {}))
+    argv = ["--data_dir", str(root), "--word2vec_file", str(glove), "--train_epochs", "1",
+            "--learning_rate", "1e-3", "--eval_every", "1000", "--compute_dtype", "bfloat16",
+            "--model_path", str(root / "model"), "--log_path", str(root / "train.log"),
+            "--metrics_jsonl", str(root / "metrics.jsonl"), *STREAMING, *flags]
+    with main_path_counts() as (launches, plain_calls):
+        trainer = train_main.main(argv)
+        # K7/K8 have no bf16 variant: the bf16 route widens their inputs
+        bf16_counts = {k.__name__: k.launches_bf16 for m in (gru_cuda, pool_cuda)
+                       for k in m.KERNELS}
+    events = [json.loads(line) for line in open(root / "metrics.jsonl")]
+    values = [v for e in events for k, v in e.items()
+              if k in ("train_loss", "valid_mse", "test_mse")]
+    print(f"bf16 training {work} on {device_name}: {trainer.batch_counter} steps, "
+          f"launches {launches}, bf16 {bf16_counts}; logged "
+          f"{[{k: v for k, v in e.items() if k != 'ts'} for e in events]}")
+    if plain_calls[0] or not values or not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"{work}: a plain version ran on the card or a value was "
+                             "not finite")
+    if bf16_counts != {k: launches[k] for k in bf16_counts}:
+        raise AssertionError(f"{work}: not every launch was a bf16 variant")
+    return trainer, launches, glove
+
+
+def _twin(model, **dims):
+    """A copy of `model` (its weights, on its device) with ModelDims fields
+    replaced by `dims` (compute_dtype, vgg_fused_pool)."""
+    twin = UMPR(dataclasses.replace(model.dims, **dims),
+                np.zeros(tuple(model.embedding.weight.shape), np.float32))
+    twin.load_state_dict(model.state_dict())
+    return twin.to(model.embedding.weight.device)
+
+
+def _twins(trainer, dtypes, **dims):
+    """_twin's of `trainer`'s model under each compute dtype, and Adam at
+    lr 1e-6 for each."""
+    models = {name: _twin(trainer.model, compute_dtype=name, **dims) for name in dtypes}
+    return models, {name: make_optimizer(m, trainer.config.l2_regularization, 1e-6)
+                    for name, m in models.items()}
+
+
+def bf16_paths_phase(device_name):
+    """--compute_dtype bfloat16 on the paths of bf16 K5/K6, the widened
+    long-history route and the bf16 scan, each path trained
+    through ``umpr_tpu_torch.main.main`` (one epoch) with the launch
+    counts zeroed before it and read after it:
+    - full UMPR at 224 px with --vgg_fused_pool True: K5/K6 in bf16 only;
+      then on its weights, fused against the composite pool in turns
+      (train step, forward, peak memory);
+    - long-history UMPR-R (P = 8192): every K7/K8 launch on f32-widened
+      inputs; train step and forward against f32 in turns;
+    - --gru_size 100 (the bf16 scan): no K1-K4 launch; step ms at k = 1
+      and as a graph of 4 against f32's, and predictions within 0.08 of
+      f32's (the JAX package's bf16 bound).
+    Returns ({path: launches}, numbers)."""
+    use_seeded_photos()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the Trainer sets it
+    launches, out = {}, {}
+
+    trainer, launches["full_umpr_fused"], glove = _bf16_train(
+        device_name, "bf16_full", ("--review_net_only", "False", "--vgg_fused_pool", "True",
+                                   "--seed", "2", "--data_workers", "4"))
+    if not all(launches["full_umpr_fused"][k] for k in ("bias_relu_pool",
+                                                         "bias_relu_pool_bwd")):
+        raise AssertionError("bf16 full UMPR with the fused pool launched no K5/K6")
+    cfg = trainer.config
+    ds = build_dataset(str(WORK / "bf16_full" / "train.csv"),
+                       str(WORK / "bf16_full" / "photos.json"),
+                       str(WORK / "bf16_full" / "photos"), Word2vec(str(glove)), cfg)
+    batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))), trainer.device)
+    gp = torch.Generator(device=trainer.device).manual_seed(7)
+    px = cfg.photo_size
+    batch["photos"] = torch.randint(0, 256, (cfg.batch_size, 1, 1, px, px, 3), generator=gp,
+                                    device=trainer.device, dtype=torch.uint8)
+    models, opts = {}, {}
+    for fused in (True, False):
+        m, o = _twins(trainer, ("bfloat16",), vgg_fused_pool=fused)
+        models[fused], opts[fused] = m["bfloat16"], o["bfloat16"]
+    del trainer
+    pool_cuda.reset_launches()
+    train_step(models[True], opts[True], batch)
+    step_counts = {k.__name__: (k.launches, k.launches_bf16) for k in pool_cuda.KERNELS}
+    res = {"launches_per_step": step_counts}
+    res["train_step"] = _turns({f"fused_{f}": (lambda f=f: train_step(models[f], opts[f], batch))
+                                for f in (True, False)}, 3)
+    for f in (True, False):
+        _, peak, _ = _peak(lambda f=f: train_step(models[f], opts[f], batch))
+        res["train_step"][f"fused_{f}"]["peak_bytes"] = peak
+    with torch.inference_mode():
+        for m in models.values():
+            m.eval()
+        preds = {f: m(batch)[0].float() for f, m in models.items()}
+        res["forward"] = _turns({f"fused_{f}": (lambda f=f: _predict_forward(models[f], batch))
+                                 for f in (True, False)}, 5)
+    res["pred_gap_fused_vs_composite"] = (preds[True] - preds[False]).abs().max().item()
+    print(f"full UMPR bf16 at {px} px on {device_name}, --vgg_fused_pool True against False "
+          f"(CUDA events, in turns, cudnn.deterministic): {res}")
+    fused = sum(1 for h in (px >> k for k in range(5)) if h >= FUSED_POOL_MIN_H and h % 2 == 0)
+    if step_counts != dict.fromkeys(("bias_relu_pool", "bias_relu_pool_bwd"), (fused, fused)):
+        raise AssertionError(f"a bf16 fused train step launched {step_counts}")
+    out["full_umpr_fused"] = res
+    del models, opts, batch
+    torch.cuda.empty_cache()
+
+    # the kernel path's node sees bf16 inputs; K7/K8's wrappers take f32
+    # only, so each of their launches ran on the node's widened copies
+    node_inputs = []
+    apply = attention.AffinityAttention.apply
+    attention.AffinityAttention.apply = staticmethod(
+        lambda *a: node_inputs.append(a[0].dtype) or apply(*a))
+    try:
+        trainer, launches["long_history"], glove = _bf16_train(
+            device_name, "bf16_long", ("--review_net_only", "True") + LONG_FLAGS, LONG_CORPUS)
+    finally:
+        del attention.AffinityAttention.apply  # the inherited one again
+    if not node_inputs or set(node_inputs) != {torch.bfloat16} or not (
+            len(node_inputs) == launches["long_history"]["affinity_tiles"]
+            == launches["long_history"]["affinity_finish"]):
+        raise AssertionError(f"long-history bf16: {len(node_inputs)} kernel-path calls on "
+                             f"{set(node_inputs)}, launches {launches['long_history']}")
+    cfg = trainer.config
+    ds = build_dataset(str(WORK / "bf16_long" / "train.csv"),
+                       str(WORK / "bf16_long" / "photos.json"),
+                       str(WORK / "bf16_long" / "photos"), Word2vec(str(glove)), cfg)
+    batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))), trainer.device)
+    models, opts = _twins(trainer, ("float32", "bfloat16"))
+    del trainer
+    res = {"bf16_calls_widened_for_k7_k8": len(node_inputs)}
+    res["train_step"] = _turns({n: (lambda n=n: train_step(models[n], opts[n], batch))
+                                for n in models}, 3)
+    with torch.inference_mode():
+        for m in models.values():
+            m.eval()
+        preds = {n: _predict_forward(m, batch).float() for n, m in models.items()}
+        res["forward"] = _turns({n: (lambda n=n: _predict_forward(models[n], batch))
+                                 for n in models}, 5)
+    res["pred_gap"] = (preds["bfloat16"] - preds["float32"]).abs().max().item()
+    print(f"long-history UMPR-R bf16 on {device_name} against f32 (CUDA events, in "
+          f"turns): {res}")
+    if not res["pred_gap"] <= 0.08:
+        raise AssertionError("long-history bf16 predictions left the JAX bf16 bound")
+    out["long_history"] = res
+    del models, opts, batch
+    torch.cuda.empty_cache()
+
+    trainer, launches["gru_size_100"], glove = _bf16_train(
+        device_name, "bf16_gru100", ("--review_net_only", "True", "--gru_size", "100",
+                                     "--seed", "5"))
+    if any(launches["gru_size_100"][k.__name__] for k in gru_cuda.KERNELS):
+        raise AssertionError(f"bf16 --gru_size 100 launched {launches['gru_size_100']}")
+    cfg = trainer.config
+    ds = build_dataset(str(WORK / "bf16_gru100" / "train.csv"),
+                       str(WORK / "bf16_gru100" / "photos.json"),
+                       str(WORK / "bf16_gru100" / "photos"), Word2vec(str(glove)), cfg)
+    batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))), trainer.device)
+    models, opts = _twins(trainer, ("float32", "bfloat16"))
+    res = {"train_step_k1": _turns({n: (lambda n=n: train_step(models[n], opts[n], batch))
+                                    for n in models}, 10)}
+    res[f"train_step_k{DISPATCH_K}"] = {}
+    for n in ("float32", "bfloat16", "bfloat16", "float32"):
+        twin = SimpleNamespace(model=models[n], opt=opts[n], config=cfg, device=trainer.device)
+        ms, busy, wall = graph_step_ms(twin, ds)
+        res[f"train_step_k{DISPATCH_K}"].setdefault(n, []).append(
+            {"ms": ms, "idle": _idle(busy, wall)})
+    with torch.inference_mode():
+        for m in models.values():
+            m.eval()
+        preds = {n: _predict_forward(m, batch).float() for n, m in models.items()}
+    res["pred_gap"] = (preds["bfloat16"] - preds["float32"]).abs().max().item()
+    print(f"--gru_size 100 bf16 (the scan) on {device_name} against f32 (K1/K2, CUDA "
+          f"events, in turns): {res}")
+    if not res["pred_gap"] <= 0.08:
+        raise AssertionError("--gru_size 100 bf16 predictions left the JAX bf16 bound")
+    out["gru_size_100"] = res
+    torch.backends.cudnn.deterministic = deterministic
+    return launches, out
+
+
+EXPORT_TOL = {"float32": E2E_TOL, "bfloat16": 0.08}  # against the f32 Predictor
+
+
+def export_phase(device_name):
+    """ROADMAP A6: ``python -m umpr_tpu_torch.export`` (its main) on the
+    card for UMPR-R and full UMPR (224 px), f32 and bf16, from a seeded
+    best/; each artifact loaded with load_predict and scoring a loader
+    batch (full UMPR: seeded photos) against the f32 Predictor's model on
+    the kernel path (runtime maxima, as the artifact takes them): within
+    E2E_TOL in f32 and 0.08 in bf16.  Then UMPR-R exported on the CPU,
+    moved to the card by load_predict, against the card's export within
+    1e-5; each artifact's forward ms beside the Predictor's model in the
+    artifact's dtype (the kernel path), in turns."""
+    from umpr_tpu_torch import export
+    use_seeded_photos()
+    work = WORK / "export"
+    if work.exists():
+        shutil.rmtree(work)
+    glove, csv, _ = write_corpus(work, seed=0)
+    w2v = Word2vec(str(glove))
+    out = {}
+    for kind, flags in (("umpr_r", ("--review_net_only", "True")),
+                        ("full_umpr", ("--review_net_only", "False", "--seed", "2"))):
+        argv = [*flags, "--data_dir", str(work), "--word2vec_file", str(glove),
+                "--model_path", str(work / kind)]
+        cfg = Config(argv)
+        base = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                    torch.Generator().manual_seed(cfg.seed))
+        with torch.no_grad():
+            base.linear_fusion.bias.fill_(3.0)  # above the ReLU: the predictions compare
+        ckpt.save_best(str(work / kind), base)
+        predictor = serve.Predictor(cfg, w2v, str(work / kind))
+        ds = build_dataset(str(csv), str(work / "photos.json"), str(work / "photos"), w2v, cfg)
+        batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))), predictor.device)
+        if not cfg.review_net_only:
+            g = torch.Generator(device=predictor.device).manual_seed(3)
+            px = cfg.photo_size
+            batch["photos"] = torch.randint(0, 256, (cfg.batch_size, 1, 1, px, px, 3),
+                                            generator=g, device=predictor.device,
+                                            dtype=torch.uint8)
+        with torch.inference_mode():
+            want = predictor.model(batch)[0]
+        res = {}
+        for dt in ("float32", "bfloat16"):
+            # the artifact is timed beside the Predictor's model in its own dtype
+            model = predictor.model
+            if dt != "float32":
+                model = _twin(model, compute_dtype=dt).eval()
+            path = str(work / f"{kind}_{dt}.pt2")
+            t0 = time.perf_counter()
+            export.main(argv + ["--compute_dtype", dt, "--output", path])
+            export_s = time.perf_counter() - t0
+            meta = json.load(open(path + ".json"))
+            predict, params = export.load_predict(path)
+            inputs = {k: batch[k] for k in meta["input_keys"]}
+            got = predict(params, inputs)
+            gap = (got - want).abs().max().item()
+            with torch.inference_mode():
+                ms = _turns({"artifact": lambda: predict(params, inputs),
+                             "predictor_model": lambda: model(batch)}, 5)
+            res[dt] = {"gap": gap, "export_s": export_s, "device": meta["device"],
+                       "artifact_bytes": Path(path).stat().st_size, **ms}
+            print(f"export {kind} {dt} on {device_name}: exported in {export_s:.1f} s "
+                  f"(host clock), {res[dt]['artifact_bytes']} bytes; max |artifact - "
+                  f"Predictor f32| {gap:.3e} (tolerance {EXPORT_TOL[dt]}); forward ms "
+                  f"artifact {ms['artifact']['ms']:.3f}, the Predictor's model in {dt} "
+                  f"{ms['predictor_model']['ms']:.3f} (CUDA events, in turns)")
+            if not (meta["device"] == str(predictor.device) and gap <= EXPORT_TOL[dt]):
+                raise AssertionError(f"the {kind} {dt} artifact disagrees with the Predictor")
+            if kind == "umpr_r" and dt == "float32":
+                card = (predict, params, inputs, got)
+        out[kind] = res
+        del predictor, base, model
+        torch.cuda.empty_cache()
+    predict, params, inputs, got = card
+    path = str(work / "umpr_r_cpu.pt2")
+    export.main(["--review_net_only", "True", "--data_dir", str(work), "--word2vec_file",
+                 str(glove), "--model_path", str(work / "umpr_r"), "--device", "cpu",
+                 "--output", path])
+    moved, moved_params = export.load_predict(path, got.device)
+    gap = (moved(moved_params, inputs) - got).abs().max().item()
+    print(f"export: UMPR-R traced on the CPU, moved to the card: max |moved - card's own "
+          f"export| {gap:.3e} (tolerance 1e-5)")
+    if not gap <= 1e-5:
+        raise AssertionError("the CPU artifact moved to the card disagrees with the card's")
+    out["cpu_artifact_on_card_gap"] = gap
     return out
 
 
@@ -3387,12 +3790,16 @@ def main():
         kernels += phase("pool kernels", pool_kernel_phase, device)
         kernels += phase("attention kernels", attention_kernel_phase, device)
         bf16_kernels = phase("bf16 gru kernels", bf16_kernel_phase, device)
+        bf16_kernels += phase("bf16 pool and input-gradient kernels",
+                              bf16_pool_dx_kernel_phase, device)
     streaming = phase("streaming build", streaming_build_phase, card)
     served = phase("UMPR-R serving", serve_phase, card)
     trained = phase("UMPR-R training", train_phase, card)
     full = phase("full UMPR training", full_train_phase, card)
     full_served = phase("full UMPR serving", full_serve_phase, card)
     input_grad = phase("bigru_split input gradient", input_grad_phase, card)
+    input_grad_bf16 = phase("bigru_split input gradient, bf16", input_grad_phase, card,
+                            "cuda", 2560, 20, 50, 64, 20, torch.bfloat16)
     long_served = phase("long-history UMPR-R serving", serve_phase, card,
                         WORK / "long_serve", LONG_FLAGS, LONG_CORPUS)
     long_trained = phase("long-history UMPR-R training", train_phase, card,
@@ -3446,6 +3853,10 @@ def main():
     # --compute_dtype bfloat16: its main path (UMPR-R training) launches the
     # bf16 variants of K1-K4
     bf16_launches, bf16 = phase("bf16", bf16_phase, card)
+    # ROADMAP A5's end (bf16 K5/K6 with the fused pool, the long-history
+    # route, the bf16 scan) and A6 (export)
+    bf16_path_launches, bf16_paths = phase("bf16 paths", bf16_paths_phase, card)
+    exported = phase("export", export_phase, card)
     for k in kernels:
         k["launches_umpr_r_training_k4"] = dispatch["umpr_r_training"]["launches_on_card"][
             k["name"]]
@@ -3454,10 +3865,22 @@ def main():
         k["launches_umpr_r_serving_k4"] = dispatch["umpr_r_serving"]["launches_on_card"][
             k["name"]]
         k["launches_full_umpr_remat_step"] = a5["remat_launches"][k["name"]]
+        if k["name"] in ATTENTION:  # the bf16 route runs them on widened inputs
+            k["launches_long_history_bf16_training"] = bf16_path_launches["long_history"][
+                k["name"]]
+    # each bf16 variant's main path: bf16 UMPR-R training (K1-K4), bf16 full
+    # UMPR training with the fused pool (K5/K6), the bf16 input gradient (K9)
+    bf16_main = dict(bf16["launches_bf16"],
+                     bias_relu_pool=bf16_path_launches["full_umpr_fused"]["bias_relu_pool"],
+                     bias_relu_pool_bwd=bf16_path_launches["full_umpr_fused"][
+                         "bias_relu_pool_bwd"],
+                     gru_input_proj_dx=input_grad_bf16["gru_input_proj_dx"])
     for k in bf16_kernels:
         base = k["name"][:-len("_bf16")]
-        k["launches"] = bf16["launches_bf16"][base]
-        k["launches_full_umpr_bf16_step"] = bf16["full_umpr"]["launches_bf16_step"][base]
+        k["launches"] = bf16_main[base]
+        k["launches_full_umpr_bf16_step"] = bf16["full_umpr"]["launches_bf16_step"].get(base, 0)
+        for run, counts in bf16_path_launches.items():
+            k[f"launches_bf16_{run}_training"] = counts[base]
     kernels += bf16_kernels
     print(f"phase seconds: {seconds}")
     print(json.dumps({"resume_bit_equal": resumed}))
@@ -3465,6 +3888,8 @@ def main():
     print(json.dumps({"a5_runtime": {k: v for k, v in a5.items() if k != "remat_launches"}}))
     print(json.dumps({"streaming_build": streaming}))
     print(json.dumps({"bf16": {k: v for k, v in bf16.items() if k != "launches_bf16"}}))
+    print(json.dumps({"bf16_paths": bf16_paths}))
+    print(json.dumps({"export": exported}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

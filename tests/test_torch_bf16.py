@@ -150,13 +150,6 @@ def test_y_bf16_is_the_jax_kernels_bf16_hs():
             np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -12)
 
 
-def test_op_level_bf16_input_grad_raises_naming_the_item():
-    gru = BiGRU(E, H)
-    x = torch.zeros(S, L, E, dtype=BF16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5, bf16 K5-K9"):
-        bigru_split(gru, x, torch.full((S,), L, dtype=torch.int32), S)
-
-
 def test_bf16_plain_backward_parts_compose_to_the_whole():
     """K3's three passes' plain versions (hg, sweep, dW) in bf16 give
     bigru_backward_ref's dxg, dW_hh and db_hh: dxg rounded from the
@@ -311,19 +304,6 @@ def test_predictor_bf16_serves_within_the_f32_bounds(umpr_r, tmp_path):
     assert preds["bfloat16"].dtype == np.float32 and np.isfinite(preds["bfloat16"]).all()
     np.testing.assert_allclose(preds["bfloat16"], preds["float32"], rtol=0, atol=0.08)
     assert not np.array_equal(preds["bfloat16"], preds["float32"])
-
-
-@pytest.mark.parametrize("flags,why", [
-    (["--review_net_only", "False", "--vgg_fused_pool", "True"], "vgg_fused_pool"),
-    (["--review_net_only", "True", "--max_sent_count", "128", "--max_sent_length", "64"],
-     "long-history"),
-    (["--review_net_only", "True", "--gru_size", "100"], "gru_size 100"),
-])
-def test_bf16_flag_combinations_not_ported_raise(flags, why):
-    with pytest.raises(NotImplementedError, match=why) as e:
-        Config(["--device", "cpu", "--compute_dtype", "bfloat16"] + flags)
-    assert "ROADMAP A5, bf16 K5-K9" in str(e.value)
-    Config(["--device", "cpu"] + flags)  # f32 takes them
 
 
 def test_bf16_training_resident_equals_streaming(tmp_path):

@@ -223,8 +223,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gru_cuda.gru_input_proj(x.bfloat16(), w, b)
     with pytest.raises(TypeError):
         gru_cuda.gru_input_proj(x.half(), w.half(), b.half())
-    with pytest.raises(TypeError):  # K9 takes f32 only (bf16: ROADMAP A5)
-        gru_cuda.gru_input_proj_dx(torch.zeros(8, 12, device=cuda).bfloat16(), w.bfloat16())
+    with pytest.raises(TypeError):  # K9 takes bf16, but not mixed with f32
+        gru_cuda.gru_input_proj_dx(torch.zeros(8, 12, device=cuda).bfloat16(), w)
     with pytest.raises(ValueError):
         gru_cuda.gru_input_proj(x, w.t().contiguous().t(), b)
     with pytest.raises(ValueError):  # w_hh of another H than xg's
@@ -405,6 +405,49 @@ def test_bias_relu_pool_kernels_match_plain_bit_for_bit(cuda, N, H, W, C, kind):
         torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("N,H,W,C,kind", [
+    (1, 2, 2, 3, "normal"), (2, 4, 6, 64, "normal"), (2, 4, 6, 128, "grid"),
+    (1, 2, 2, 512, "normal"), (3, 6, 14, 12, "grid"), (2, 4, 4, 64, "tie"),
+    (1, 56, 56, 256, "grid"), (4, 112, 112, 128, "grid"), (2, 6, 8, 64, "nan"),
+    (1, 4, 4, 5, "nan")])
+def test_bias_relu_pool_bf16_kernels_match_plain(cuda, N, H, W, C, kind):
+    """K5/K6 in bf16 (8 channels per 16-byte access; C = 3, 5 and 12 the
+    one-channel path): yp, idx and dx bit-equal to the plain bf16
+    versions, db within one bf16 ulp (f32 sums in another order, rounded
+    once), the same bits twice."""
+    from umpr_tpu_torch.ops import pool_cuda
+    g = torch.Generator().manual_seed(N * H * W + C + 1)
+    x = torch.randn(N, H, W, C, generator=g)
+    b = torch.randn(C, generator=g) * 0.1
+    if kind == "grid":
+        x, b = (x * 2).round() / 2, (b * 4).round() / 4
+    if kind == "tie":
+        x = x[:, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(2, 2).contiguous()
+    if kind == "nan":
+        x[torch.rand(x.shape, generator=g) < 0.05] = float("nan")
+    dyp = torch.randn(N, H // 2, W // 2, C, generator=g)
+    x, b, dyp = (_bf16(t).to(cuda) for t in (x, b, dyp))
+    before = (pool_cuda.bias_relu_pool.launches_bf16, pool_cuda.bias_relu_pool_bwd.launches_bf16)
+    yp, idx = pool_cuda.bias_relu_pool(x, b)
+    dx, db = pool_cuda.bias_relu_pool_bwd(dyp, idx, yp)
+    torch.cuda.synchronize()
+    assert (pool_cuda.bias_relu_pool.launches_bf16,
+            pool_cuda.bias_relu_pool_bwd.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert yp.dtype == dx.dtype == db.dtype == torch.bfloat16
+    want_yp, want_idx = pool_cuda.bias_relu_pool_ref(x, b)
+    want_dx, want_db = pool_cuda.bias_relu_pool_bwd_ref(dyp, want_idx, want_yp)
+    torch.testing.assert_close(yp, want_yp, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(idx, want_idx) and torch.equal(dx, want_dx)
+    _within_ulp(db, want_db)
+    if kind == "nan":
+        assert yp.isnan().any() and (idx[yp.isnan()] == 3).all()
+    if kind == "tie":
+        assert not idx.any()
+    again = (*pool_cuda.bias_relu_pool(x, b), *pool_cuda.bias_relu_pool_bwd(dyp, idx, yp))
+    for a, c in zip(again, (yp, idx, dx, db)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True)
+
+
 def test_fused_bias_relu_pool_grads_on_the_card_match_the_cpu(cuda):
     from umpr_tpu_torch.ops.pool import fused_bias_relu_pool
     g = torch.Generator().manual_seed(5)
@@ -456,6 +499,48 @@ def test_gru_input_proj_dx_matches_plain(cuda, M, G, E):
     if M:
         _close_rel(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w), 1e-5)
     assert torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
+
+
+@pytest.mark.parametrize("M,G,E", [(1, 384, 50), (130, 102, 17), (0, 192, 17),
+                                   (51200, 384, 50), (3000, 384, 400), (777, 102, 521),
+                                   (20000, 1536, 50), (1000, 1800, 50), (1000, 600, 70)])
+def test_gru_input_proj_dx_bf16_matches_plain(cuda, M, G, E):
+    """K9 in bf16: each direction's f32 sum rounded to bf16, then one bf16
+    add, within one bf16 ulp of the plain version; 6H = 102 (H = 17, odd:
+    one element at a time), E = 400, 521 (column tiles of 64), 6H = 1,800
+    (H = 300: W past the shared memory, read from L2); the same bits
+    twice."""
+    g = torch.Generator().manual_seed(M + G + 1)
+    dxg = _bf16(torch.randn(M, G, generator=g)).to(cuda)
+    w = _bf16(torch.randn(E, G, generator=g) / G ** 0.5).to(cuda)
+    before = gru_cuda.gru_input_proj_dx.launches_bf16
+    dx = gru_cuda.gru_input_proj_dx(dxg, w)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_input_proj_dx.launches_bf16 == before + 1
+    assert dx.shape == (M, E) and dx.dtype == torch.bfloat16
+    if M:
+        _within_ulp(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w))
+    assert torch.equal(gru_cuda.gru_input_proj_dx(dxg, w), dx)
+
+
+def test_bigru_split_bf16_input_grad_on_the_card_matches_the_cpu(cuda):
+    """A bf16 x that requires grad through bigru_split: K1-K4 and K9 in
+    bf16 on the card against the plain versions on the CPU (dx within the
+    bf16 gradient tolerance, 5e-2 of its l2 norm)."""
+    from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
+    g = torch.Generator().manual_seed(3)
+    N, L, E, H, S = 60, 9, 50, 64, 6
+    gru = BiGRU(E, H, generator=g)
+    x = torch.randn(N, L, E, generator=g).bfloat16()
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32)
+    c = torch.randn(N, L, 2 * H, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).detach().requires_grad_()  # a leaf on either device
+        _, sent = bigru_split(gru.to(dev), xd, lengths.to(dev), S)
+        (sent.float() * c.to(dev)).sum().backward()
+        grads.append(xd.grad.float().cpu())
+    assert (grads[1] - grads[0]).norm() <= 5e-2 * grads[0].norm()
 
 
 def test_gru_input_proj_dx_past_the_old_grid_cap(cuda):

@@ -13,10 +13,6 @@ Differences from the JAX package:
 - ``multi_gpu`` defaults to False (the port runs on one card).
 - ``use_pallas False`` raises: the card always runs the port's CUDA
   kernels, and only ``--device cpu`` runs their plain versions.
-- ``compute_dtype bfloat16`` runs K1-K4 in bf16; where it would reach
-  another kernel (``--vgg_fused_pool True`` in full UMPR, the long-history
-  attention route) or the JAX package's bf16 scan (``--gru_size`` not a
-  multiple of 64), it raises naming ROADMAP A5's next item.
 - Every flag that nothing in the port reads yet keeps its name and
   default, and raises ``NotImplementedError`` naming the ROADMAP.md item
   that ports it when given another value (``NOT_PORTED``).  So a flag the
@@ -141,8 +137,6 @@ class Config:
             raise NotImplementedError(
                 "--use_pallas False: no ROADMAP item, the card always runs the "
                 "CUDA kernels (--device cpu runs their plain versions)")
-        if self.compute_dtype == "bfloat16":
-            _check_bf16(self)
         defaults = dict(self._attributes())
         for key, item in NOT_PORTED.items():
             if getattr(self, key) != defaults[key]:
@@ -177,29 +171,6 @@ NOT_PORTED = {
         "num_processes", "process_id",
     ), "ROADMAP A7, parallelism"),
 }
-
-
-BF16_NEXT = "ROADMAP A5, bf16 K5-K9 and the bf16 scan"
-
-
-def _check_bf16(config):
-    """--compute_dtype bfloat16 runs where only K1-K4 (in bf16) are
-    reached; elsewhere it raises, so no flag runs half-ported."""
-    from umpr_tpu_torch.ops.attention import TILED_BYTES_THRESHOLD
-
-    P = config.max_sent_count * config.max_sent_length
-    if not config.review_net_only and config.vgg_fused_pool:
-        why = "--vgg_fused_pool True needs K5/K6 in bf16"
-    elif config.batch_size * P * P * 4 > TILED_BYTES_THRESHOLD:
-        why = (f"the long-history attention route (batch_size * P^2 * 4 > "
-               f"{TILED_BYTES_THRESHOLD}, P = {P}) needs K7/K8 in bf16")
-    elif config.gru_size % 64:
-        why = (f"--gru_size {config.gru_size} (not a multiple of 64) takes the "
-               "JAX package's bf16 scan, whose state is bf16")
-    else:
-        return
-    raise NotImplementedError(
-        f"--compute_dtype bfloat16: {why}, not ported yet ({BF16_NEXT})")
 
 
 def resolve_device(name, multi_gpu=False):

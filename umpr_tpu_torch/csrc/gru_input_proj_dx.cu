@@ -49,6 +49,23 @@
 // memory (L2), any shape, each k-step's 3xTF32 sum added to its
 // accumulator in f32.  Each output element is one thread's sum in a fixed
 // order: the bits do not depend on the grid or on the run.
+//
+// bf16 IO (gru_input_proj_dx_bf16, --compute_dtype bfloat16): dxg, W_ih
+// and dx bf16, with the TPU kernel's three rounding points
+// (gru_pallas.py:366-368, :822-826, :842): each direction's product
+// dxg_d @ W_d^T, summed in f32 over its own 3H columns, is rounded to
+// bf16; the two are added in bf16 (one rounding).  So one f32 accumulator
+// per direction, not one over all 6H.  A bf16 product is exact, so the
+// products run as native bf16 mma.sync m16n8k16 with f32 accumulation:
+// blocks of 8 warps, each warp 16 rows x 64 columns for both directions
+// (two accumulators of 8 n8 groups), a 128-row tile per block, walked
+// grid-stride; W's fragments for the block's 64 columns are laid out once
+// in shared memory in the order the lanes read them (8 bytes a lane, no
+// bank conflict), or read from global memory (L2) where they do not fit
+// (3H past 896); dxg's fragments are 4-byte pairs straight from global
+// memory, one k-step loaded ahead.  At the UMPR-R shapes it reads 39.3 MB
+// and writes 5.1 MB: 13.3 us at 3.35 TB/s, against 2.0 GFLOP of bf16
+// products (2 us at 989 TFLOP/s).
 
 #include <algorithm>
 
@@ -314,6 +331,154 @@ int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_bloc
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 IO: bf16 mma.sync, one f32 accumulator per direction (bf16 is
+// tf32x3.cuh's alias of __nv_bfloat16)
+
+constexpr int B16_WARPS = 8;             // warps per block, each 16 rows
+constexpr int B16_BM = 16 * B16_WARPS;   // rows of a block's tile
+constexpr int B16_NG = 8;                // n8 column groups per block: 64 columns
+constexpr int B16_BN = 8 * B16_NG;
+
+// shared memory of W's fragments: 2 directions x KS k-steps x NG groups x
+// 32 lanes x 8 bytes
+size_t bf16_smem(int K3) { return (size_t)2 * ((K3 + 15) / 16) * B16_NG * 32 * 8; }
+
+// two bf16 at p[k], p[k + 1] as one 32-bit register (p[k] in the low
+// half), zeros past K; one 4-byte load when `pair` (p + k 4-byte aligned
+// for every even k, K even)
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p, int k, int K, bool pair) {
+  if (pair) return k < K ? *reinterpret_cast<const uint32_t*>(p + k) : 0u;
+  const uint32_t lo = k < K ? __bfloat16_as_ushort(p[k]) : 0u;
+  const uint32_t hi = k + 1 < K ? __bfloat16_as_ushort(p[k + 1]) : 0u;
+  return lo | hi << 16;
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulation.
+// Fragments (g = lane / 4, t = lane % 4): a = A[g][2t..2t+1],
+// A[g+8][2t..2t+1], A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]; b = B[2t..2t+1][g],
+// B[2t+8..2t+9][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// lane's B fragment of (direction d, k-step ks, group j): W_ih[n][3H d + k]
+// for n = col0 + 8 j + g and k = 16 ks + 2t (+1, +8, +9)
+__device__ __forceinline__ uint2 w_frag(const bf16* w, int G, int K3, int E, int col0, int d,
+                                        int ks, int j, int lane, bool pair) {
+  const int n = col0 + 8 * j + (lane >> 2);
+  const int k0 = ks * 16 + 2 * (lane & 3);
+  if (n >= E) return make_uint2(0u, 0u);
+  const bf16* row = w + (size_t)n * G + (size_t)K3 * d;
+  return make_uint2(ld_pair(row, k0, K3, pair), ld_pair(row, k0 + 8, K3, pair));
+}
+
+template <bool SMEM>
+__global__ void __launch_bounds__(32 * B16_WARPS)
+gru_input_proj_dx_bf16_mma(const bf16* __restrict__ dxg, const bf16* __restrict__ w,
+                           bf16* __restrict__ dx, int M, int G, int E, bool pair) {
+  extern __shared__ uint2 wf[];  // [d][ks][j][lane]
+  const int K3 = G / 2, KS = (K3 + 15) / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * B16_BN;
+  const int groups = min(B16_NG, (E - col0 + 7) / 8);  // n8 groups with a column < E
+  if constexpr (SMEM) {
+    for (int i = threadIdx.x; i < 2 * KS * B16_NG * 32; i += blockDim.x) {
+      const int l = i & 31, j = (i >> 5) % B16_NG, ks = (i >> 5) / B16_NG % KS;
+      const int d = (i >> 5) / B16_NG / KS;
+      wf[i] = w_frag(w, G, K3, E, col0, d, ks, j, l, pair);
+    }
+    __syncthreads();
+  }
+  const int m_tiles = (M + B16_BM - 1) / B16_BM;
+  for (int tile = blockIdx.y; tile < m_tiles; tile += gridDim.y) {
+    const int r0 = tile * B16_BM + warp * 16 + gid, r8 = r0 + 8;
+    // rows past M read row M - 1: their outputs are not stored
+    const bf16* p0 = dxg + (size_t)min(r0, M - 1) * G;
+    const bf16* p8 = dxg + (size_t)min(r8, M - 1) * G;
+    float acc[2][B16_NG][4] = {};
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const bf16* q0 = p0 + (size_t)K3 * d;
+      const bf16* q8 = p8 + (size_t)K3 * d;
+      auto load_a = [&](int ks, uint32_t (&a)[4]) {
+        const int k = ks * 16 + 2 * tig;
+        a[0] = ld_pair(q0, k, K3, pair);
+        a[1] = ld_pair(q8, k, K3, pair);
+        a[2] = ld_pair(q0, k + 8, K3, pair);
+        a[3] = ld_pair(q8, k + 8, K3, pair);
+      };
+      uint32_t a[4], next[4];
+      load_a(0, a);
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks + 1 < KS) load_a(ks + 1, next);  // one k-step ahead
+#pragma unroll
+        for (int j = 0; j < B16_NG; ++j) {
+          if (j < groups) {
+            const uint2 b = SMEM ? wf[((d * KS + ks) * B16_NG + j) * 32 + lane]
+                                 : w_frag(w, G, K3, E, col0, d, ks, j, lane, pair);
+            mma_bf16(acc[d][j], a, b.x, b.y);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) a[u] = next[u];
+      }
+    }
+    // each direction's sum rounded to bf16, then the bf16 add (one rounding)
+#pragma unroll
+    for (int j = 0; j < B16_NG; ++j) {
+      const int c = col0 + 8 * j + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r8 : r0;
+        if (r >= M || c >= E) continue;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[e] = __bfloat162float(__float2bfloat16_rn(acc[0][j][2 * h + e])) +
+                 __bfloat162float(__float2bfloat16_rn(acc[1][j][2 * h + e]));
+        bf16* out = dx + (size_t)r * E + c;
+        if ((E & 1) == 0) {  // c even, so c < E implies c + 1 < E
+          *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(o[0], o[1]);
+        } else {
+          out[0] = __float2bfloat16_rn(o[0]);
+          if (c + 1 < E) out[1] = __float2bfloat16_rn(o[1]);
+        }
+      }
+    }
+  }
+}
+
+template <class Kernel>
+int launch_bf16(Kernel kernel, size_t smem, const bf16* dxg, const bf16* w, bf16* dx, int M,
+                int G, int E, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  const int threads = 32 * B16_WARPS;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const int col_tiles = (E + B16_BN - 1) / B16_BN;
+  const int m_tiles = (M + B16_BM - 1) / B16_BM;
+  const int walkers = std::max(1, std::min(m_tiles, (std::max(per_sm, 1) * sms + col_tiles - 1) /
+                                                        col_tiles));
+  // 4-byte pairs: every direction's columns start at an even element (3H
+  // even, so H even) and both pointers are 4-byte aligned
+  const bool pair = (G / 2) % 2 == 0 && (reinterpret_cast<uintptr_t>(dxg) & 3) == 0 &&
+                    (reinterpret_cast<uintptr_t>(w) & 3) == 0;
+  kernel<<<dim3(col_tiles, walkers), threads, smem, stream>>>(dxg, w, dx, M, G, E, pair);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dxg (M, G), w (E, G), dx (M, E): f32, contiguous, on the device.
@@ -332,6 +497,19 @@ extern "C" int gru_input_proj_dx(const float* dxg, const float* w, float* dx, in
     return launch(gru_input_proj_dx_wgmma<128>, WG * WGS, wide_smem(G, 128), BM, 128, WGS,
                   dxg, w, dx, M, G, E, s);
   return launch(gru_input_proj_dx_deep, THREADS, 0, DBM, DBN, 1, dxg, w, dx, M, G, E, s);
+}
+
+// dxg (M, G), w (E, G), dx (M, E): bf16, contiguous, on the device; G =
+// 6H even.  Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int gru_input_proj_dx_bf16(const bf16* dxg, const bf16* w, bf16* dx, int M, int G,
+                                      int E, void* stream) {
+  if (M == 0 || E == 0) return 0;
+  if (G % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_smem(G / 2) <= SMEM_LIMIT)
+    return launch_bf16(gru_input_proj_dx_bf16_mma<true>, bf16_smem(G / 2), dxg, w, dx, M, G, E,
+                       s);
+  return launch_bf16(gru_input_proj_dx_bf16_mma<false>, 0, dxg, w, dx, M, G, E, s);
 }
 
 extern "C" const char* error_string(int code) {

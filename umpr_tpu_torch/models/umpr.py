@@ -35,6 +35,7 @@ from umpr_tpu_torch.models.layers import linear
 from umpr_tpu_torch.models.review_net import ReviewNet
 from umpr_tpu_torch.models.visual_net import VisualNet
 from umpr_tpu_torch.ops import masking
+from umpr_tpu_torch.ops.gru import BiGRU
 
 
 @dataclass(frozen=True)
@@ -56,9 +57,14 @@ class ModelDims:
     # as the unfolded one; the port takes the flag and never folds
     vgg_fold_w: bool = True
     compute_dtype: str = "float32"  # or "bfloat16"
+    # False: the kernel-free model of export, the JAX package's
+    # from_config(config, use_pallas=False): bigru_scan for the bi-GRU,
+    # the composite pool (vgg_fused_pool ignored) and, below the
+    # long-history threshold, the composite attention
+    use_kernels: bool = True
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, use_kernels=True):
         return cls(gru_size=config.gru_size,
                    self_atte_size=config.self_atte_size,
                    review_net_only=config.review_net_only,
@@ -71,7 +77,8 @@ class ModelDims:
                    vgg_fused_pool=config.vgg_fused_pool,
                    remat_vgg=config.remat_vgg,
                    vgg_fold_w=config.vgg_fold_w,
-                   compute_dtype=config.compute_dtype)
+                   compute_dtype=config.compute_dtype,
+                   use_kernels=use_kernels)
 
 
 class UMPR(nn.Module):
@@ -92,9 +99,13 @@ class UMPR(nn.Module):
                 emb_size, dims.gru_size, dims.kernel_count, dims.kernel_size,
                 dims.view_size, dims.self_atte_size, generator)
             self.visual_net = VisualNet(dims.view_size, dims.photo_size,
-                                        dims.vgg_fused_pool, generator, dims.remat_vgg)
+                                        dims.vgg_fused_pool and dims.use_kernels, generator,
+                                        dims.remat_vgg)
             fusion_in += 2 * dims.view_size
         self.linear_fusion = linear(fusion_in, 1, generator=generator)
+        for m in self.modules():
+            if isinstance(m, BiGRU):
+                m.use_kernels = dims.use_kernels
 
     def dropout_shapes(self, batch):
         """The shapes of the dropout calls of a train forward of `batch`

@@ -17,6 +17,14 @@ Two implementations of one function:
   one position (``_argmax_routed_bwd``, attention_pallas.py:225-276) in
   plain PyTorch.
 
+In bf16 the kernel path is the JAX package's function: its Pallas
+kernels (B9 ``_tiled_fwd_impl``, B10 ``_prep``, attention_pallas.py:195-216,
+:455-501) widen gru_u, gru_i and M to f32, form T and run the whole
+forward and backward in f32, and round the four outputs and the three
+gradients to the inputs' types.  So ``AffinityAttention`` widens on entry
+and its counterpart is the f32 K7/K8: there is no bf16 K7/K8, because the
+JAX package has no bf16 form of these kernels to port.
+
 ``affinity_attention`` takes the kernel path where the JAX package takes a
 Pallas kernel: above TILED_BYTES_THRESHOLD bytes of (B, P, P) f32 (its
 column-tiled B9) and, with ``use_pallas``, when D % 128 == 0 and P fits the
@@ -120,22 +128,28 @@ class AffinityAttention(torch.autograd.Function):
     on detached tensors; backward ``argmax_routed_backward``.  The max
     gradient goes to the first argmax, as torch.max's does; the composite's
     amax splits it among exact ties (saturated tanh), where both are
-    subgradients."""
+    subgradients.  Inputs of another type (bf16) are widened to f32 on
+    entry: T and every saved tensor are f32, and the outputs and gradients
+    are rounded to the inputs' types, as the JAX kernels' wrappers do."""
 
     @staticmethod
     def forward(ctx, gru_u, gru_i, M, exists):
-        U, I, M = (t.detach().contiguous() for t in (gru_u, gru_i, M))
+        ctx.dtypes = (gru_u.dtype, gru_i.dtype, M.dtype)
+        U, I, M = (t.detach().float().contiguous() for t in (gru_u, gru_i, M))
         B, P, D = U.shape
         T = (I.view(B * P, D) @ M).view(B, P, D)
         col_val, col_idx, rowmax, amax_i = attention_cuda.affinity_tiles(T, U, exists)
         soft_u, soft_i, atte_u, atte_i, colmax, amax_u = attention_cuda.affinity_finish(
             col_val, col_idx, rowmax, exists, U, I)
         ctx.save_for_backward(U, I, M, T, soft_u, soft_i, colmax, rowmax, amax_u, amax_i)
-        return soft_u, soft_i, atte_u, atte_i
+        du = ctx.dtypes[0]
+        return soft_u.to(du), soft_i.to(du), atte_u.to(du), atte_i.to(du)
 
     @staticmethod
     def backward(ctx, dsu, dsi, dau, dai):
         # soft_u, soft_i are outputs of this node: saved, they come back
         # requiring grad
         U, I, M, T, *res = (t.detach() for t in ctx.saved_tensors)
-        return (*argmax_routed_backward(U, I, M, T, res, (dsu, dsi, dau, dai)), None)
+        grads = argmax_routed_backward(U, I, M, T, res,
+                                       tuple(g.float() for g in (dsu, dsi, dau, dai)))
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None)

@@ -12,8 +12,14 @@ Semantics, as in the JAX package:
 Parameters are held in ``torch.nn.GRU``'s state-dict layout (weight_ih_l0
 is (3H, E)).  ``bigru_split`` runs the CUDA kernels of ops/gru_cuda.py
 (their plain versions for CPU tensors) inside ``BiGRUSplit``, forward
-and backward; ``bigru_scan`` is the plain reference, differentiable by
-autograd, that the tests hold it against.
+and backward.  ``bigru_scan`` is the port of the JAX package's
+``bigru_scan`` (umpr_tpu/ops/gru.py:70-119, an XLA loop, no kernel):
+plain PyTorch in x's type, differentiable by autograd.  It is the
+function the JAX package runs where its kernels do not: bf16 with H %
+64 != 0, whose state is bf16 (the kernels keep it f32), and the
+kernel-free model of export (``BiGRU.use_kernels`` False).  In f32 it is
+the kernels' function, and the tests hold the kernels' plain versions
+against it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ class BiGRU(nn.Module):
     def __init__(self, in_size, hidden, generator=None):
         super().__init__()
         self.hidden = hidden
+        self.use_kernels = True  # False: bigru_split runs bigru_scan (export)
         k = 1.0 / math.sqrt(hidden)
         for suffix in ("", "_reverse"):  # fwd, bwd as nn.GRU names them
             for name, shape in (("weight_ih_l0", (3 * hidden, in_size)),
@@ -75,11 +82,45 @@ class BiGRU(nn.Module):
 
 
 def bigru_scan(gru, x, lengths):
-    """Plain reference: x (N, L, E), lengths (N,) -> (N, L, 2H)."""
+    """x (N, L, E), lengths (N,) -> (N, L, 2H) [fwd | bwd] in x's type.
+
+    The JAX package's scan: one projection of both directions, then per
+    direction a loop over time of ``_gru_cell`` with h0 zeros in x's type,
+    the state frozen past each length and the output zero there, both by
+    selects.  Every op rounds to x's type, the state included, as XLA's
+    bf16 ops do (the same bits as the JAX scan on the CPU).  A loop of
+    ATen ops with no host sync, so a CUDA graph captures it."""
     N, L, E = x.shape
-    w_ih, b_ih, w_hh, b_hh = gru.kernel_operands()
-    xg = gru_cuda.gru_input_proj_ref(x.reshape(N * L, E), w_ih, b_ih)
-    return gru_cuda.bigru_recurrence_ref(xg.view(N, L, -1), lengths, w_hh, b_hh)
+    # packed afresh at every call: no cache, so torch.export traces it
+    w_ih, b_ih, w_hh, b_hh = (t.to(x.dtype) for t in gru._pack())
+    H = w_hh.shape[1]
+    xg = (x.reshape(N * L, E) @ w_ih + b_ih).view(N, L, 6 * H)
+    ys = []
+    for d, steps in ((0, range(L)), (1, range(L - 1, -1, -1))):
+        h = x.new_zeros(N, H)
+        out = [None] * L
+        for t in steps:
+            xt = xg[:, t, 3 * H * d:3 * H * (d + 1)]
+            hg = h @ w_hh[d] + b_hh[d]
+            r = _sigmoid(xt[:, :H] + hg[:, :H])
+            z = _sigmoid(xt[:, H:2 * H] + hg[:, H:2 * H])
+            n = torch.tanh(xt[:, 2 * H:] + r * hg[:, 2 * H:])
+            h_new = (1.0 - z) * n + z * h
+            valid = (t < lengths)[:, None]
+            h = torch.where(valid, h_new, h)
+            out[t] = torch.where(valid, h_new, 0.0)
+        ys.append(torch.stack(out, 1))
+    return torch.cat(ys, -1)
+
+
+def _sigmoid(v):
+    """jax.nn.sigmoid as XLA lowers it, 1 / (1 + exp(-v)), one op at a
+    time: in bf16 each op rounds, where torch.sigmoid rounds once (they
+    differ in a third of bf16 inputs).  In f32 it is torch.sigmoid, as in
+    the kernels' plain versions (within an f32 ulp of XLA's)."""
+    if v.dtype == torch.float32:
+        return torch.sigmoid(v)
+    return 1.0 / (1.0 + torch.exp(-v))
 
 
 class BiGRUSplit(torch.autograd.Function):
@@ -98,11 +139,6 @@ class BiGRUSplit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, lengths, S, w_ih, b_ih, w_hh, b_hh):
-        if x.dtype == torch.bfloat16 and ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "bigru_split: a bfloat16 x that requires grad needs K9 "
-                "gru_input_proj_dx in bf16, not ported yet (ROADMAP A5, bf16 "
-                "K5-K9); UMPR's frozen embedding takes no input gradient")
         N, L, E = x.shape
         x2 = x.detach().reshape(N * L, E)
         w_ih, b_ih, w_hh, b_hh = (t.detach() for t in (w_ih, b_ih, w_hh, b_hh))
@@ -133,14 +169,24 @@ def bigru_split(gru, x, lengths, S):
       y_pos  (N/S, S*L, 2H) -- the affinity-attention positions layout;
       y_sent (N, L, 2H)     -- the per-sentence S-Net layout.
     y_pos is a view of y_sent's memory.  Differentiable in the GRU's
-    parameters through BiGRUSplit, on every device, and in x when x
-    requires grad (f32 only).  A bfloat16 x runs the kernels' bf16 IO,
-    with the packed weights cast to it (as gru_pallas.py:780 casts the
+    parameters and in x when x requires grad.
+
+    Routed as umpr_tpu/ops/gru.py:130-134 and :149-155 route: through
+    BiGRUSplit (the kernels) unless the JAX package takes its scan there,
+    that is for a bfloat16 x at H % 64 != 0 (the scan's state is bf16, the
+    kernels' f32), or when ``gru.use_kernels`` is off (the kernel-free
+    model of export); an f32 x takes the kernels at every H, where the
+    scan computes the same function.  A bfloat16 x runs the kernels' bf16
+    IO, with the packed weights cast to it (as gru_pallas.py:780 casts the
     parameters to x's type).
 
     x: (N, L, E) sentence rows, a free view of the (B, S, L, E) embedding
     lookup (the frozen embedding in every UMPR config); lengths: (N,)
     int32."""
+    N, L, _ = x.shape
+    if not gru.use_kernels or (x.dtype == torch.bfloat16 and gru.hidden % 64):
+        y = bigru_scan(gru, x, lengths)
+        return y.view(N // S, S * L, y.shape[-1]), y
     ops = gru.kernel_operands()
     if x.dtype != ops[0].dtype:
         ops = tuple(t.to(x.dtype) for t in ops)

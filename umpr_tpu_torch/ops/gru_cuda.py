@@ -35,7 +35,7 @@ Backward:
   only when x requires grad (every UMPR config feeds the frozen
   embedding, and pays nothing for it).
 
-K1-K4 also take bfloat16 IO (``--compute_dtype bfloat16``, the JAX
+K1-K4 and K9 also take bfloat16 IO (``--compute_dtype bfloat16``, the JAX
 package's bf16 path of the same kernels, gru_pallas.py:151-165): bf16
 loads and stores, f32 state and accumulation, and the JAX kernels'
 rounding points: K1 rounds xg on store; K2 rounds the carried f32 state
@@ -44,8 +44,10 @@ sum of the two cotangents, the ghh operand of both its products (ghh @
 W_hh^T and h_prev^T ghh) and dxg on store, keeps db_hh the f32 sum of the
 unrounded ghh and returns dW_hh / db_hh in f32; K4 returns f32 sums of
 the bf16 products.  A bf16 value is exact in TF32, so each of their
-tensor-core products is one TF32 product (no 3xTF32 split).  K5-K9
-take f32 only.  The plain versions carry the same rounding points.
+tensor-core products is one TF32 product (no 3xTF32 split).  K9 in
+bf16 rounds each direction's f32 product to bf16 and adds the two in
+bf16, as the JAX kernel does; its products are bf16 mma.sync.  The plain
+versions carry the same rounding points.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and only
 then.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -53,8 +55,8 @@ back.  The kernels write through raw pointers, so their results carry no
 autograd graph: on a non-CPU device the wrappers raise on an input that
 requires grad.  ``ops.gru.BiGRUSplit`` calls them on detached tensors and
 gives the graph its backward.  ``<wrapper>.launches`` counts kernel
-launches; K1-K4's ``.launches_bf16`` counts those of them that ran the
-bf16 variant.
+launches; ``.launches_bf16`` counts those of them that ran the bf16
+variant.
 """
 
 from __future__ import annotations
@@ -292,8 +294,15 @@ def gru_input_proj_bwd_ref(x, dxg):
 
 
 def gru_input_proj_dx_ref(dxg, w):
-    """Plain version of K9: dxg (M, 6H), w (E, 6H) -> dx (M, E)."""
-    return dxg @ w.t()
+    """Plain version of K9: dxg (M, 6H), w (E, 6H) -> dx (M, E).  In bf16
+    each direction's f32 product over its 3H columns is rounded to bf16
+    and the two are added in bf16 (gru_pallas.py:366-368, :822-826)."""
+    if dxg.dtype != BF16:
+        return dxg @ w.t()
+    h3 = dxg.shape[1] // 2
+    f, b = ((_widen(dxg[:, s]) @ _widen(w[:, s]).t()).to(BF16)
+            for s in (slice(None, h3), slice(h3, None)))
+    return f + b
 
 
 def _check(name, t, dtype, ndim, device):
@@ -321,8 +330,7 @@ def _device_kernel(name, *tensors, node="ops.gru.BiGRUSplit"):
 
 
 def _io(name, t):
-    """The IO type of a K1-K4 call: float32 or bfloat16 (K5-K9 take
-    float32 only: their bf16 variants are ROADMAP A5's next item)."""
+    """The IO type of a kernel call: float32 or bfloat16."""
     if t.dtype not in (torch.float32, BF16):
         raise TypeError(f"{name}: {t.dtype}; the kernel takes float32 or bfloat16")
     return t.dtype
@@ -548,36 +556,33 @@ gru_input_proj_bwd.launches = gru_input_proj_bwd.launches_bf16 = 0
 
 
 def gru_input_proj_dx(dxg, w):
-    """K9: dxg (M, 6H) f32, w (E, 6H) f32 (the packed W_ih) -> dx (M, E)
-    f32."""
+    """K9: dxg (M, 6H), w (E, 6H) (the packed W_ih), both float32 or both
+    bfloat16 -> dx (M, E) in their type."""
     if dxg.device.type == "cpu":
         return gru_input_proj_dx_ref(dxg, w)
     _device_kernel("gru_input_proj_dx", dxg, w)
-    _check("dxg", dxg, torch.float32, 2, dxg.device)
-    _check("w", w, torch.float32, 2, dxg.device)
+    io = _io("gru_input_proj_dx", dxg)
+    _check("dxg", dxg, io, 2, dxg.device)
+    _check("w", w, io, 2, dxg.device)
     M, G = dxg.shape
     E = w.shape[0]
-    if w.shape[1] != G:
+    if w.shape[1] != G or (io == BF16 and G % 2):
         raise ValueError(f"gru_input_proj_dx: dxg {tuple(dxg.shape)} and w "
-                         f"{tuple(w.shape)} differ in 6H")
-    dx = torch.empty(M, E, device=dxg.device, dtype=torch.float32)
+                         f"{tuple(w.shape)} differ in 6H (or, in bf16, 6H is odd)")
+    dx = torch.empty(M, E, device=dxg.device, dtype=io)
     _launch("gru_input_proj_dx", [_P] * 3 + [_I] * 3 + [_P],
-            dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M, G, E)
+            dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M, G, E, io=io)
     gru_input_proj_dx.launches += 1
+    gru_input_proj_dx.launches_bf16 += io == BF16
     return dx
 
 
-gru_input_proj_dx.launches = 0
+gru_input_proj_dx.launches = gru_input_proj_dx.launches_bf16 = 0
 
 KERNELS = (gru_input_proj, bigru_recurrence, bigru_backward, gru_input_proj_bwd,
            gru_input_proj_dx)
 
 
-BF16_KERNELS = KERNELS[:4]  # K1-K4 have bf16 variants
-
-
 def reset_launches():
     for k in KERNELS:
-        k.launches = 0
-    for k in BF16_KERNELS:
-        k.launches_bf16 = 0
+        k.launches = k.launches_bf16 = 0
