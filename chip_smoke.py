@@ -107,8 +107,11 @@
    streaming build ran (``data.dataset.PATHS``); each build's seconds.
 13. ``--compute_dtype bfloat16``: K1-K4's bf16 variants against their
    plain bf16 versions (one bf16 ulp; dW/db within 1e-4 of their l2
-   norms; the same bits twice) at the UMPR-R shapes and K1/K4 at E = 400,
-   520, 521, timed beside the bf16 library calls; UMPR-R trained in bf16
+   norms; the same bits twice) at the UMPR-R shapes and K1/K4 at
+   ``BF16_WIDTHS`` (the edges of K1's bf16 wgmma route and of K4's
+   whole-row copy, and the wide-E routes), timed beside the bf16 library
+   calls (K4's computing its whole function: f32 dW and db), with K1's
+   and K4's ptxas report; UMPR-R trained in bf16
    through main (every K1-K4 launch bf16, no plain version, no other
    kernel), its train step (k = 1 and a graph of 4) and serving forward
    against f32 in turns; full UMPR at 224 px, one train step and the
@@ -143,6 +146,13 @@
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device the script exits 2.  Work files go to build/chip_smoke/ in
 the checkout.
+
+    python3 chip_smoke.py --steps
+
+builds K2, K8 and K4's bf16 kernel with one design choice changed at a
+time (``K2_STEPS``, ``K8_STEPS``, ``K4_STEPS``: text edits of the final
+sources) and times each beside the final kernel, K4's at each E of
+``K4_WIDTHS`` and at ``K4_ROWS`` rows per chunk; then stops.
 """
 
 from __future__ import annotations
@@ -276,6 +286,48 @@ def write_splits(root, seed=1, shards=5, **kw):
                        ("valid", shard_rows[-2]), ("test", shard_rows[-1])):
         df.iloc[rows].to_csv(Path(root) / f"{name}.csv", index=False)
     return glove
+
+
+PTXAS = {}  # source name -> ptxas_report of its build in this run (main fills it)
+
+
+def _demangle(symbols):
+    """The kernels' names without their namespace and parameters, through
+    the toolkit's cu++filt (or c++filt); the mangled names where neither
+    is at hand."""
+    tool = Path(_build._nvcc()).with_name("cu++filt")
+    tool = str(tool) if tool.exists() else shutil.which("c++filt")
+    if tool is None or not symbols:
+        return list(symbols)
+    out = subprocess.run([tool], input="\n".join(symbols), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(symbols):
+        return list(symbols)
+    # "void <unnamed>::name<(bool)1>(args)" (cu++filt) or "(anonymous
+    # namespace)::name(args)" (c++filt) -> "name<(bool)1>", "name"
+    names = [re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "", n) for n in out]
+    return [n[:n.index(">(") + 1] if ">(" in n else n.split("(")[0] for n in names]
+
+
+def ptxas_report(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of each
+    kernel in nvcc's -Xptxas=-v output."""
+    lines, found = log.splitlines(), []
+    for j, line in enumerate(lines[:-2]):
+        m = re.search(r"Function properties for (\S+)", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[j + 1])
+        regs = re.search(r"Used (\d+) registers", lines[j + 2])
+        if m and spill and regs:
+            found.append((m.group(1), int(regs.group(1)), int(spill.group(1)),
+                          int(spill.group(2))))
+    names = _demangle([f[0] for f in found])
+    return [(n,) + f[1:] for n, f in zip(names, found)]
+
+
+def print_ptxas(source, report):
+    for kernel, regs, stores, loads in report:
+        print(f"  {source}: {kernel}: {regs} registers, {stores} bytes spill stores, "
+              f"{loads} bytes spill loads")
 
 
 def time_cuda(fn, iters=20, warmup=3):
@@ -882,12 +934,12 @@ K2_STEPS = (
 )
 
 
-def build_steps(name, steps, argtypes):
+def build_steps(name, steps, argtypes, symbol=None):
     """csrc/<name>.cu (and the headers) with each entry of `steps` (label,
     [(file, text, replacement), ...]) applied, built side by side into
     build/chip_smoke/steps/<name>/ (one nvcc each, all at once) and loaded.
     Prints each kernel's registers and spills.  Returns {label: the C
-    function `name`}."""
+    function `symbol` (default `name`)}."""
     root = WORK / "steps" / name
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
@@ -911,12 +963,9 @@ def build_steps(name, steps, argtypes):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise AssertionError(f"{name} step {label!r} did not build:\n{out}")
-        lines = out.splitlines()
-        report = [f"{lines[j].split('for')[-1].strip()[:60]}: {lines[j + 1].strip()}; "
-                  f"{lines[j + 2].strip()}" for j, line in enumerate(lines[:-2])
-                  if "Function properties" in line]
-        print(f"{name} step {label!r}: built; " + " | ".join(report))
-        fn = getattr(ctypes.CDLL(str(root / str(i) / "lib.so")), name)
+        print(f"{name} step {label!r}: built")
+        print_ptxas(name, ptxas_report(out))
+        fn = getattr(ctypes.CDLL(str(root / str(i) / "lib.so")), symbol or name)
         fn.argtypes = argtypes
         fns[label] = fn
     return fns
@@ -1330,6 +1379,79 @@ def k8_steps_phase(device, shapes=(ATT_SHAPE, (8, 8192, 128), B10_SHAPE)):
         if not err <= ATT_TOL:
             raise AssertionError("a K8 step variant disagrees with the final kernel")
         del U, I, M, T, col_val, col_idx, row_val, outs
+        torch.cuda.empty_cache()
+    return times
+
+
+# K4's bf16 kernel (csrc/gru_input_proj_bwd.cu) with one design choice
+# changed at a time, text edits of the final source: the stage depths, and
+# up to which E x's rows are copied whole (each block copies its E tile
+# past that)
+K4_STAGES = "constexpr int B16_STAGES = 4;"
+K4_FEW = "constexpr int B16_FEW_STAGES = 2;"
+K4_FOUR = "constexpr int B16_FOUR_STAGES_MAX_E = 52;"
+K4_WHOLE = "  if (E <= B16_FOUR_STAGES_MAX_E)"
+K4_XS = "  const int XS = E <= EW ? E : EW;"
+K4_STEPS = (
+    ("final", []),
+    ("3 stages", [("gru_input_proj_bwd.cu", K4_STAGES, "constexpr int B16_STAGES = 3;")]),
+    ("3 stages past E = 52", [("gru_input_proj_bwd.cu", K4_FEW,
+                               "constexpr int B16_FEW_STAGES = 3;")]),
+    ("4 stages past E = 52", [("gru_input_proj_bwd.cu", K4_FEW,
+                               "constexpr int B16_FEW_STAGES = 4;")]),
+    ("4 stages to E = 58", [("gru_input_proj_bwd.cu", K4_FOUR,
+                             "constexpr int B16_FOUR_STAGES_MAX_E = 58;")]),
+    ("whole rows, 4 stages, to E = 286",
+     [("gru_input_proj_bwd.cu", K4_WHOLE, "  if (bf16_smem<B16_STAGES>(E) <= SMEM_LIMIT)")]),
+    ("whole rows, 2 stages, to E = 708",
+     [("gru_input_proj_bwd.cu", K4_XS,
+       "  const int XS = bf16_smem<B16_FEW_STAGES>(E) <= SMEM_LIMIT ? E : EW;")]))
+K4_ROWS = (384, 512, 640, 768, 1216, 2432)  # rows per chunk the final kernel is timed at
+K4_WIDTHS = (50, 52, 53, 58, 64, 65, 256, 300, 521, 709, 1617)  # E each step is timed at
+K4_PARTS = (("main", ("gru_input_proj_bwd_bf16_kernel",)),
+            ("reduce", ("gru_input_proj_bwd_reduce",)))
+
+
+def k4_steps_phase(device, M=51200, G=384, widths=K4_WIDTHS):
+    """K4's bf16 kernel: each step of K4_STEPS at proj_bwd_bf16_chunks(M)
+    and each E of `widths`, and the final kernel at K4_ROWS rows per chunk
+    (E = 50), each timed (device ms under torch.profiler, main and reduce
+    kernel) and held against the plain version within SUM_RTOL.  Returns
+    {label: {E: {"main": ms, "reduce": ms}}}."""
+    fns = build_steps("gru_input_proj_bwd", K4_STEPS,
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                      "gru_input_proj_bwd_bf16")
+    rows_m = gru_cuda.proj_bwd_bf16_chunks(M)[0]
+    times = {}
+    for E in widths:
+        g = torch.Generator(device=device).manual_seed(E)
+        x = (torch.randn(M, E, generator=g, device=device) * 0.5).to(torch.bfloat16)
+        dxg = torch.randn(M, G, generator=g, device=device).to(torch.bfloat16)
+        want = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
+        runs = [(label, fn, rows_m) for label, fn in fns.items()]
+        if E == 50:
+            runs += [(f"final at {rows} rows a chunk", fns["final"], rows) for rows in K4_ROWS]
+        for label, fn, rows in runs:
+            chunks = -(-M // rows)
+            part = torch.empty((E * G + G) * chunks, device=device)
+            out = torch.empty(E * G + G, device=device)
+
+            def call(fn=fn, rows=rows, chunks=chunks, part=part, out=out, label=label, E=E):
+                err = fn(x.data_ptr(), dxg.data_ptr(), part.data_ptr(),
+                         part.data_ptr() + 4 * E * G * chunks, out.data_ptr(),
+                         out.data_ptr() + 4 * E * G, M, E, G, rows,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise AssertionError(f"K4 step {label!r} failed to launch: {err}")
+
+            call()
+            torch.cuda.synchronize()
+            _l2_check(out[:E * G].view(E, G), want[0], f"K4 step {label!r} dW at E = {E}")
+            _l2_check(out[E * G:], want[1], f"K4 step {label!r} db at E = {E}")
+            times.setdefault(label, {})[E] = part_split(call, K4_PARTS, steps=20)
+            print(f"K4 bf16 step {label!r} at E = {E} ({chunks} chunks of {rows}): device ms "
+                  + ", ".join(f"{k} {_ms(v)}" for k, v in times[label][E].items()))
+        del x, dxg, want, part, out
         torch.cuda.empty_cache()
     return times
 
@@ -3089,10 +3211,19 @@ def _l2_check(got, want, where, tol=SUM_RTOL):
     return (got - want).abs().max().item()
 
 
-def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=(400, 520, 521)):
+# bf16 K1/K4 widths off E = 50: each side of K4's route edges (52 | 53:
+# four stages | two; 64 | 65: whole x rows | E tiles) and of K1's wgmma
+# route (256 | 257), word2vec's 300, each side of K1's wide routes (520 |
+# 521), and odd wide E (709, 1617: K4's E tiles copied 2 bytes at a time)
+BF16_WIDTHS = (52, 53, 64, 65, 256, 257, 300, 400, 520, 521, 709, 1617)
+
+
+def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=BF16_WIDTHS):
     """K1-K4's bf16 variants against their plain bf16 versions at the
-    UMPR-R shapes (and K1/K4 at E = 400, 520, 521), each launched twice for
-    the same bits, with their times beside the bf16 library calls."""
+    UMPR-R shapes (and K1/K4 at BF16_WIDTHS), each launched twice for the
+    same bits, with their times beside the bf16 library calls.  K1's and
+    K4's rows carry their kernels' registers and spills from this run's
+    build."""
     bf = torch.bfloat16
     g = torch.Generator().manual_seed(0)
     x = (torch.randn(N, L, E, generator=g) * 0.5).to(device).to(bf)
@@ -3146,7 +3277,7 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=(400, 520, 521)):
     row("gru_input_proj_bf16", "gru_input_proj.cu", 319, err,
         timed(k1, lambda: gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih),
               lambda: torch.addmm(b_ih, x2, w_ih)),
-        t_bound, by, "torch.addmm (bf16)", at_E=at_e)
+        t_bound, by, "torch.addmm (bf16)", at_E=at_e, ptxas=bf16_ptxas("gru_input_proj"))
 
     xg = xg.view(N, L, 6 * H)
     k2 = lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)  # noqa: E731
@@ -3209,10 +3340,37 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=(400, 520, 521)):
     same(k4, (dw4, db4))
     t_bound, by = bound(2 * (x2.numel() + dxg2.numel()) + 4 * (dw4.numel() + db4.numel()),
                         M * 6 * H, bf16_flops=2 * M * E * 6 * H)
+    library, library_call = bf16_dw_library(x2, dxg2)
     row("gru_input_proj_bwd_bf16", "gru_input_proj_bwd.cu", 394, err,
-        timed(k4, lambda: gru_cuda.gru_input_proj_bwd_ref(x2, dxg2), lambda: x2.t() @ dxg2),
-        t_bound, by, "x.T @ dxg (bf16)")
+        timed(k4, lambda: gru_cuda.gru_input_proj_bwd_ref(x2, dxg2), library),
+        t_bound, by, library_call, partials=gru_cuda.proj_bwd_bf16_chunks(M)[1],
+        ptxas=bf16_ptxas("gru_input_proj_bwd"))
     return rows
+
+
+def bf16_ptxas(source):
+    """The bf16 kernels of `source` in this run's build report (printed),
+    as [kernel, registers, spill store bytes, spill load bytes] lists;
+    empty where the library was built before this run."""
+    report = [list(r) for r in PTXAS.get(source, ()) if "bf16" in r[0]]
+    print_ptxas(source, report)
+    return report
+
+
+def bf16_dw_library(x, dxg):
+    """K4's function in PyTorch calls on bf16 x, dxg: f32 dW = x^T dxg and
+    f32 db = the column sums.  torch.mm's out_dtype overload keeps the
+    bf16 operands (f32 accumulation, as K4); where this torch has none,
+    the operands are widened first.  Returns (fn, its description)."""
+    try:
+        torch.mm(x[:1].t(), dxg[:1], out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return ((lambda: (x.t().float() @ dxg.float(), dxg.sum(0, dtype=torch.float32))),
+                "x.T.float() @ dxg.float() and dxg.sum(0, dtype=float32) (this torch's mm "
+                "has no out_dtype)")
+    return ((lambda: (torch.mm(x.t(), dxg, out_dtype=torch.float32),
+                      dxg.sum(0, dtype=torch.float32))),
+            "torch.mm(x.T, dxg, out_dtype=float32) and dxg.sum(0, dtype=float32)")
 
 
 BF16_GRU = gru_cuda.KERNELS[:4]  # K1-K4: bf16 UMPR-R's main path
@@ -3748,11 +3906,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    if sys.argv[1:] == ["--steps"]:  # K2's and K8's designs choice by choice, then stop
+    if sys.argv[1:] == ["--steps"]:  # K2's, K8's and bf16 K4's designs choice by choice
         _build.build(("affinity_tiles",))
         with torch.no_grad():
             print(json.dumps({"k2_steps": k2_steps_phase(torch.device("cuda")),
-                              "k8_steps": k8_steps_phase(torch.device("cuda"))}))
+                              "k8_steps": k8_steps_phase(torch.device("cuda")),
+                              "k4_bf16_steps": k4_steps_phase(torch.device("cuda"))}))
         return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     serve.set_f32_parity()
@@ -3765,9 +3924,8 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)}, sm_90a)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        PTXAS[name] = ptxas_report(log)
+        print_ptxas(name, PTXAS[name])
 
     device = torch.device("cuda")
     device_name = torch.cuda.get_device_name(0)

@@ -174,6 +174,84 @@ def test_bf16_plain_backward_parts_compose_to_the_whole():
     torch.testing.assert_close(pdb, db, rtol=1e-4, atol=1e-4)
 
 
+# ---- the card's yardsticks for K1 and K4 in bf16: their plain versions
+# against the JAX Pallas projection kernels, interpreted
+
+def _within_one_ulp(got, want):
+    """bf16 arrays (as f32) within one bf16 ulp of the larger magnitude:
+    both round an f32 sum of exact bf16 products, taken in another order."""
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0 ** -120))) - 7)
+    assert (np.abs(got - want) <= ulp).all(), np.max(np.abs(got - want) / ulp)
+
+
+def _projection_case(seed, N=6, PL=5, PE=16):
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.standard_normal((N, PL, PE)), jnp.bfloat16)
+    jparams = jax.tree.map(np.asarray, init_bigru(jax.random.PRNGKey(seed), PE, H))
+    p = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jparams)
+    gru = BiGRU(PE, H)
+    gru.load_state_dict({k[len("gru."):]: v
+                         for k, v in params_from_jax({"gru": jparams}).items()})
+    w_ih, b_ih, _, _ = (t.detach().to(BF16) for t in gru.kernel_operands())
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(BF16).reshape(N * PL, PE)
+    return rng, x, p, xt, w_ih, b_ih
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_projection_plain_version_matches_the_jax_kernels(seed):
+    """gru_input_proj_ref in bf16 (K1's yardstick on the card) against the
+    JAX package's bf16 xg from the Pallas stack-pad and projection kernels
+    (B5 _pallas_stack_pad, B3 _pallas_project_fwd), in the kernels'
+    combined time and interleaved gates, de-interleaved with _deinterleave
+    and the bwd half flipped back to true time.  Within one bf16 ulp: both
+    round the same f32 sum once, on store, summed in another order.
+    (_build_xg, the XLA route, rounds twice: the product, then the bias
+    add, so it is not the kernels' yardstick.)"""
+    from umpr_tpu.ops import gru_pallas as gp
+
+    _, x, p, xt, w_ih, b_ih = _projection_case(seed)
+    N, PL, PE = x.shape
+    xg = gru_cuda.gru_input_proj_ref(xt, w_ih, b_ih)
+    assert xg.dtype == BF16
+    xg = xg.float().numpy().reshape(N, PL, 6 * H)
+    wih, bih = gp._proj_weights(p, H, PE)
+    kernel = gp._pallas_project_fwd(gp._pallas_stack_pad(x, N, PL, PE), wih, bih, H, N, PL)
+    assert kernel.dtype == jnp.bfloat16
+    f, b = gp._deinterleave(kernel.astype(jnp.float32).reshape(N, PL, 6 * H), H)
+    _within_one_ulp(xg[..., :3 * H], np.asarray(f))
+    _within_one_ulp(xg[..., 3 * H:], np.asarray(b)[:, ::-1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_projection_backward_plain_version_matches_the_jax_kernel(seed):
+    """gru_input_proj_bwd_ref in bf16 (K4's yardstick on the card) against
+    the JAX Pallas kernel B4, _pallas_project_bwd(..., emit_dxc=False): the
+    same bf16 dxg (true time for the port; combined time and interleaved
+    gates for JAX), dW_ih and db_ih taken from its block-diagonal
+    accumulators as _bwd_fused_from_dycat takes them.  f32 sums of exact
+    bf16 products in another order: within 1e-5 of the l2 norm."""
+    from umpr_tpu.ops import gru_pallas as gp
+
+    rng, x, p, xt, _, _ = _projection_case(seed)
+    N, PL, PE = x.shape
+    dxg = torch.from_numpy(rng.standard_normal((N * PL, 6 * H)).astype(np.float32)).to(BF16)
+    dw, db = gru_cuda.gru_input_proj_bwd_ref(xt, dxg)
+    assert dw.dtype == db.dtype == torch.float32
+    d = jnp.asarray(dxg.float().numpy().reshape(N, PL, 6 * H)).astype(jnp.bfloat16)
+    dxg_cat = gp._interleave_gates(d[..., :3 * H], d[:, ::-1, 3 * H:], H).reshape(N, -1)
+    wih, _ = gp._proj_weights(p, H, PE)
+    xc = gp._pallas_stack_pad(x, N, PL, PE)
+    _, dw_blk, db_blk = gp._pallas_project_bwd(dxg_cat, xc, wih, H, N, PL, emit_dxc=False)
+    jdw = np.concatenate(
+        [np.concatenate([dw_blk[:PE, 2 * g * H:(2 * g + 1) * H] for g in range(3)], 1),
+         np.concatenate([dw_blk[PE:2 * PE, (2 * g + 1) * H:(2 * g + 2) * H]
+                         for g in range(3)], 1)], 1)
+    jdb = np.concatenate([np.asarray(a) for a in gp._deinterleave(db_blk, H)])
+    assert _l2(dw.numpy(), jdw) <= 1e-5
+    assert _l2(db.numpy(), jdb) <= 1e-5
+
+
 # ---- the model: umpr_forward(compute_dtype="bfloat16")
 
 DIMS = dict(gru_size=H, self_atte_size=16, kernel_count=8, kernel_size=3, photo_size=PX)

@@ -332,12 +332,26 @@ def test_proj_bwd_chunks_depend_on_m_alone_and_cover_every_row_once(M):
     PROJ_BWD_MAX_ROWS; the chunks [c * rows, (c + 1) * rows) cut [0, M) into
     disjoint pieces, none empty; nothing but M goes in (the bits of the
     fixed-order sum must not depend on the card)."""
+    _check_chunks(gru_cuda.proj_bwd_chunks, gru_cuda.PROJ_BWD_STEP, gru_cuda.PROJ_BWD_MAX_ROWS,
+                  M)
+
+
+@pytest.mark.parametrize("M", [0, 1, 63, 64, 65, 5000, 51200, 107008, 107009, 1048576,
+                               4198343])
+def test_proj_bwd_bf16_chunks_depend_on_m_alone_and_cover_every_row_once(M):
+    """The same for K4's bf16 kernel: stages of 64 rows, chunks of at most
+    PROJ_BWD_BF16_MAX_ROWS."""
+    _check_chunks(gru_cuda.proj_bwd_bf16_chunks, gru_cuda.PROJ_BWD_BF16_STEP,
+                  gru_cuda.PROJ_BWD_BF16_MAX_ROWS, M)
+
+
+def _check_chunks(fn, step, cap, M):
     import inspect
-    assert list(inspect.signature(gru_cuda.proj_bwd_chunks).parameters) == ["M"]
-    rows, chunks = gru_cuda.proj_bwd_chunks(M)
-    assert gru_cuda.proj_bwd_chunks(M) == (rows, chunks)
-    assert rows % gru_cuda.PROJ_BWD_STEP == 0
-    assert 0 < rows <= gru_cuda.PROJ_BWD_MAX_ROWS
+    assert list(inspect.signature(fn).parameters) == ["M"]
+    rows, chunks = fn(M)
+    assert fn(M) == (rows, chunks)
+    assert rows % step == 0
+    assert 0 < rows <= cap
     assert chunks >= 1
     if M == 0:
         assert chunks == 1  # one block writes the zero partial
@@ -360,3 +374,17 @@ def test_proj_bwd_chunks_fill_the_card_and_bound_the_partials():
     assert 132 <= chunks * col_tiles <= 2 * 132
     _, chunks = gru_cuda.proj_bwd_chunks(1_048_576)
     assert chunks * E * G <= 0.10 * 1_048_576 * G
+
+
+def test_proj_bwd_bf16_chunks_fill_the_card_and_bound_the_partials():
+    """K4's bf16 chunks at the UMPR-R shapes: the grid fills an H100's 132
+    SMs in one wave of at most 2 blocks each (3 column tiles of 128); a
+    chain at the cap is no more k16 steps than f32's k8 chain at its cap;
+    at 1,048,576 rows the partials stay under 5% of the bf16 dxg's bytes."""
+    E, G = 50, 384
+    col_tiles = -(-G // 128)
+    _, chunks = gru_cuda.proj_bwd_bf16_chunks(51200)
+    assert 132 <= chunks * col_tiles <= 2 * 132
+    assert gru_cuda.PROJ_BWD_BF16_MAX_ROWS // 16 <= gru_cuda.PROJ_BWD_MAX_ROWS // 8
+    _, chunks = gru_cuda.proj_bwd_bf16_chunks(1_048_576)
+    assert chunks * E * G * 4 <= 0.05 * 1_048_576 * G * 2

@@ -279,22 +279,66 @@ def _l2_close(got, want, tol=1e-4):
     assert (got - want).norm() <= tol * want.norm().clamp(min=1e-30)
 
 
-@pytest.mark.parametrize("M,E,N", [(51200, 50, 384), (130, 17, 102), (1000, 400, 384),
-                                   (3000, 520, 102), (777, 521, 384), (700, 800, 384)])
+K1_BF16_WGMMA_MAX_E = 256  # csrc/gru_input_proj.cu: the bf16 wgmma kernel's E range
+
+
+@pytest.mark.parametrize("M,E,N", [
+    (51200, 50, 384), (130, 17, 102), (1000, 400, 384), (3000, 520, 102), (777, 521, 384),
+    (700, 800, 384), (1, 50, 384), (63, 8, 384), (65, 16, 768), (130, 64, 102),
+    (51200, 17, 102), (65, 50, 768), (63, 64, 384), (130, K1_BF16_WGMMA_MAX_E, 384),
+    (130, K1_BF16_WGMMA_MAX_E + 1, 384), (1048576, 50, 384)])
 def test_gru_input_proj_bf16_matches_plain(cuda, M, E, N):
-    """K1 in bf16: E = 50 the wgmma kernel (a 100-byte row: the tile
-    copies take 16-byte pieces of the whole span and 2-byte copies for the
-    tail), 400 .. 521 the mma.sync kernel, 800 the one that reads global
-    memory; within one bf16 ulp, the same bits twice."""
+    """K1 in bf16: up to E = 256 the bf16 wgmma kernel (E = 50: a 100-byte
+    row, the tile copies take 16-byte pieces of the whole span and 2-byte
+    copies for the tail; odd E = 17 reads its fragments in 2-byte halves;
+    6H = 102 stores 2 bytes at a time, 384 and 768 whole 16-byte pieces;
+    M = 1, 63, 65, 130: ragged last tiles), 257 .. 521 the mma.sync kernel,
+    800 the one that reads global memory; within one bf16 ulp, launches and
+    bf16 launches +1, the same bits twice."""
     g = torch.Generator().manual_seed(M + E)
     x, w, b = (_bf16(torch.randn(s, generator=g)).to(cuda) for s in ((M, E), (E, N), (N,)))
     w = _bf16(w.float() * min(1.0, (50 / E) ** 0.5))
     before = gru_cuda.gru_input_proj.launches
+    before_bf16 = gru_cuda.gru_input_proj.launches_bf16
     out = gru_cuda.gru_input_proj(x, w, b)
     torch.cuda.synchronize()
     assert gru_cuda.gru_input_proj.launches == before + 1 and out.dtype == torch.bfloat16
+    assert gru_cuda.gru_input_proj.launches_bf16 == before_bf16 + 1
     _within_ulp(out, gru_cuda.gru_input_proj_ref(x, w, b))
     assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
+
+
+def _after_nan(t, pad):
+    """t's values in a buffer whose next `pad` elements are NaN: a view of
+    t's shape, contiguous, with NaN right past its data."""
+    buf = torch.full((t.numel() + pad,), float("nan"), device=t.device, dtype=t.dtype)
+    buf[:t.numel()] = t.flatten()
+    return buf[:t.numel()].view(t.shape)
+
+
+def test_bf16_projection_kernels_ignore_nan_past_the_data(cuda):
+    """K1's and K4's bf16 kernels zero what lies past their data by
+    selects (and K4's rows past a chunk by the copy's zero fill), never by
+    multiplying: after launches over all-NaN inputs of the same shapes
+    (NaN left in the shared memory), inputs followed by NaN in memory give
+    finite outputs equal to the plain version's, at M = 65 (a last tile of
+    one row) and E = 50 (k past E inside the tile)."""
+    M, E, G = 65, 50, 384
+    g = torch.Generator().manual_seed(3)
+    x, w, b, dxg = (_bf16(torch.randn(s, generator=g)).to(cuda)
+                    for s in ((M, E), (E, G), (G,), (M, G)))
+    nan_x, nan_g = torch.full_like(x, float("nan")), torch.full_like(dxg, float("nan"))
+    gru_cuda.gru_input_proj(nan_x, w, b)
+    gru_cuda.gru_input_proj_bwd(nan_x, nan_g)
+    x, dxg = _after_nan(x, 64 * E), _after_nan(dxg, 64 * G)
+    out = gru_cuda.gru_input_proj(x, w, b)
+    dw, db = gru_cuda.gru_input_proj_bwd(x, dxg)
+    torch.cuda.synchronize()
+    assert out.isfinite().all() and dw.isfinite().all() and db.isfinite().all()
+    _within_ulp(out, gru_cuda.gru_input_proj_ref(x, w, b))
+    want_dw, want_db = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
+    _l2_close(dw, want_dw)
+    _l2_close(db, want_db)
 
 
 def _bf16_backward_inputs(cuda, N, L, H, kind, E=50):
@@ -343,18 +387,36 @@ def test_bigru_backward_bf16_matches_plain(cuda, N, L, H, kind):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("M,E,G", [(51200, 50, 384), (130, 17, 102), (1000, 400, 384),
-                                   (3000, 520, 102), (777, 521, 384)])
+# csrc/gru_input_proj_bwd.cu: x's rows copied whole up to E = 64, with four
+# stages up to the first E, two past it; E tiles past 64
+K4_BF16_FOUR_STAGES_MAX_E, K4_BF16_WHOLE_ROWS_MAX_E = 52, 64
+
+
+@pytest.mark.parametrize("M,E,G", [
+    (51200, 50, 384), (130, 17, 102), (1000, 400, 384), (3000, 520, 102), (777, 521, 384),
+    (1, 50, 384), (63, 8, 384), (65, 16, 768), (130, 64, 102), (51200, 17, 102),
+    (0, 50, 384), (65, 50, 768), (130, K4_BF16_FOUR_STAGES_MAX_E, 384),
+    (130, K4_BF16_FOUR_STAGES_MAX_E + 1, 102), (130, K4_BF16_WHOLE_ROWS_MAX_E, 384),
+    (130, K4_BF16_WHOLE_ROWS_MAX_E + 1, 102), (130, 286, 384), (130, 287, 384),
+    (130, 708, 102), (130, 709, 384), (1048576, 50, 384), (130, 1032, 102), (130, 1033, 384),
+    (130, 1616, 384), (130, 1617, 102), (65, 1624, 384)])
 def test_gru_input_proj_bwd_bf16_matches_plain(cuda, M, E, G):
     """K4 in bf16: f32 dW and db within 1e-4 of their l2 norms (G = 102:
-    dxg rows copied 2 bytes at a time), the same bits twice."""
+    dxg rows copied 2 bytes at a time; E = 8 .. 64 one E tile of n56 or
+    n64; whole x rows with four stages up to E = 52, with two up to 64;
+    past that each block copies its E tile of x, two stages, 2 bytes at a
+    time at odd E and by cp.async at E % 8 == 0; 1,048,576 rows: 432
+    chunks of 2,432, the longest accumulation chains), launches and bf16
+    launches +1, the same bits twice."""
     g = torch.Generator().manual_seed(M + E + 1)
     x = _bf16(torch.randn(M, E, generator=g)).to(cuda)
     dxg = _bf16(torch.randn(M, G, generator=g)).to(cuda)
     before = gru_cuda.gru_input_proj_bwd.launches
+    before_bf16 = gru_cuda.gru_input_proj_bwd.launches_bf16
     dw, db = gru_cuda.gru_input_proj_bwd(x, dxg)
     torch.cuda.synchronize()
     assert gru_cuda.gru_input_proj_bwd.launches == before + 1
+    assert gru_cuda.gru_input_proj_bwd.launches_bf16 == before_bf16 + 1
     want_dw, want_db = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
     _l2_close(dw, want_dw)
     _l2_close(db, want_db)

@@ -7,9 +7,8 @@
 // tf32x3.cuh) with f32 accumulation.  The bf16 variant
 // (gru_input_proj_bf16, --compute_dtype bfloat16) reads bf16 x, W and b,
 // accumulates in f32 and rounds xg to bf16 on store, as the TPU kernel's
-// bf16 IO does (_proj_fwd_kernel); a bf16 value is exact in TF32, so each
-// k-step is one TF32 wgmma (big*big), not three, and x's tiles in shared
-// memory are bf16.
+// bf16 IO does (_proj_fwd_kernel); up to E = 256 its products are native
+// bf16 wgmma (wgmma_bf16.cuh), see "bf16 IO" below.
 //
 // Replaces two TPU kernels of umpr_tpu/ops/gru_pallas.py:
 //   B3 _pallas_project_fwd / _proj_fwd_kernel (pallas_call at :319), the
@@ -56,10 +55,34 @@
 // reads its fragments from global memory (any E).  Each output element is
 // computed by one thread in a fixed order, so the bits do not depend on the
 // grid (the SM count) or on the run.
+//
+// bf16 IO.  At the UMPR-R shapes it reads 5.1 MB (x), writes 39.3 MB (xg)
+// and does 2.0 GFLOP of bf16 products: 13.3 us at 3.35 TB/s against 2 us
+// at 989 TFLOP/s, so it is bound by its xg stores even more than f32 is.
+// Up to E = 256 (gru_input_proj_bf16_wgmma, the largest E whose W tiles,
+// x ring and store staging fit the shared memory) the design is the f32
+// kernel's persistent walk with three changes:
+//   - products: wgmma m64n128k16 bf16 with an f32 accumulator, one per
+//     k-step of 16 (E = 50 pads to 64: four steps); W's column slice sits
+//     in shared memory as bf16 K-major tiles (16 KB at E = 50);
+//   - A straight from the x tile: a row of x is E bf16 (100 bytes at
+//     E = 50, no 16-byte multiple, so no TMA map or canonical wgmma layout
+//     takes it as it lands), but a 64-row tile is one contiguous span, and
+//     at even E each lane reads its fragment as 32-bit (k, k + 1) pairs;
+//     odd E reads 2-byte halves.  Columns past E are zeroed by selects;
+//   - the epilogue adds the f32 bias, rounds once to bf16 and stages the
+//     warpgroup's 64 x 128 tile in shared memory (rows 272 bytes apart:
+//     the quads' 4-byte writes hit 32 distinct banks); the warpgroup then
+//     writes whole 256-byte row pieces as 16-byte stores (a per-lane bf16
+//     pair would fill half a 32-byte sector per instruction), or 2-byte
+//     stores where 6H is no multiple of 8 (H = 17: 6H = 102).
+// Past E = 256 the mma.sync and deep kernels above take bf16 too: each
+// k-step one TF32 product of the widened bf16 values (exact in TF32).
 
 #include <algorithm>
 
 #include "tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -75,9 +98,8 @@ constexpr int BM = 64;     // rows of a warpgroup's tile
 constexpr int BN = 128;    // columns of a block (wgmma n)
 constexpr int WT = BN * 8;  // floats of one k-step's W tile (big or small)
 
-template <class T>
 size_t wide_smem(int K) {
-  return ((size_t)(K + 7) / 8 * 2 * WT + BN) * sizeof(float) + (size_t)WGS * 2 * BM * K * sizeof(T);
+  return ((size_t)(K + 7) / 8 * 2 * WT + BN + (size_t)WGS * 2 * BM * K) * sizeof(float);
 }
 
 // the A fragment of k-step ks (columns 8 ks + tig, + 4) of rows p0, p8 of
@@ -93,17 +115,17 @@ __device__ __forceinline__ void split_a(const T* p0, const T* p8, int ks, int K,
   split(v1 ? ld(p8[k1]) : 0.f, ah[3], al[3]);
 }
 
-template <class T>
 __global__ void __launch_bounds__(WG * WGS, 1)
-gru_input_proj_wgmma(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                     T* __restrict__ out, int M, int K, int N, bool vec) {
+gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
+                     bool vec) {
   extern __shared__ float4 smem4[];
   const int KS = (K + 7) / 8;
   float* wt = reinterpret_cast<float*>(smem4);  // [KS][big, small][WT]
   float* bias = wt + KS * 2 * WT;                 // [BN]
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
   const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
-  T* ring = reinterpret_cast<T*>(bias + BN) + wg * 2 * BM * K;  // this warpgroup's [2][BM * K]
+  float* ring = bias + BN + wg * 2 * BM * K;  // this warpgroup's [2][BM * K]
   const int col0 = blockIdx.x * BN;
   const int walkers = gridDim.y * WGS;
   const int m_tiles = (M + BM - 1) / BM;
@@ -143,13 +165,12 @@ gru_input_proj_wgmma(const T* __restrict__ x, const T* __restrict__ w, const T* 
 
     // rows past M hold stale values: they reach only their own outputs,
     // which are not stored
-    const T* p0 = ring + (it & 1) * BM * K + r0 * K;
-    const T* p8 = p0 + 8 * K;
+    const float* p0 = ring + (it & 1) * BM * K + r0 * K;
+    const float* p8 = p0 + 8 * K;
     // hi sums big*big, lo the two small cross terms: the tensor core's
-    // accumulation error then follows the 7 big*big steps only (bf16: lo
-    // stays 0, its terms are)
+    // accumulation error then follows the 7 big*big steps only
     float hi[BN / 2], lo[BN / 2];
-    if (KS == 0 || is_bf16<T>) {
+    if (KS == 0) {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) hi[i] = lo[i] = 0.f;
     }
@@ -160,9 +181,9 @@ gru_input_proj_wgmma(const T* __restrict__ x, const T* __restrict__ w, const T* 
       const float* tb = wt + ks * 2 * WT;
       const int add = ks > 0;
       wgmma_fence();
-      if constexpr (!is_bf16<T>) Wgmma<BN>::run(lo, al, b_desc(tb), add);
+      Wgmma<BN>::run(lo, al, b_desc(tb), add);
       Wgmma<BN>::run(hi, ah, b_desc(tb), add);
-      if constexpr (!is_bf16<T>) Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
+      Wgmma<BN>::run(lo, ah, b_desc(tb + WT), 1);
       wgmma_commit();
     };
     split_a(p0, p8, 0, K, tig, ah0, al0);
@@ -184,7 +205,7 @@ gru_input_proj_wgmma(const T* __restrict__ x, const T* __restrict__ w, const T* 
     for (int h = 0; h < 2; ++h) {
       const int r = tile * BM + r0 + 8 * h;
       if (r >= M) continue;
-      T* row = out + (size_t)r * N + col0;
+      float* row = out + (size_t)r * N + col0;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int c = j * 8 + 2 * tig;
@@ -193,9 +214,156 @@ gru_input_proj_wgmma(const T* __restrict__ x, const T* __restrict__ w, const T* 
         if ((N & 1) == 0) {  // c even, so col0 + c < N implies col0 + c + 1 < N
           if (col0 + c < N) store_pair(row + c, o0, o1);
         } else {
-          if (col0 + c < N) row[c] = io_from<T>(o0);
-          if (col0 + c + 1 < N) row[c + 1] = io_from<T>(o1);
+          if (col0 + c < N) row[c] = o0;
+          if (col0 + c + 1 < N) row[c + 1] = o1;
         }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the last committed group is empty; leave none behind
+}
+
+// ---- the bf16 wgmma kernel (bf16 IO, E <= 256): the f32 kernel's walk
+// with native bf16 products and a staged epilogue (see the header)
+
+constexpr int B16_WT = BN * 16;   // bf16 of one k16 step's W tile
+constexpr int B16_SST = BN + 8;   // staging row stride, bf16 (272 bytes)
+
+size_t bf16_smem(int K) {
+  return (size_t)(K + 15) / 16 * B16_WT * sizeof(bf16) + BN * sizeof(float) +
+         ((size_t)WGS * BM * B16_SST + (size_t)WGS * 2 * BM * K) * sizeof(bf16);
+}
+
+// the 32-bit A register of row p's columns k, k + 1 (k even); zeros past
+// K.  PAIR (K even): one aligned 4-byte load, since k < K then implies
+// k + 1 < K
+template <bool PAIR>
+__device__ __forceinline__ uint32_t a_pair(const bf16* p, int k, int K) {
+  if constexpr (PAIR) {
+    return k < K ? *reinterpret_cast<const uint32_t*>(p + k) : 0u;
+  } else {
+    return wgmma_bf16::pack(k < K ? wgmma_bf16::bits(p[k]) : 0u,
+                            k + 1 < K ? wgmma_bf16::bits(p[k + 1]) : 0u);
+  }
+}
+
+template <bool PAIR>
+__global__ void __launch_bounds__(WG * WGS, 2)
+gru_input_proj_bf16_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                          const bf16* __restrict__ b, bf16* __restrict__ out, int M, int K,
+                          int N, bool vec) {
+  using namespace wgmma_bf16;
+  extern __shared__ float4 smem4[];
+  const int KS = (K + 15) / 16;
+  bf16* wt = reinterpret_cast<bf16*>(smem4);                 // [KS][B16_WT]
+  float* bias = reinterpret_cast<float*>(wt + KS * B16_WT);  // [BN]
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
+  bf16* stage = reinterpret_cast<bf16*>(bias + BN) + wg * BM * B16_SST;  // [BM][B16_SST]
+  bf16* ring = reinterpret_cast<bf16*>(bias + BN) + WGS * BM * B16_SST +
+               wg * 2 * BM * K;  // this warpgroup's [2][BM * K]
+  const int col0 = blockIdx.x * BN;
+  const int walkers = gridDim.y * WGS;
+  const int m_tiles = (M + BM - 1) / BM;
+
+  int tile = blockIdx.y * WGS + wg;
+  if (tile < m_tiles)
+    copy_span(ring, x + (size_t)tile * BM * K, min(BM, M - tile * BM) * K, vec, t, WG);
+  cp_async_commit();
+
+  // W's column slice as K-major bf16 tiles: item i is column n's 8 k of
+  // one k half, one 16-byte store; zeros past K and past N
+  for (int i = tid; i < KS * 2 * BN; i += WG * WGS) {
+    const int n = i % BN, k0 = (i / BN) * 8;  // k0 = 16 ks + 8 kh
+    const bool in = col0 + n < N;
+    uint32_t q[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + 2 * u;
+      q[u] = pack(in && k < K ? bits(w[(size_t)k * N + col0 + n]) : 0u,
+                  in && k + 1 < K ? bits(w[(size_t)(k + 1) * N + col0 + n]) : 0u);
+    }
+    *reinterpret_cast<uint4*>(wt + (k0 / 16) * B16_WT + tile_offset(n, k0 & 15)) =
+        make_uint4(q[0], q[1], q[2], q[3]);
+  }
+  if (tid < BN) bias[tid] = col0 + tid < N ? __bfloat162float(b[col0 + tid]) : 0.f;
+  fence_proxy_async();
+  __syncthreads();
+
+  const int r0 = warp * 16 + gid;  // this thread's rows of a tile: r0, r0 + 8
+  for (int it = 0; tile < m_tiles; ++it, tile += walkers) {
+    cp_async_wait<0>();  // this tile's copy has landed ...
+    named_barrier(1 + wg, WG);  // ... for the warpgroup; it is done with the last tile
+    const int next = tile + walkers;  // into the buffer the last tile used
+    if (next < m_tiles)
+      copy_span(ring + ((it + 1) & 1) * BM * K, x + (size_t)next * BM * K,
+                min(BM, M - next * BM) * K, vec, t, WG);
+    cp_async_commit();
+
+    // rows past M hold stale values: they reach only their own outputs,
+    // which are not stored
+    const bf16* p0 = ring + (it & 1) * BM * K + r0 * K;
+    const bf16* p8 = p0 + 8 * K;
+    float acc[BN / 2];
+    if (KS == 0) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    }
+    // two A register sets: wgmma reads them asynchronously, so a set is
+    // rewritten only once the step that read it is done
+    uint32_t a0[4], a1[4];
+    auto load_a = [&](int ks, uint32_t(&a)[4]) {
+      const int k = ks * 16 + 2 * tig;
+      a[0] = a_pair<PAIR>(p0, k, K);
+      a[1] = a_pair<PAIR>(p8, k, K);
+      a[2] = a_pair<PAIR>(p0, k + 8, K);
+      a[3] = a_pair<PAIR>(p8, k + 8, K);
+    };
+    auto issue = [&](int ks, const uint32_t(&a)[4]) {
+      wgmma_fence();
+      WgmmaBf16<BN>::run(acc, a, desc(wt + ks * B16_WT), ks > 0);
+      wgmma_commit();
+    };
+    load_a(0, a0);
+    for (int ks = 0; ks < KS; ks += 2) {
+      issue(ks, a0);
+      wgmma_wait<1>();  // step ks - 1 is done with set 1
+      load_a(ks + 1, a1);
+      if (ks + 1 < KS) {
+        issue(ks + 1, a1);
+        wgmma_wait<1>();  // step ks is done with set 0
+        load_a(ks + 2, a0);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // the f32 sum plus the f32 bias, rounded once, into the staging tile
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + 2 * tig;
+      *reinterpret_cast<uint32_t*>(stage + r0 * B16_SST + c) =
+          round_pair(acc[4 * j] + bias[c], acc[4 * j + 1] + bias[c + 1]);
+      *reinterpret_cast<uint32_t*>(stage + (r0 + 8) * B16_SST + c) =
+          round_pair(acc[4 * j + 2] + bias[c], acc[4 * j + 3] + bias[c + 1]);
+    }
+    named_barrier(1 + wg, WG);  // the tile is staged
+    const int rows = min(BM, M - tile * BM);
+    bf16* dst = out + (size_t)tile * BM * N + col0;
+    // 16-byte row pieces need out 16-byte aligned and rows of a multiple of
+    // 8 bf16 (col0 is a multiple of 128): then a piece lies wholly inside
+    // or past N
+    if ((reinterpret_cast<uintptr_t>(out) & 15) == 0 && N % 8 == 0) {
+      for (int i = t; i < rows * (BN / 8); i += WG) {
+        const int r = i / (BN / 8), c = 8 * (i % (BN / 8));
+        if (col0 + c < N)
+          *reinterpret_cast<uint4*>(dst + (size_t)r * N + c) =
+              *reinterpret_cast<const uint4*>(stage + r * B16_SST + c);
+      }
+    } else {
+      for (int i = t; i < rows * BN; i += WG) {
+        const int r = i / BN, c = i % BN;
+        if (col0 + c < N) dst[(size_t)r * N + c] = stage[r * B16_SST + c];
       }
     }
   }
@@ -368,17 +536,36 @@ int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_bloc
   return static_cast<int>(cudaGetLastError());
 }
 
+// the mma.sync kernel, or past its shared memory the deep one
 template <class T>
-int run(const T* x, const T* w, const T* b, T* out, int M, int K, int N, void* stream) {
-  if (M == 0 || N == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide_smem<T>(K) <= SMEM_LIMIT)
-    return launch(gru_input_proj_wgmma<T>, WG * WGS, wide_smem<T>(K), BM, BN, WGS, x, w, b, out,
-                  M, K, N, s);
+int run_narrow(const T* x, const T* w, const T* b, T* out, int M, int K, int N,
+               cudaStream_t s) {
   if (narrow_smem<T>(K) <= SMEM_LIMIT)
     return launch(gru_input_proj_mma<T>, THREADS, narrow_smem<T>(K), NBM, NBN, 1, x, w, b, out,
                   M, K, N, s);
   return launch(gru_input_proj_deep<T>, THREADS, 0, DBM, DBN, 1, x, w, b, out, M, K, N, s);
+}
+
+int run(const float* x, const float* w, const float* b, float* out, int M, int K, int N,
+        void* stream) {
+  if (M == 0 || N == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide_smem(K) <= SMEM_LIMIT)
+    return launch(gru_input_proj_wgmma, WG * WGS, wide_smem(K), BM, BN, WGS, x, w, b, out, M, K,
+                  N, s);
+  return run_narrow(x, w, b, out, M, K, N, s);
+}
+
+int run(const bf16* x, const bf16* w, const bf16* b, bf16* out, int M, int K, int N,
+        void* stream) {
+  if (M == 0 || N == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_smem(K) > SMEM_LIMIT) return run_narrow(x, w, b, out, M, K, N, s);
+  if (K % 2 == 0)
+    return launch(gru_input_proj_bf16_wgmma<true>, WG * WGS, bf16_smem(K), BM, BN, WGS, x, w, b,
+                  out, M, K, N, s);
+  return launch(gru_input_proj_bf16_wgmma<false>, WG * WGS, bf16_smem(K), BM, BN, WGS, x, w, b,
+                out, M, K, N, s);
 }
 
 }  // namespace

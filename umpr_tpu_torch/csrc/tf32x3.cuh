@@ -99,7 +99,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---- the IO types of K1-K4: float or bf16 in memory, f32 in registers.
 // A bf16 value is exact in TF32 (8 exponent bits, 7 of mantissa), so its
-// split has small = 0 and one TF32 product of two bf16 values is exact.
+// split has small = 0 and one TF32 product of two bf16 values is exact
+// (K2, K3 and K1's wide-E kernels; K1's and K4's bf16 wgmma routes take
+// native bf16 products, wgmma_bf16.cuh).
 
 using bf16 = __nv_bfloat16;
 

@@ -1,0 +1,134 @@
+// Building blocks of the bf16 routes of K1 (gru_input_proj.cu) and K4
+// (gru_input_proj_bwd.cu): native bf16 products on Hopper's tensor cores,
+// wgmma m64nNk16 with bf16 operands and f32 accumulators.  The product of
+// two bf16 values is exact in f32, so each k-step adds exact products into
+// an f32 accumulator: the JAX kernels' bf16 path (bf16 operands, f32
+// accumulation) with nothing widened and no TF32 split.
+//
+// A comes from registers (wgmma's A-from-registers form), as 32-bit pairs
+// of bf16 (the lower k in the lower half); B from shared memory, K-major
+// without swizzle, through a matrix descriptor.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace wgmma_bf16 {
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+// two bf16 as one 32-bit A register: lo in the low half
+__device__ __forceinline__ uint32_t pack(uint32_t lo, uint32_t hi) { return lo | hi << 16; }
+
+// the two bf16 of a 32-bit register, in f32 (exact)
+__device__ __forceinline__ float lo_f(uint32_t r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float hi_f(uint32_t r) { return __uint_as_float(r & 0xFFFF0000u); }
+
+// two f32 rounded to bf16 (nearest even, as XLA's astype) as one register
+__device__ __forceinline__ uint32_t round_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A warpgroup (4 warps, 128 threads) computes D (64 x N) += A (64 x 16) B (16 x N).
+// A: warp w holds rows 16 w .. 16 w + 15 as mma.sync's m16n8k16 A fragment
+// (g = lane / 4, t = lane % 4): a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t,
+// 2t+1], a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9].  D: per n8
+// column group j, d[4j .. 4j+3] = D[16w+g][8j+2t], D[16w+g][8j+2t+1],
+// D[16w+g+8][8j+2t], D[16w+g+8][8j+2t+1].  B: K-major, no swizzle (the
+// trailing 0 is tnspB): 8x8 "core matrices" of 128 contiguous bytes (8
+// rows of n, 8 k each), the two k halves 128 bytes apart, the n groups
+// 256 bytes apart (tile_offset, desc).  scale_d = 0 overwrites D, 1 adds.
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<56> {
+  __device__ __forceinline__ static void run(float (&d)[28], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+        "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// the bf16 offset of B element (n, k) in one k16 step's tile (see above)
+__device__ __forceinline__ int tile_offset(int n, int k) {
+  return (n >> 3) * 128 + (k >> 3) * 64 + (n & 7) * 8 + (k & 7);
+}
+
+// the shared-memory matrix descriptor of a B tile laid out as above
+__device__ __forceinline__ uint64_t desc(const __nv_bfloat16* tile) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4)       // start address
+         | static_cast<uint64_t>(128 >> 4) << 16          // k halves: 128 B apart
+         | static_cast<uint64_t>(256 >> 4) << 32;         // n groups: 256 B apart
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
+// row address of matrix l / 8 (16-byte aligned, 8 contiguous bf16), and
+// a[i] receives matrix i's elements [2t][g], [2t+1][g] (g = lane / 4, t =
+// lane % 4).  With rows k and columns m it yields the A fragment of A =
+// that matrix transposed.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4], const __nv_bfloat16* row) {
+  const uint32_t p = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(p)
+               : "memory");
+}
+
+}  // namespace wgmma_bf16

@@ -8,7 +8,8 @@ Forward:
 - K1 ``gru_input_proj`` (csrc/gru_input_proj.cu) replaces B5 (stack-pad)
   and B3 (input projection): xg = x @ [W_ih_f | W_ih_b] + b_ih in true time,
   a persistent streaming kernel with 3xTF32 products on the tensor cores
-  (f32-accurate, as B3's Precision.HIGHEST; csrc/tf32x3.cuh);
+  (f32-accurate, as B3's Precision.HIGHEST; csrc/tf32x3.cuh), in bf16
+  native bf16 wgmma with a staged epilogue (csrc/wgmma_bf16.cuh);
 - K2 ``bigru_recurrence`` (csrc/bigru_recurrence.cu) replaces B1 (the
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
   time, exact zeros past each length; up to H = 128 the rows ordered by
@@ -27,8 +28,8 @@ Backward:
   ``bigru_backward_sweep_ref`` and ``bigru_backward_dw_ref``);
 - K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
   with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg), 3xTF32
-  over a fixed split of the rows into chunks, whose partials a second
-  kernel of the same launch sums in a fixed order;
+  (bf16: native bf16 wgmma) over a fixed split of the rows into chunks,
+  whose partials a second kernel of the same launch sums in a fixed order;
 - K9 ``gru_input_proj_dx`` (csrc/gru_input_proj_dx.cu) replaces B4's
   ``emit_dxc=True`` branch: the input gradient dx = dxg @ W_ih^T, K1's
   persistent 3xTF32 wgmma design transposed (no grid cap), launched
@@ -43,8 +44,9 @@ to bf16 as the operand of h @ W_hh and stores y in bf16; K3 rounds the
 sum of the two cotangents, the ghh operand of both its products (ghh @
 W_hh^T and h_prev^T ghh) and dxg on store, keeps db_hh the f32 sum of the
 unrounded ghh and returns dW_hh / db_hh in f32; K4 returns f32 sums of
-the bf16 products.  A bf16 value is exact in TF32, so each of their
-tensor-core products is one TF32 product (no 3xTF32 split).  K9 in
+the bf16 products.  K1 (up to E = 256) and K4 run native bf16 wgmma
+(m64nNk16, f32 accumulators); K2, K3 and K1's wide-E kernels run one
+TF32 product of the widened bf16 values (exact in TF32).  K9 in
 bf16 rounds each direction's f32 product to bf16 and adds the two in
 bf16, as the JAX kernel does; its products are bf16 mma.sync.  The plain
 versions carry the same rounding points.
@@ -424,6 +426,7 @@ def bigru_recurrence(xg, lengths, w_hh, b_hh):
 bigru_recurrence.launches = bigru_recurrence.launches_bf16 = 0
 
 PROJ_BWD_STEP = 32  # rows per K4 pipeline stage (csrc/gru_input_proj_bwd.cu STEP)
+PROJ_BWD_BF16_STEP = 64  # rows per stage of K4's bf16 kernel (B16_STEP there)
 # K4 splits the rows into chunks, each one block per 128-column tile of 6H
 # and one dW/db partial.  Up to PROJ_BWD_CHUNKS chunks: 88 x 3 column tiles
 # (6H = 384) fill 132 SMs twice.  A chunk has at most PROJ_BWD_MAX_ROWS
@@ -433,14 +436,22 @@ PROJ_BWD_STEP = 32  # rows per K4 pipeline stage (csrc/gru_input_proj_bwd.cu STE
 # bytes).
 PROJ_BWD_CHUNKS = 88
 PROJ_BWD_MAX_ROWS = 1216
+# K4's bf16 kernel takes 16 rows a k-step, so its chains are rows/16 steps:
+# half as long as f32's over the same rows, and its chunks may be twice as
+# long under the same chain length (2,432 rows = 152 steps; the cap acts
+# past 214,016 rows).  The chunk target stays 88: at 51,200 rows 80
+# chunks of 640 (240 blocks, one wave of two an SM) took 0.0285 ms on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py --steps`), 43 of
+# 1,216 0.0357, and 100 of 512 (a second wave) 0.0407.
+PROJ_BWD_BF16_MAX_ROWS = 2432
 
 
-def _row_chunks(M, target):
+def _row_chunks(M, target, step=PROJ_BWD_STEP, cap=PROJ_BWD_MAX_ROWS):
     """About `target` chunks of M rows for a split-K pass: (rows per chunk,
-    a multiple of PROJ_BWD_STEP, at most PROJ_BWD_MAX_ROWS; chunk count)."""
+    a multiple of `step`, at most `cap`; chunk count)."""
     per = -(-M // target)
-    rows = max(PROJ_BWD_STEP, -(-per // PROJ_BWD_STEP) * PROJ_BWD_STEP)
-    rows = min(rows, PROJ_BWD_MAX_ROWS)
+    rows = max(step, -(-per // step) * step)
+    rows = min(rows, cap)
     return rows, max(1, -(-M // rows))
 
 
@@ -520,6 +531,13 @@ def proj_bwd_chunks(M):
     return _row_chunks(M, PROJ_BWD_CHUNKS)
 
 
+def proj_bwd_bf16_chunks(M):
+    """K4's split of M rows in bf16: (rows per chunk, a multiple of
+    PROJ_BWD_BF16_STEP, at most PROJ_BWD_BF16_MAX_ROWS; chunk count).  A
+    function of M alone, as ``proj_bwd_chunks``."""
+    return _row_chunks(M, PROJ_BWD_CHUNKS, PROJ_BWD_BF16_STEP, PROJ_BWD_BF16_MAX_ROWS)
+
+
 def gru_input_proj_bwd(x, dxg):
     """K4: x (M, E), dxg (M, 6H), both float32 or both bfloat16 ->
     (dw_ih (E, 6H), db_ih (6H,)), f32.
@@ -527,7 +545,7 @@ def gru_input_proj_bwd(x, dxg):
     One launch of the C entry point runs two kernels: the first reduces
     each chunk of rows (``proj_bwd_chunks``) into a dW and a db partial,
     the second sums the partials in a fixed order (no atomics, the same
-    bits on every run)."""
+    bits on every run).  bf16 chunks by ``proj_bwd_bf16_chunks``."""
     if x.device.type == "cpu":
         return gru_input_proj_bwd_ref(x, dxg)
     _device_kernel("gru_input_proj_bwd", x, dxg)
@@ -539,7 +557,7 @@ def gru_input_proj_bwd(x, dxg):
     if dxg.shape[0] != M:
         raise ValueError(f"gru_input_proj_bwd: x {tuple(x.shape)} and dxg "
                          f"{tuple(dxg.shape)} differ in rows")
-    rows, chunks = proj_bwd_chunks(M)
+    rows, chunks = (proj_bwd_bf16_chunks if io == BF16 else proj_bwd_chunks)(M)
     # scratch: the dW partials (chunks, E, G), then db's (chunks, G)
     part = torch.empty((E * G + G) * chunks, device=x.device, dtype=torch.float32)
     out = torch.empty(E * G + G, device=x.device, dtype=torch.float32)
