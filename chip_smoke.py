@@ -403,24 +403,35 @@ def device_ms(fn, steps=20):
 
 
 # K2's and K3's kernels by part, as csrc/bigru_*.cu* and csrc/row_order.cuh
-# name them
+# name them; a part's third entry names the kernel it is fused into on a
+# route that launches no kernel of its own for it (K3's hg pass in the bf16
+# sweep up to H = 128)
 K2_PARTS = (("row order", ("bigru_row_order",)),
             ("recurrence", ("bigru_recurrence_kernel", "bigru_recurrence_wide")))
-K3_PARTS = (("hg pass", ("bigru_backward_hg",)), ("row order", ("bigru_row_order",)),
-            ("sweep", ("bigru_backward_sweep", "bigru_backward_wide")),
+K3_PARTS = (("hg pass", ("bigru_backward_hg",), "bigru_backward_bf16_sweep"),
+            ("row order", ("bigru_row_order",)),
+            ("sweep", ("bigru_backward_sweep", "bigru_backward_wide",
+                       "bigru_backward_bf16_sweep")),
             ("dW pass", ("bigru_backward_dw",)), ("reduce", ("bigru_backward_reduce",)))
 
 
 def part_split(fn, parts, steps=10):
     """A kernel's device ms per call by part (K2_PARTS: row order,
     recurrence; K3_PARTS: hg pass, row order, sweep, dW pass, reduce);
+    "fused into <kernel>" for a part whose work ran inside that kernel,
     None for a part the profiler did not see."""
     split = device_split(fn, steps)
+
+    def ms_of(kernels):
+        return [t for name, t in split.items()
+                if any(re.search(rf"\b{k}\s*[(<]", name) for k in kernels)]
+
     out = {}
-    for part, kernels in parts:
-        ms = [t for name, t in split.items()
-              if any(re.search(rf"\b{k}\s*[(<]", name) for k in kernels)]
+    for part, kernels, *fused in parts:
+        ms = ms_of(kernels)
         out[part] = sum(ms) if ms else None
+        if not ms and fused and ms_of(fused):
+            out[part] = f"fused into {fused[0]}"
     return out
 
 
@@ -493,6 +504,8 @@ def timed(kernel, plain, library, iters=20, plain_iters=20, lib_iters=20):
 
 
 def _ms(v):
+    if isinstance(v, str):  # a part fused into another kernel
+        return v
     return "not measured" if v is None else f"{v:.4f}"
 
 
@@ -1452,6 +1465,263 @@ def k4_steps_phase(device, M=51200, G=384, widths=K4_WIDTHS):
             print(f"K4 bf16 step {label!r} at E = {E} ({chunks} chunks of {rows}): device ms "
                   + ", ".join(f"{k} {_ms(v)}" for k, v in times[label][E].items()))
         del x, dxg, want, part, out
+        torch.cuda.empty_cache()
+    return times
+
+
+# bf16 K3's sweep (csrc/bigru_backward.cu bigru_backward_bf16_sweep), each
+# design choice taken back out of the final source at a time: (label,
+# [(file, text, replacement), ...]); python3 chip_smoke.py --steps builds
+# and times each.  "hg pass and Z read back": the hg pass writes Z and the
+# sweep reads it at tp (a step ahead, as xg), in place of the fused
+# product; "product on the CUDA cores": ghh W^T as f32 FMAs from the same
+# shared tiles; "two barriers a step": one ghh tile, a barrier after its
+# reads; "outputs stored from the gate phase's registers": each lane
+# stores its own (row, unit) pairs (4 or 8 bytes, 8 rows a warp store)
+# in place of the staged 16-byte row pieces; "sum started at g z": the
+# product's k-steps added to g z, not g z to their sum; "accumulators
+# chained": each product's k-steps summed in the mma's accumulators, not
+# each k-step's added in f32
+K3_HG_ADDS = """        float p0[4] = {}, p1[4] = {};
+        mma_bf16(p0, a, w4[0], w4[1]);
+        mma_bf16(p1, a, w4[2], w4[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hg[gate][0][i] += p0[i];
+          hg[gate][1][i] += p1[i];
+        }
+"""
+K3_MMA_HG = """#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        uint32_t w4[4];
+        ldsm_x4_trans(w4, ws + (16 * kk + 8 * (mat & 1) + mr) * WS + gate * HP + u0 + 8 * (mat >> 1));
+""" + K3_HG_ADDS + """      }
+"""
+K3_FETCH = "        dyp[q][h] = ld_pair(dy_pos + at * ys + d * H + u, lo, hi, pairs);\n"
+K3_GATES = "    // the gates; ghh rounded into this step's tile\n"
+K3_G_ADDS = """      float p0[4] = {}, p1[4] = {};
+      mma_bf16(p0, a, w4[0], w4[1]);
+      mma_bf16(p1, a, w4[2], w4[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[0][i] += p0[i];
+        acc[1][i] += p1[i];
+      }
+"""
+K3_MMA_PRODUCT = """#pragma unroll 4
+    for (int kk = 0; kk < 3 * KH; ++kk) {
+      uint32_t a[4], w4[4];
+      ldsm_x4(a, ght + (8 * (mat & 1) + mr) * GS + 16 * kk + 8 * (mat >> 1));
+      ldsm_x4(w4, ws + (u0 + 8 * (mat >> 1) + mr) * WS + 16 * kk + 8 * (mat & 1));
+""" + K3_G_ADDS + """    }
+"""
+K3_CUDA_CORE_PRODUCT = """#pragma unroll 4
+    for (int c = 0; c < 3 * HP; c += 2) {
+      float a2[2][2], w2[2][2][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(ght + (gq + 8 * q) * GS + c);
+        a2[q][0] = lo_f(v);
+        a2[q][1] = hi_f(v);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t v =
+              *reinterpret_cast<const uint32_t*>(ws + (u0 + 8 * h + 2 * tq + e) * WS + c);
+          w2[h][e][0] = lo_f(v);
+          w2[h][e][1] = hi_f(v);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc[h][2 * q + e] = fmaf(a2[q][1], w2[h][e][1],
+                                     fmaf(a2[q][0], w2[h][e][0], acc[h][2 * q + e]));
+    }
+"""
+K3_EMIT = "    emit(t, s & 1, false);\n"
+K3_LAST = "          if (t < len[q]) g[q][h][e] = gz[q][h][e] + acc[h][2 * q + e];\n"
+K3_STAGED = """        const int at = (gq + 8 * q) * GS + u0 + 8 * h + 2 * tq;
+        *reinterpret_cast<uint32_t*>(ght + at) = round_pair(dr[0], dr[1]);
+        *reinterpret_cast<uint32_t*>(ght + at + HP) = round_pair(dz[0], dz[1]);
+        *reinterpret_cast<uint32_t*>(ght + at + 2 * HP) = round_pair(dhn[0], dhn[1]);
+        *reinterpret_cast<uint32_t*>(ght + at + 3 * HP) = round_pair(dn[0], dn[1]);
+        float* o = ob + (s & 1) * ROWS * OS + (gq + 8 * q) * OS + u0 + 8 * h + 2 * tq;
+        *reinterpret_cast<float2*>(o) = make_float2(dr[0], dr[1]);
+        *reinterpret_cast<float2*>(o + HP) = make_float2(dz[0], dz[1]);
+        *reinterpret_cast<float2*>(o + 2 * HP) = make_float2(dhn[0], dhn[1]);
+"""
+K3_ZERO_STEPS = "  for (int t = maxlen; t < L; ++t) emit(t, 0, true);\n"
+K3_REGISTER_STORES = [
+    ("bigru_backward.cu", K3_ZERO_STEPS, """  auto store = [&](int q, int h, int t, const float (&dr)[2], const float (&dz)[2],
+                   const float (&dn)[2], const float (&dhn)[2]) {
+    if (row[q] < 0 || !ok[h][0]) return;
+    const size_t at = (size_t)row[q] * L + t;
+    const int u = u0 + 8 * h + 2 * tq;
+    bf16* o = dxg + at * xs + d * G + u;
+    float* zo = zbuf + at * xs + d * G + u;
+    float* go = ghn + at * ys + d * H + u;
+    if (pairs) {
+      *reinterpret_cast<uint32_t*>(o) = round_pair(dr[0], dr[1]);
+      *reinterpret_cast<uint32_t*>(o + H) = round_pair(dz[0], dz[1]);
+      *reinterpret_cast<uint32_t*>(o + 2 * H) = round_pair(dn[0], dn[1]);
+      *reinterpret_cast<float2*>(zo) = make_float2(dr[0], dr[1]);
+      *reinterpret_cast<float2*>(zo + H) = make_float2(dz[0], dz[1]);
+      *reinterpret_cast<float2*>(go) = make_float2(dhn[0], dhn[1]);
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (ok[h][e]) {
+        o[e] = io_from<bf16>(dr[e]);
+        o[H + e] = io_from<bf16>(dz[e]);
+        o[2 * H + e] = io_from<bf16>(dn[e]);
+        zo[e] = dr[e];
+        zo[H + e] = dz[e];
+        go[e] = dhn[e];
+      }
+  };
+  {
+    const float z2[2] = {0.f, 0.f};
+    for (int t = maxlen; t < L; ++t)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) store(q, h, t, z2, z2, z2, z2);
+  }
+"""),
+    ("bigru_backward.cu", K3_STAGED, """        store(q, h, t, dr, dz, dn, dhn);
+        const int at = (gq + 8 * q) * GS + u0 + 8 * h + 2 * tq;
+        *reinterpret_cast<uint32_t*>(ght + at) = round_pair(dr[0], dr[1]);
+        *reinterpret_cast<uint32_t*>(ght + at + HP) = round_pair(dz[0], dz[1]);
+        *reinterpret_cast<uint32_t*>(ght + at + 2 * HP) = round_pair(dhn[0], dhn[1]);
+"""),
+    ("bigru_backward.cu", K3_EMIT, "")]
+K3_STEPS = (
+    ("final", []),
+    ("hg pass and Z read back", [
+        ("bigru_backward.cu", "    if (!is_bf16<T> || H > SWEEP_MAX_H) {", "    if (true) {"),
+        ("bigru_backward.cu", "  uint32_t xin[2][3][2], dys[2][2], dyp[2][2];\n",
+         "  uint32_t xin[2][3][2], dys[2][2], dyp[2][2];\n  float zin[2][3][2][2];\n"),
+        ("bigru_backward.cu", K3_FETCH, K3_FETCH + """        const int tp = d == 0 ? t - 1 : t + 1;
+        const bool pv = live && tp >= 0 && tp < len[q];
+        const float* zp = zbuf + (pv ? ((size_t)row[q] * L + tp) * xs : 0) + d * G + u;
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            zin[q][gate][h][e] = pv && ok[h][e] ? zp[gate * H + e] : 0.f;
+"""),
+        ("bigru_backward.cu", K3_MMA_HG, ""),
+        ("bigru_backward.cu", K3_GATES, """#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) hg[gate][h][2 * q + e] = zin[q][gate][h][e];
+""" + K3_GATES)]),
+    ("product on the CUDA cores", [("bigru_backward.cu", K3_MMA_PRODUCT, K3_CUDA_CORE_PRODUCT)]),
+    ("two barriers a step", [
+        ("bigru_backward.cu", "    bf16* ght = gh + (s & 1) * ROWS * GS;", "    bf16* ght = gh;"),
+        ("bigru_backward.cu", "    const bf16* gt = gh + buf * ROWS * GS;", "    const bf16* gt = gh;"),
+        ("bigru_backward.cu", K3_EMIT, K3_EMIT + "    __syncthreads();\n")]),
+    ("outputs stored from the gate phase's registers", K3_REGISTER_STORES),
+    ("sum started at g z", [
+        ("bigru_backward.cu", "    float acc[2][4] = {};\n", """    float acc[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[h][2 * q + e] = gz[q][h][e];
+"""),
+        ("bigru_backward.cu", K3_LAST, K3_LAST.replace("gz[q][h][e] + ", ""))]),
+    ("accumulators chained", [
+        ("bigru_backward.cu", K3_HG_ADDS, """        mma_bf16(hg[gate][0], a, w4[0], w4[1]);
+        mma_bf16(hg[gate][1], a, w4[2], w4[3]);
+"""),
+        ("bigru_backward.cu", K3_G_ADDS, """      mma_bf16(acc[0], a, w4[0], w4[1]);
+      mma_bf16(acc[1], a, w4[2], w4[3]);
+""")]))
+K3_STEP_WIDTHS = (64, 128)  # H each K3 step is timed at (N = 2560, L = 20)
+
+
+def _k3_bf16_operands(device, N, L, H, E=50):
+    """bf16 K3 inputs at (N, L, H) as bf16_kernel_phase makes them at H =
+    64: x ~ N(0, 0.25) through K1 with a BiGRU's initial weights (seeded
+    by H), lengths uniform in 1 .. L, y from K2, cotangents N(0, 1)."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(H)
+    x = (torch.randn(N * L, E, generator=g) * 0.5).to(device).to(bf)
+    lengths = torch.randint(1, L + 1, (N,), generator=g, dtype=torch.int32).to(device)
+    gru = BiGRU(E, H, generator=g).to(device)
+    w_ih, b_ih, w_hh, b_hh = (t.detach().to(bf) for t in gru.kernel_operands())
+    xg = gru_cuda.gru_input_proj(x, w_ih, b_ih).view(N, L, 6 * H)
+    y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
+    gd = torch.Generator(device=device).manual_seed(H + 1)
+    dy_sent, dy_pos = (torch.randn(N, L, 2 * H, generator=gd, device=device).to(bf)
+                       for _ in range(2))
+    return xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh
+
+
+def k3_steps_phase(device, widths=K3_STEP_WIDTHS, N=2560, L=20):
+    """bf16 K3 with one design choice of its sweep taken back at a time
+    (K3_STEPS), each built beside the final source, held against the plain
+    version (dxg within one bf16 ulp but for a BF16_PAST_ULP share, dW /
+    db within SUM_RTOL) and timed by part (device ms under torch.profiler)
+    at each H of `widths`.  A step that misses the tolerance is reported
+    (its agreement is part of what the step measures); the final source
+    raises.  Returns {label: {H: parts and agreement}}."""
+    fns = build_steps("bigru_backward", K3_STEPS,
+                      [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                      "bigru_backward_bf16")
+    times = {label: {} for label in fns}
+    for H in widths:
+        xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _k3_bf16_operands(device, N, L, H)
+        want = gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+        rows, chunks = gru_cuda.bwd_chunks(N * L)
+        n_dw = 2 * H * 3 * H
+        for label, fn in fns.items():
+            dxg = torch.empty(N, L, 6 * H, device=device, dtype=torch.bfloat16)
+            zbuf = torch.empty(N, L, 6 * H, device=device)
+            ghn = torch.empty(N, L, 2 * H, device=device)
+            order = torch.empty(N, device=device, dtype=torch.int32)
+            part = torch.empty(chunks * (n_dw + 2 * 3 * H), device=device)
+            out = torch.empty(n_dw + 2 * 3 * H, device=device)
+
+            def call(fn=fn, dxg=dxg, zbuf=zbuf, ghn=ghn, order=order, part=part, out=out,
+                     label=label):
+                err = fn(xg.data_ptr(), y.data_ptr(), dy_sent.data_ptr(), dy_pos.data_ptr(),
+                         lengths.data_ptr(), w_hh.data_ptr(), None, b_hh.data_ptr(),
+                         dxg.data_ptr(), zbuf.data_ptr(), ghn.data_ptr(), order.data_ptr(),
+                         None, part.data_ptr(), part.data_ptr() + 4 * n_dw * chunks,
+                         out.data_ptr(), out.data_ptr() + 4 * n_dw, N, L, H, rows,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise AssertionError(f"K3 step {label!r} failed to launch: {err}")
+
+            call()
+            torch.cuda.synchronize()
+            where = f"K3 bf16 step {label!r} at H = {H}"
+            past, within = _bf16_agreement(dxg, want[0], f"{where}: dxg")
+            rel = {k: ((got - ref).norm() / ref.norm()).item() for k, got, ref in (
+                ("dw_rel", out[:n_dw].view(2, H, 3 * H), want[1]),
+                ("db_rel", out[n_dw:].view(2, 3 * H), want[2]))}
+            within = within and max(rel.values()) <= SUM_RTOL
+            print(f"{where}: dW, db relative to their norms {rel['dw_rel']:.3e}, "
+                  f"{rel['db_rel']:.3e} (tolerance {SUM_RTOL:.0e}); within tolerance {within}")
+            if label == "final" and not within:
+                raise AssertionError("K3's final bf16 source disagrees with its plain version")
+            parts = part_split(call, K3_PARTS)
+            print_split(where, parts)
+            times[label][H] = {**parts, "dxg_past_ulp": past, **rel, "within_tolerance": within}
+        del xg, y, want, dxg, zbuf, ghn, part, out
         torch.cuda.empty_cache()
     return times
 
@@ -3189,6 +3459,15 @@ def _bf16_check(got, want, where):
     cancels, or an operand's rounding flip carried along K2/K3's
     recurrence, moves a value near zero by many of its own ulps); returns
     the max abs error."""
+    past, within = _bf16_agreement(got, want, where)
+    if not within:
+        raise AssertionError(f"{where} disagrees with its plain bf16 version")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _bf16_agreement(got, want, where):
+    """_bf16_check's numbers, printed: (elements past one ulp, whether
+    the check holds)."""
     g, w = got.float(), want.float()
     ulp = torch.exp2(torch.floor(torch.log2(
         torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -120))) - 7)
@@ -3198,9 +3477,7 @@ def _bf16_check(got, want, where):
     print(f"{where}: max|kernel - plain| = {err.max().item():.3e}, "
           f"{(err / ulp).max().item():.1f} ulp at most, {past} of {err.numel()} past one "
           f"(one ulp at the largest |value|: {top:.3e})")
-    if not (past <= BF16_PAST_ULP * err.numel() and (err <= ulp + top).all()):
-        raise AssertionError(f"{where} disagrees with its plain bf16 version")
-    return err.max().item()
+    return past, bool(past <= BF16_PAST_ULP * err.numel() and (err <= ulp + top).all())
 
 
 def _l2_check(got, want, where, tol=SUM_RTOL):
@@ -3321,12 +3598,15 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=BF16_WIDTHS):
                                                   retain_graph=True)
         n_bytes = 2 * (2 * valid * 6 * H + dxg.numel() + w_hh.numel() + b_hh.numel()) + 4 * N
         t_bound, by = bound(n_bytes, 0, bf16_flops=3 * 2 * valid * 2 * H * 3 * H)
+        parts = part_split(k3, K3_PARTS)
+        print_split("K3 bf16", parts)
         row("bigru_backward_bf16", "bigru_backward.cu", 698, err,
             timed(k3, lambda: gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths,
                                                            w_hh, b_hh),
                   library_bwd, plain_iters=2),
             t_bound, by, "torch.autograd.grad of torch.nn.GRU(bidirectional, bf16)",
-            device_ms_by_kernel=part_split(k3, K3_PARTS))
+            device_ms_by_kernel=parts, ptxas=bf16_ptxas("bigru_backward"),
+            at_H=k3_bf16_widths(device, K3_BF16_WIDTHS, N, L))
         for p in lib_params:
             p.requires_grad_(False)
 
@@ -3350,11 +3630,43 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=BF16_WIDTHS):
 
 def bf16_ptxas(source):
     """The bf16 kernels of `source` in this run's build report (printed),
-    as [kernel, registers, spill store bytes, spill load bytes] lists;
-    empty where the library was built before this run."""
-    report = [list(r) for r in PTXAS.get(source, ()) if "bf16" in r[0]]
+    as [kernel, registers, spill store bytes, spill load bytes] lists: by
+    name, or instantiated on __nv_bfloat16; empty where the library was
+    built before this run."""
+    report = [list(r) for r in PTXAS.get(source, ())
+              if "bf16" in r[0] or "bfloat16" in r[0]]
     print_ptxas(source, report)
     return report
+
+
+K3_BF16_WIDTHS = (128, 192)  # bf16 K3 timed beside H = 64: the sweep's last H, the wide route
+
+
+def k3_bf16_widths(device, widths, N=2560, L=20):
+    """bf16 K3 at (N, L, H) for each H of `widths`, on seeded bf16 inputs
+    (y from K2): held against its plain version (dxg within one bf16 ulp
+    but for a BF16_PAST_ULP share, dW / db within SUM_RTOL of their l2
+    norms), the same bits on a second launch, and timed by part.  Returns
+    {H: {"device_ms": total, "device_ms_by_kernel": parts}}."""
+    out = {}
+    for H in widths:
+        xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _k3_bf16_operands(device, N, L, H)
+        k3 = lambda: gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)  # noqa: E731,E501
+        got = k3()
+        torch.cuda.synchronize()
+        want = gru_cuda.bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
+        _bf16_check(got[0], want[0], f"K3 bf16 dxg at H = {H}")
+        _l2_check(got[1], want[1], f"K3 bf16 dW_hh at H = {H}")
+        _l2_check(got[2], want[2], f"K3 bf16 db_hh at H = {H}")
+        if not all(torch.equal(a, b) for a, b in zip(k3(), got)):
+            raise AssertionError(f"K3 bf16 at H = {H}: a second launch gave other bits")
+        parts = part_split(k3, K3_PARTS)
+        total = sum(v for v in parts.values() if isinstance(v, float))
+        print_split(f"K3 bf16 at H = {H} (total {total:.4f})", parts)
+        out[H] = {"device_ms": total, "device_ms_by_kernel": parts}
+        del xg, y, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def bf16_dw_library(x, dxg):
@@ -3906,12 +4218,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    if sys.argv[1:] == ["--steps"]:  # K2's, K8's and bf16 K4's designs choice by choice
-        _build.build(("affinity_tiles",))
+    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's and bf16 K3's designs
+        _build.build(("affinity_tiles", "bigru_recurrence", "bigru_backward"))
         with torch.no_grad():
             print(json.dumps({"k2_steps": k2_steps_phase(torch.device("cuda")),
                               "k8_steps": k8_steps_phase(torch.device("cuda")),
-                              "k4_bf16_steps": k4_steps_phase(torch.device("cuda"))}))
+                              "k4_bf16_steps": k4_steps_phase(torch.device("cuda")),
+                              "k3_bf16_steps": k3_steps_phase(torch.device("cuda"))}))
         return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     serve.set_f32_parity()

@@ -348,9 +348,17 @@ def _bf16_backward_inputs(cuda, N, L, H, kind, E=50):
     return x, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh
 
 
+# bf16 K3's sweep computes hg itself up to H = 128 (csrc/bigru_backward.cu
+# bigru_backward_bf16_sweep: H padded to 16 units a warp); past it the hg
+# pass and the wide sweep
+BF16_SWEEP_MAX_H = 128
 BF16_GRU_SHAPES = [(2560, 20, 64, "mixed"), (37, 5, 8, "mixed"), (50, 9, 100, "mixed"),
                    (40, 7, 256, "mixed"), (300, 20, 128, "all_L"), (40, 9, 64, "adjacent_L"),
-                   (16385, 20, 64, "mixed")]
+                   (16385, 20, 64, "mixed"), (300, 20, 16, "mixed"), (300, 20, 48, "mixed"),
+                   (300, 20, 120, "mixed"), (300, 20, BF16_SWEEP_MAX_H, "mixed"),
+                   (70, 11, 33, "mixed"), (100, 9, BF16_SWEEP_MAX_H + 1, "mixed")]
+# and K3 at the bf16 long-history shape (maxlen 64)
+BF16_K3_SHAPES = BF16_GRU_SHAPES + [(16385, 64, 64, "mixed")]
 
 
 @pytest.mark.parametrize("N,L,H,kind", BF16_GRU_SHAPES)
@@ -369,10 +377,14 @@ def test_bigru_recurrence_bf16_matches_plain(cuda, N, L, H, kind):
     assert torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
 
 
-@pytest.mark.parametrize("N,L,H,kind", BF16_GRU_SHAPES)
+@pytest.mark.parametrize("N,L,H,kind", BF16_K3_SHAPES)
 def test_bigru_backward_bf16_matches_plain(cuda, N, L, H, kind):
     """K3 in bf16: dxg within one bf16 ulp, dW_hh and db_hh (f32) within
-    1e-4 of their l2 norms, the same bits twice."""
+    1e-4 of their l2 norms, the same bits twice.  Up to H = 128 the sweep
+    with hg fused (H = 16, 48, 64, 128: whole warps of units; 8, 33, 100,
+    120: padded, 33 odd, so 2-byte accesses), past it the hg pass and the
+    wide sweep (129, 256); L = 64 at N = 16,385: the bf16 long-history
+    shape."""
     _, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh = _bf16_backward_inputs(cuda, N, L, H, kind)
     before = gru_cuda.bigru_backward.launches
     dxg, dw, db = gru_cuda.bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)

@@ -70,10 +70,12 @@
 #include <algorithm>
 
 #include "tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using wgmma_bf16::mma_bf16;
 
 constexpr size_t SMEM_LIMIT = 232448;  // a block's shared memory on Hopper (227 KB)
 
@@ -351,18 +353,6 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p, int k, int K, bool pa
   const uint32_t lo = k < K ? __bfloat16_as_ushort(p[k]) : 0u;
   const uint32_t hi = k + 1 < K ? __bfloat16_as_ushort(p[k + 1]) : 0u;
   return lo | hi << 16;
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulation.
-// Fragments (g = lane / 4, t = lane % 4): a = A[g][2t..2t+1],
-// A[g+8][2t..2t+1], A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]; b = B[2t..2t+1][g],
-// B[2t+8..2t+9][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // lane's B fragment of (direction d, k-step ks, group j): W_ih[n][3H d + k]

@@ -1,6 +1,8 @@
-// Building blocks of the bf16 routes of K1 (gru_input_proj.cu) and K4
-// (gru_input_proj_bwd.cu): native bf16 products on Hopper's tensor cores,
-// wgmma m64nNk16 with bf16 operands and f32 accumulators.  The product of
+// Building blocks of the bf16 routes of K1 (gru_input_proj.cu), K4
+// (gru_input_proj_bwd.cu), K3's sweep (bigru_backward.cu) and K9
+// (gru_input_proj_dx.cu): native bf16 products on Hopper's tensor cores,
+// wgmma m64nNk16 (K1, K4) or mma.sync m16n8k16 (K3, K9) with bf16 operands
+// and f32 accumulators.  The product of
 // two bf16 values is exact in f32, so each k-step adds exact products into
 // an f32 accumulator: the JAX kernels' bf16 path (bf16 operands, f32
 // accumulation) with nothing widened and no TF32 split.
@@ -116,6 +118,31 @@ __device__ __forceinline__ uint64_t desc(const __nv_bfloat16* tile) {
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4)       // start address
          | static_cast<uint64_t>(128 >> 4) << 16          // k halves: 128 B apart
          | static_cast<uint64_t>(256 >> 4) << 32;         // n groups: 256 B apart
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulation (one warp).
+// Fragments (g = lane / 4, t = lane % 4): a = A[g][2t..2t+1],
+// A[g+8][2t..2t+1], A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]; b = B[2t..2t+1][g],
+// B[2t+8..2t+9][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the row address
+// of matrix l / 8 (16-byte aligned, 8 contiguous bf16), and a[i] receives
+// matrix i's elements [g][2t], [g][2t+1].  With rows m and columns k it
+// yields an A fragment (matrices: rows 0-7 | 8-15 x k 0-7 | 8-15, rows
+// first); with rows n and columns k, the b0, b1 of two n8 groups.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const __nv_bfloat16* row) {
+  const uint32_t p = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(p)
+               : "memory");
 }
 
 // Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the

@@ -25,7 +25,10 @@ Backward:
   that keeps only the product on the carried gradient, and dW_hh / db_hh
   on the tensor cores over a fixed split of the rows (any H; the plain
   versions of the parts are ``bigru_backward_hg_ref``,
-  ``bigru_backward_sweep_ref`` and ``bigru_backward_dw_ref``);
+  ``bigru_backward_sweep_ref`` and ``bigru_backward_dw_ref``).  In bf16 up
+  to H = 128 the sweep computes hg itself, both its products on bf16
+  mma.sync, and there is no hg pass (``bigru_backward_sweep_ref`` with
+  ``z=None``);
 - K4 ``gru_input_proj_bwd`` (csrc/gru_input_proj_bwd.cu) replaces B4
   with ``emit_dxc=False``: dW_ih = x^T dxg and db_ih = sum(dxg), 3xTF32
   (bf16: native bf16 wgmma) over a fixed split of the rows into chunks,
@@ -45,8 +48,9 @@ sum of the two cotangents, the ghh operand of both its products (ghh @
 W_hh^T and h_prev^T ghh) and dxg on store, keeps db_hh the f32 sum of the
 unrounded ghh and returns dW_hh / db_hh in f32; K4 returns f32 sums of
 the bf16 products.  K1 (up to E = 256) and K4 run native bf16 wgmma
-(m64nNk16, f32 accumulators); K2, K3 and K1's wide-E kernels run one
-TF32 product of the widened bf16 values (exact in TF32).  K9 in
+(m64nNk16, f32 accumulators), K3's sweep up to H = 128 bf16 mma.sync
+(m16n8k16, f32 accumulators); K2, the rest of K3 and K1's wide-E kernels
+run one TF32 product of the widened bf16 values (exact in TF32).  K9 in
 bf16 rounds each direction's f32 product to bf16 and adds the two in
 bf16, as the JAX kernel does; its products are bf16 mma.sync.  The plain
 versions carry the same rounding points.
@@ -221,11 +225,13 @@ def bigru_backward_hg_ref(y, w_hh):
 def bigru_backward_sweep_ref(xg, y, z, dy_sent, dy_pos, lengths, w_hh, b_hh):
     """Plain version of K3's sweep: ``bigru_backward_ref`` with hg read
     from the hg pass's Z (N, L, 6H) at the step where y holds h_prev, and
-    no dW.  Where h_prev is known to be zero (tp outside [0, length)) hg
-    is b_hh alone.  -> (dxg (N, L, 6H), ghn (N, L, 2H) = dn * r, the
-    third part of ghh; both zero at invalid steps), f32 and unrounded
-    (in bf16 the kernel stores dxg rounded and keeps [dr | dz] in f32
-    for the dW pass)."""
+    no dW.  With ``z=None``, the bf16 sweep up to H = 128 that has no hg
+    pass: hg = h_prev @ W_hh is computed in the step, from y's (bf16)
+    value and W_hh, an f32 product.  Where h_prev is known to be zero (tp
+    outside [0, length)) hg is b_hh alone.  -> (dxg (N, L, 6H), ghn
+    (N, L, 2H) = dn * r, the third part of ghh; both zero at invalid
+    steps), f32 and unrounded (in bf16 the kernel stores dxg rounded and
+    keeps [dr | dz] in f32 for the dW pass)."""
     rnd = _rounder(xg.dtype)
     N, L, _ = xg.shape
     H = w_hh.shape[1]
@@ -240,8 +246,9 @@ def bigru_backward_sweep_ref(xg, y, z, dy_sent, dy_pos, lengths, w_hh, b_hh):
             tp = t - 1 if d == 0 else t + 1
             if 0 <= tp < L:
                 prev = (tp < lengths)[:, None]
-                hg = torch.where(prev, z[:, tp, 3 * H * d:3 * H * (d + 1)], 0.0) + b_hh[d]
                 hp = torch.where(prev, y[:, tp, H * d:H * (d + 1)], 0.0)
+                hg = (hp @ w_hh[d] if z is None else
+                      torch.where(prev, z[:, tp, 3 * H * d:3 * H * (d + 1)], 0.0)) + b_hh[d]
             else:
                 hg, hp = b_hh[d].expand(N, 3 * H), xg.new_zeros(N, H)
             x = xg[:, t, 3 * H * d:3 * H * (d + 1)]
@@ -482,8 +489,10 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
     ordered by length) and the dW pass, whose partials
     (``bwd_chunks(N*L)``) a last kernel sums in a fixed order (no float
     atomics), so the result is the same on every run.  In f32 the hg
-    pass's Z lives in dxg's buffer; in bf16 in an f32 buffer of its own,
-    where the sweep leaves the unrounded [dr | dz] for the dW pass."""
+    pass's Z lives in dxg's buffer.  In bf16 an f32 buffer of its own,
+    zbuf, takes the unrounded [dr | dz] the sweep leaves for the dW pass;
+    up to H = 128 the sweep computes hg itself (no hg pass, no Z), past
+    it the hg pass's Z goes into zbuf first."""
     if xg.device.type == "cpu":
         return bigru_backward_ref(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh)
     _device_kernel("bigru_backward", xg, y, dy_sent, dy_pos, w_hh, b_hh)
@@ -503,6 +512,7 @@ def bigru_backward(xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh):
               else torch.empty(0, device=dev, dtype=io))
     rows, chunks = bwd_chunks(N * L)
     dxg = torch.empty(N, L, 6 * H, device=dev, dtype=io)  # f32: holds the hg pass's Z first
+    # bf16: [dr | dz] for the dW pass (past H = 128 the hg pass's Z first)
     zbuf = dxg if io == f32 else torch.empty(N, L, 6 * H, device=dev, dtype=f32)
     ghn = torch.empty(N, L, 2 * H, device=dev, dtype=f32)
     order = torch.empty(N, device=dev, dtype=torch.int32)  # the sweep's rows by length
