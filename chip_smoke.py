@@ -110,8 +110,10 @@
    norms; the same bits twice) at the UMPR-R shapes and K1/K4 at
    ``BF16_WIDTHS`` (the edges of K1's bf16 wgmma route and of K4's
    whole-row copy, and the wide-E routes), timed beside the bf16 library
-   calls (K4's computing its whole function: f32 dW and db), with K1's
-   and K4's ptxas report; UMPR-R trained in bf16
+   calls (K4's computing its whole function: f32 dW and db), with K1's,
+   K2's, K3's and K4's ptxas report, K2 and K3 by kernel, bf16 K2 also
+   at H = 128 and at (16,385, 64, 64) and bf16 K3 at H = 128 and 192
+   (``K2_BF16_AT``, ``K3_BF16_WIDTHS``); UMPR-R trained in bf16
    through main (every K1-K4 launch bf16, no plain version, no other
    kernel), its train step (k = 1 and a graph of 4) and serving forward
    against f32 in turns; full UMPR at 224 px, one train step and the
@@ -149,10 +151,13 @@ the checkout.
 
     python3 chip_smoke.py --steps
 
-builds K2, K8 and K4's bf16 kernel with one design choice changed at a
-time (``K2_STEPS``, ``K8_STEPS``, ``K4_STEPS``: text edits of the final
-sources) and times each beside the final kernel, K4's at each E of
-``K4_WIDTHS`` and at ``K4_ROWS`` rows per chunk; then stops.
+builds K2, K8 and the bf16 K4, K3 and K2 with one design choice changed
+at a time (``K2_STEPS``, ``K8_STEPS``, ``K4_STEPS``, ``K3_STEPS``,
+``K2_BF16_STEPS``: text edits of the final sources, which
+tests/test_torch_chip_steps.py holds to today's sources on the CPU) and
+times each beside the final kernel, K4's at each E of ``K4_WIDTHS`` and
+at ``K4_ROWS`` rows per chunk, bf16 K3's and K2's with their agreement
+with the plain version; then stops.
 """
 
 from __future__ import annotations
@@ -407,7 +412,8 @@ def device_ms(fn, steps=20):
 # route that launches no kernel of its own for it (K3's hg pass in the bf16
 # sweep up to H = 128)
 K2_PARTS = (("row order", ("bigru_row_order",)),
-            ("recurrence", ("bigru_recurrence_kernel", "bigru_recurrence_wide")))
+            ("recurrence", ("bigru_recurrence_kernel", "bigru_recurrence_bf16_kernel",
+                            "bigru_recurrence_wide")))
 K3_PARTS = (("hg pass", ("bigru_backward_hg",), "bigru_backward_bf16_sweep"),
             ("row order", ("bigru_row_order",)),
             ("sweep", ("bigru_backward_sweep", "bigru_backward_wide",
@@ -936,8 +942,8 @@ K2_STEPS = (
         ("bigru_recurrence.cu",
          "Tile tile_shape(int H) { return 4 * H <= MAX_THREADS ? Tile{1, 4} : Tile{2, 4}; }",
          "Tile tile_shape(int H) { return Tile{2, 8}; }"),
-        ("bigru_recurrence.cu", ": bigru_recurrence_kernel<2, 4, T>;",
-         ": bigru_recurrence_kernel<2, 8, T>;")]),
+        ("bigru_recurrence.cu", ": bigru_recurrence_kernel<2, 4>;",
+         ": bigru_recurrence_kernel<2, 8>;")]),
     ("k unrolled by 4", [("bigru_recurrence.cu",
                           "#pragma unroll 8\n    for (int k = 0; k < H; ++k) {",
                           "#pragma unroll 4\n    for (int k = 0; k < H; ++k) {")]),
@@ -947,26 +953,38 @@ K2_STEPS = (
 )
 
 
+def step_sources(name, label, edits):
+    """{file name: text} of csrc/<name>.cu and the headers with the step's
+    edits [(file, text, replacement), ...] applied in order; raises where
+    an edit's text is not in its file (the source moved on)."""
+    out = {}
+    for f in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / f"{name}.cu"]:
+        text = f.read_text()
+        for file, old, new in edits:
+            if file == f.name:
+                if old not in text:
+                    raise AssertionError(f"step {label!r}: {old!r} is not in {file}")
+                text = text.replace(old, new)
+        out[f.name] = text
+    return out
+
+
 def build_steps(name, steps, argtypes, symbol=None):
     """csrc/<name>.cu (and the headers) with each entry of `steps` (label,
-    [(file, text, replacement), ...]) applied, built side by side into
-    build/chip_smoke/steps/<name>/ (one nvcc each, all at once) and loaded.
-    Prints each kernel's registers and spills.  Returns {label: the C
-    function `symbol` (default `name`)}."""
-    root = WORK / "steps" / name
+    [(file, text, replacement), ...]) applied (step_sources), built side
+    by side into build/chip_smoke/steps/<symbol>/ (one nvcc each, all at
+    once) and loaded.  Prints each kernel's registers and spills.  Returns
+    {label: the C function `symbol` (default `name`)}.  Each symbol has a
+    directory of its own: a second list of steps of the same source built
+    into the same paths would load the libraries already loaded there."""
+    root = WORK / "steps" / (symbol or name)
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
     for i, (label, edits) in enumerate(steps):
         src = root / str(i)
         src.mkdir(parents=True)
-        for f in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / f"{name}.cu"]:
-            text = f.read_text()
-            for file, old, new in edits:
-                if file == f.name:
-                    if old not in text:
-                        raise AssertionError(f"step {label!r}: {old!r} is not in {file}")
-                    text = text.replace(old, new)
-            (src / f.name).write_text(text)
+        for file, text in step_sources(name, label, edits).items():
+            (src / file).write_text(text)
         procs[label] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(src / "lib.so"),
              str(src / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1652,10 +1670,10 @@ K3_STEPS = (
 K3_STEP_WIDTHS = (64, 128)  # H each K3 step is timed at (N = 2560, L = 20)
 
 
-def _k3_bf16_operands(device, N, L, H, E=50):
-    """bf16 K3 inputs at (N, L, H) as bf16_kernel_phase makes them at H =
+def _k2_bf16_operands(device, N, L, H, E=50):
+    """bf16 K2 inputs at (N, L, H) as bf16_kernel_phase makes them at H =
     64: x ~ N(0, 0.25) through K1 with a BiGRU's initial weights (seeded
-    by H), lengths uniform in 1 .. L, y from K2, cotangents N(0, 1)."""
+    by H), lengths uniform in 1 .. L.  Returns (xg, lengths, w_hh, b_hh)."""
     bf = torch.bfloat16
     g = torch.Generator().manual_seed(H)
     x = (torch.randn(N * L, E, generator=g) * 0.5).to(device).to(bf)
@@ -1663,6 +1681,14 @@ def _k3_bf16_operands(device, N, L, H, E=50):
     gru = BiGRU(E, H, generator=g).to(device)
     w_ih, b_ih, w_hh, b_hh = (t.detach().to(bf) for t in gru.kernel_operands())
     xg = gru_cuda.gru_input_proj(x, w_ih, b_ih).view(N, L, 6 * H)
+    return xg, lengths, w_hh, b_hh
+
+
+def _k3_bf16_operands(device, N, L, H, E=50):
+    """bf16 K3 inputs at (N, L, H): _k2_bf16_operands, y from K2,
+    cotangents N(0, 1)."""
+    bf = torch.bfloat16
+    xg, lengths, w_hh, b_hh = _k2_bf16_operands(device, N, L, H, E)
     y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
     gd = torch.Generator(device=device).manual_seed(H + 1)
     dy_sent, dy_pos = (torch.randn(N, L, 2 * H, generator=gd, device=device).to(bf)
@@ -1722,6 +1748,186 @@ def k3_steps_phase(device, widths=K3_STEP_WIDTHS, N=2560, L=20):
             print_split(where, parts)
             times[label][H] = {**parts, "dxg_past_ulp": past, **rel, "within_tolerance": within}
         del xg, y, want, dxg, zbuf, ghn, part, out
+        torch.cuda.empty_cache()
+    return times
+
+
+# bf16 K2 timed beside the UMPR-R shape: H = 128 (the last H of its mma.sync
+# kernel) and the bf16 long-history shape (N = 2 B S + 1, maxlen 64)
+K2_BF16_AT = ((2560, 20, 128), (16385, 64, 64))
+
+
+# bf16 K2's kernel (csrc/bigru_recurrence.cu bigru_recurrence_bf16_kernel),
+# each design choice taken back out of the final source at a time: (label,
+# [(file, text, replacement), ...]); python3 chip_smoke.py --steps builds
+# and times each.  "product on the CUDA cores": round(h) W_hh as f32 FMAs
+# from the same shared tiles; "accumulators chained": the k-steps summed in
+# the mma's accumulators, not each added in f32; "sum started at b": b_hh
+# first, the k-steps added to it; "no register cap": __launch_bounds__
+# without a minimum of blocks an SM; "W_hh's fragments in registers":
+# held for the whole sweep in place of an ldmatrix.trans per k-step and
+# gate, without the cap (it spills under it); "y stored from the gate
+# phase's registers": each lane stores its own (row, unit) pairs in place
+# of the staged 16-byte row pieces; "xg loaded after the product": at the
+# step, not a step ahead
+K2B_MMA_ADDS = """        float p0[4] = {}, p1[4] = {};
+        mma_bf16(p0, a, w4[0], w4[1]);
+        mma_bf16(p1, a, w4[2], w4[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hg[gate][0][i] += p0[i];
+          hg[gate][1][i] += p1[i];
+        }
+"""
+K2B_MMA = """#pragma unroll
+    for (int kk = 0; kk < KH; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, hc + (8 * (mat & 1) + mr) * SS + 16 * kk + 8 * (mat >> 1));
+"""
+K2B_W_FRAGMENTS = """        ldsm_x4_trans(w4, ws + (16 * kk + 8 * (mat & 1) + mr) * WS + gate * HP + u0 +
+                              8 * (mat >> 1));
+"""
+K2B_PRODUCT = K2B_MMA + """#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        uint32_t w4[4];  // b0, b1 of the warp's two n8 tiles
+""" + K2B_W_FRAGMENTS + K2B_MMA_ADDS + """      }
+    }
+"""
+K2B_BOUNDS = "__launch_bounds__(32 * KH, KH <= 4 ? 3 : 2)"
+K2B_NO_CAP = ("bigru_recurrence.cu", K2B_BOUNDS, "__launch_bounds__(256)")
+K2B_CUDA_CORES = """#pragma unroll 4
+    for (int k = 0; k < HP; k += 2) {
+      float a2[2][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(hc + (gq + 8 * q) * SS + k);
+        a2[q][0] = lo_f(v);
+        a2[q][1] = hi_f(v);
+      }
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                ws + (k + j) * WS + gate * HP + u0 + 8 * h + 2 * tq);
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              hg[gate][h][2 * q] = fmaf(a2[q][j], lo_f(v), hg[gate][h][2 * q]);
+              hg[gate][h][2 * q + 1] = fmaf(a2[q][j], hi_f(v), hg[gate][h][2 * q + 1]);
+            }
+          }
+    }
+"""
+K2B_HG_INIT = "    float hg[3][2][4] = {};\n"
+K2B_EMIT = "    if (s > 0) emit(d == 0 ? t - 1 : t + 1, hc, false);  // the step before, from its tile\n"
+K2B_LAST_EMIT = ("  if (maxlen > 0) emit(d == 0 ? maxlen - 1 : 0, hb + (maxlen & 1) * ROWS * SS, "
+                 "false);\n")
+K2B_STATE_STORE = ("        *reinterpret_cast<uint32_t*>(hn + (gq + 8 * q) * SS + u0 + 8 * h + 2 * tq)"
+                   " =\n")
+K2B_FIRST_FETCH = "  if (maxlen > 0) fetch(d == 0 ? 0 : maxlen - 1);  // the first step's xg\n"
+K2B_NEXT_FETCH = "    if (s + 1 < maxlen) fetch(d == 0 ? t + 1 : t - 1);  // the next step's, ahead\n"
+K2B_GATES = "    // the gates at valid steps (an invalid one leaves the state frozen);\n"
+K2_BF16_STEPS = (
+    ("final", []),
+    ("product on the CUDA cores", [("bigru_recurrence.cu", K2B_PRODUCT, K2B_CUDA_CORES)]),
+    ("accumulators chained", [("bigru_recurrence.cu", K2B_MMA_ADDS, """\
+        mma_bf16(hg[gate][0], a, w4[0], w4[1]);
+        mma_bf16(hg[gate][1], a, w4[2], w4[3]);
+""")]),
+    ("sum started at b", [
+        ("bigru_recurrence.cu", K2B_HG_INIT, """    float hg[3][2][4];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hg[gate][h][i] = b[gate][h][i & 1];
+"""),
+        ("bigru_recurrence.cu", " + b[0][h][e];", ";"),
+        ("bigru_recurrence.cu", " + b[1][h][e];", ";"),
+        ("bigru_recurrence.cu", " + b[2][h][e];", ";")]),
+    ("no register cap (two blocks an SM at H = 64)", [K2B_NO_CAP]),
+    ("W_hh's fragments in registers, no register cap", [
+        K2B_NO_CAP,
+        ("bigru_recurrence.cu", "  const size_t xs = 6 * (size_t)H, ys = 2 * (size_t)H;\n", """\
+  uint32_t wf[KH][3][4];
+#pragma unroll
+  for (int kk = 0; kk < KH; ++kk)
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+      ldsm_x4_trans(wf[kk][gate],
+                    ws + (16 * kk + 8 * (mat & 1) + mr) * WS + gate * HP + u0 + 8 * (mat >> 1));
+  const size_t xs = 6 * (size_t)H, ys = 2 * (size_t)H;
+"""),
+        ("bigru_recurrence.cu", K2B_W_FRAGMENTS, """\
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w4[i] = wf[kk][gate][i];
+""")]),
+    ("y stored from the gate phase's registers", [
+        ("bigru_recurrence.cu", K2B_EMIT, ""),
+        ("bigru_recurrence.cu", K2B_LAST_EMIT, ""),
+        ("bigru_recurrence.cu", K2B_STATE_STORE, """\
+        if (row[q] >= 0) {
+          bf16* o = y + ((size_t)row[q] * L + t) * ys + d * H + u0 + 8 * h + 2 * tq;
+          const bool live = t < len[q];
+          if (pairs) {
+            if (ok[h][0])
+              *reinterpret_cast<uint32_t*>(o) = live ? round_pair(st[q][h][0], st[q][h][1]) : 0u;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (ok[h][e]) o[e] = live ? __float2bfloat16(st[q][h][e]) : zero;
+          }
+        }
+""" + K2B_STATE_STORE)]),
+    ("xg loaded after the product", [
+        ("bigru_recurrence.cu", K2B_FIRST_FETCH, ""),
+        ("bigru_recurrence.cu", K2B_NEXT_FETCH, ""),
+        ("bigru_recurrence.cu", K2B_GATES, "    fetch(t);\n" + K2B_GATES)]),
+)
+# (N, L, H) each K2 bf16 step is timed at
+K2_BF16_STEP_SHAPES = ((2560, 20, 64),) + K2_BF16_AT
+
+
+def k2_bf16_steps_phase(device, shapes=K2_BF16_STEP_SHAPES):
+    """bf16 K2 with one design choice taken back at a time (K2_BF16_STEPS),
+    each built beside the final source, held against the plain version
+    (y within one bf16 ulp but for a BF16_PAST_ULP share) and timed by
+    part (device ms under torch.profiler) at each shape.  A step that
+    misses the tolerance is reported (its agreement is part of what the
+    step measures); the final source raises.  Returns {label: {"NxLxH":
+    parts and agreement}}."""
+    fns = build_steps("bigru_recurrence", K2_BF16_STEPS,
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                      "bigru_recurrence_bf16")
+    times = {label: {} for label in fns}
+    for N, L, H in shapes:
+        xg, lengths, w_hh, b_hh = _k2_bf16_operands(device, N, L, H)
+        want = gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
+        order = torch.empty(N, device=device, dtype=torch.int32)
+        for label, fn in fns.items():
+            y = torch.empty(N, L, 2 * H, device=device, dtype=torch.bfloat16)
+
+            def call(fn=fn, y=y, label=label):
+                err = fn(xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                         y.data_ptr(), order.data_ptr(), None, N, L, H,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise AssertionError(f"K2 bf16 step {label!r} failed to launch: {err}")
+
+            call()
+            torch.cuda.synchronize()
+            where = f"K2 bf16 step {label!r} at (N, L, H) = {(N, L, H)}"
+            past, within = _bf16_agreement(y, want, where)
+            if label == "final" and not within:
+                raise AssertionError("K2's final bf16 source disagrees with its plain version")
+            parts = part_split(call, K2_PARTS)
+            print_split(where, parts)
+            times[label][f"{N}x{L}x{H}"] = {**parts, "y_past_ulp": past,
+                                            "within_tolerance": within}
+        del xg, want, y
         torch.cuda.empty_cache()
     return times
 
@@ -3572,12 +3778,15 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=BF16_WIDTHS):
     pack = torch.nn.utils.rnn.pack_padded_sequence
     library = lambda: lib(pack(x, lengths_cpu, batch_first=True, enforce_sorted=False))[0]  # noqa: E731,E501
     valid = int(lengths.sum())
-    t_bound, by = bound(2 * (2 * valid * 3 * H + y.numel() + w_hh.numel() + b_hh.numel())
-                        + 4 * N, 0, bf16_flops=2 * valid * 2 * H * 3 * H)
+    t_bound, by = k2_bf16_bound(lengths, y.numel(), H)
+    parts = part_split(k2, K2_PARTS)
+    print_split("K2 bf16", parts)
     row("bigru_recurrence_bf16", "bigru_recurrence.cu", 205, err,
         timed(k2, lambda: gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh), library,
               plain_iters=3), t_bound, by,
-        "torch.nn.GRU(bidirectional, bf16) on pack_padded_sequence")
+        "torch.nn.GRU(bidirectional, bf16) on pack_padded_sequence",
+        device_ms_by_kernel=parts, ptxas=bf16_ptxas("bigru_recurrence"),
+        at_shape=k2_bf16_shapes(device))
 
     gd = torch.Generator(device=device).manual_seed(1)
     dy_sent = torch.randn(N, L, 2 * H, generator=gd, device=device).to(bf)
@@ -3637,6 +3846,56 @@ def bf16_ptxas(source):
               if "bf16" in r[0] or "bfloat16" in r[0]]
     print_ptxas(source, report)
     return report
+
+
+def k2_bf16_bound(lengths, y_numel, H):
+    """bf16 K2's bound at this run's lengths: xg read at the valid steps,
+    y written in full, W_hh, b_hh and the lengths read once; one (H x 3H)
+    product a valid step and direction at the bf16 tensor-core rate."""
+    valid = int(lengths.sum())
+    return bound(2 * (2 * valid * 3 * H + y_numel + 2 * H * 3 * H + 2 * 3 * H)
+                 + 4 * lengths.numel(), 0, bf16_flops=2 * valid * 2 * H * 3 * H)
+
+
+def k2_bf16_at(device, N, L, H):
+    """bf16 K2 at (N, L, H) on _k2_bf16_operands, timed by part beside its
+    bound, with its agreement: values past one ulp of the plain version
+    and _bf16_check's verdict, exact zeros past each length, the same bits
+    on a second launch.  Raises nothing (a parent tree's kernel is timed
+    through it too)."""
+    xg, lengths, w_hh, b_hh = _k2_bf16_operands(device, N, L, H)
+    k2 = lambda: gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)  # noqa: E731
+    y = k2()
+    torch.cuda.synchronize()
+    where = f"K2 bf16 at (N, L, H) = {(N, L, H)}"
+    want = gru_cuda.bigru_recurrence_ref(xg, lengths, w_hh, b_hh)
+    past, within = _bf16_agreement(y, want, where)
+    out = {"max_abs_err": (y.float() - want.float()).abs().max().item(), "past_ulp": past,
+           "within_tolerance": within,
+           "zeros_past_lengths": bool((y[torch.arange(L, device=device)[None, :]
+                                         >= lengths[:, None]] == 0).all()),
+           "same_bits": torch.equal(k2(), y)}
+    parts = part_split(k2, K2_PARTS)
+    out["device_ms"] = sum(v for v in parts.values() if isinstance(v, float))
+    out["device_ms_by_kernel"] = parts
+    out["bound_ms"], out["bound_by"] = k2_bf16_bound(lengths, y.numel(), H)
+    print_split(f"{where} (total {out['device_ms']:.4f}, bound {out['bound_ms']:.4f} by "
+                f"{out['bound_by']})", parts)
+    del xg, y, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def k2_bf16_shapes(device, shapes=K2_BF16_AT):
+    """k2_bf16_at at each (N, L, H) of `shapes`; raises where K2 disagrees
+    with its plain version (_bf16_check), a value past its length is not
+    zero or a second launch gives other bits.  Returns {"NxLxH": ...}."""
+    out = {}
+    for N, L, H in shapes:
+        r = out[f"{N}x{L}x{H}"] = k2_bf16_at(device, N, L, H)
+        if not (r["within_tolerance"] and r["zeros_past_lengths"] and r["same_bits"]):
+            raise AssertionError(f"K2 bf16 at {(N, L, H)}: {r}")
+    return out
 
 
 K3_BF16_WIDTHS = (128, 192)  # bf16 K3 timed beside H = 64: the sweep's last H, the wide route
@@ -4218,13 +4477,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's and bf16 K3's designs
+    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's, K3's and K2's designs
         _build.build(("affinity_tiles", "bigru_recurrence", "bigru_backward"))
         with torch.no_grad():
             print(json.dumps({"k2_steps": k2_steps_phase(torch.device("cuda")),
                               "k8_steps": k8_steps_phase(torch.device("cuda")),
                               "k4_bf16_steps": k4_steps_phase(torch.device("cuda")),
-                              "k3_bf16_steps": k3_steps_phase(torch.device("cuda"))}))
+                              "k3_bf16_steps": k3_steps_phase(torch.device("cuda")),
+                              "k2_bf16_steps": k2_bf16_steps_phase(torch.device("cuda"))}))
         return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     serve.set_f32_parity()

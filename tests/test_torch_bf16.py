@@ -113,16 +113,13 @@ def test_bigru_split_bf16_forward_and_backward_match_jax(gru_case):
                   for k in c["jgrads"][d]})
 
 
-def test_y_bf16_is_the_jax_kernels_bf16_hs():
-    """K3 rebuilds h_prev from the bf16 y; the JAX backward reads the bf16
-    hs its forward emits (emit_hs).  At every valid step y holds the same
-    bf16 state as hs (combined time: fwd | bwd reversed), within an ulp
-    where the two f32 orders round differently, so h_prev from y is the
-    JAX kernel's h_prev."""
+def _y_against_jax_hs(N, L):
+    """The plain bf16 K2's y against the bf16 hs of the JAX kernel
+    (interpreted _pallas_forward with emit_hs), at every valid step of N
+    rows of length up to L (the first of length L)."""
     from umpr_tpu.ops import gru_pallas as gp
 
     rng = np.random.default_rng(1)
-    N = 8
     x = jnp.asarray(rng.standard_normal((N, L, E)), jnp.bfloat16)
     lengths = rng.integers(1, L + 1, size=N).astype(np.int32)
     lengths[0] = L
@@ -148,6 +145,23 @@ def test_y_bf16_is_the_jax_kernels_bf16_hs():
             got = y[:, true_t, d * H:(d + 1) * H].float().numpy()[valid]
             want = hs[:, tau, d * H:(d + 1) * H][valid]
             np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -12)
+
+
+def test_y_bf16_is_the_jax_kernels_bf16_hs():
+    """K3 rebuilds h_prev from the bf16 y; the JAX backward reads the bf16
+    hs its forward emits (emit_hs).  At every valid step y holds the same
+    bf16 state as hs (combined time: fwd | bwd reversed), within an ulp
+    where the two f32 orders round differently, so h_prev from y is the
+    JAX kernel's h_prev."""
+    _y_against_jax_hs(8, L)
+
+
+def test_y_bf16_is_the_jax_kernels_bf16_hs_at_64_steps():
+    """The same at L = 64, the bf16 long-history sentence length: the
+    plain K2 that the card tests hold bf16 K2 to at (16,385, 64, 64)
+    carries the JAX kernel's bf16 state over 64 steps, within the same
+    tolerance."""
+    _y_against_jax_hs(8, 64)
 
 
 def test_bf16_plain_backward_parts_compose_to_the_whole():

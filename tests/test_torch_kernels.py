@@ -348,24 +348,27 @@ def _bf16_backward_inputs(cuda, N, L, H, kind, E=50):
     return x, xg, y, dy_sent, dy_pos, lengths, w_hh, b_hh
 
 
-# bf16 K3's sweep computes hg itself up to H = 128 (csrc/bigru_backward.cu
-# bigru_backward_bf16_sweep: H padded to 16 units a warp); past it the hg
-# pass and the wide sweep
+# bf16 K2's mma.sync kernel (csrc/bigru_recurrence.cu
+# bigru_recurrence_bf16_kernel) and K3's sweep (csrc/bigru_backward.cu
+# bigru_backward_bf16_sweep) take H up to 128, padded to 16 units a warp;
+# past it the wide kernels (and K3's hg pass)
 BF16_SWEEP_MAX_H = 128
 BF16_GRU_SHAPES = [(2560, 20, 64, "mixed"), (37, 5, 8, "mixed"), (50, 9, 100, "mixed"),
                    (40, 7, 256, "mixed"), (300, 20, 128, "all_L"), (40, 9, 64, "adjacent_L"),
                    (16385, 20, 64, "mixed"), (300, 20, 16, "mixed"), (300, 20, 48, "mixed"),
                    (300, 20, 120, "mixed"), (300, 20, BF16_SWEEP_MAX_H, "mixed"),
-                   (70, 11, 33, "mixed"), (100, 9, BF16_SWEEP_MAX_H + 1, "mixed")]
-# and K3 at the bf16 long-history shape (maxlen 64)
-BF16_K3_SHAPES = BF16_GRU_SHAPES + [(16385, 64, 64, "mixed")]
+                   (70, 11, 33, "mixed"), (100, 9, BF16_SWEEP_MAX_H + 1, "mixed"),
+                   (300, 20, 32, "mixed"), (70, 11, 80, "mixed"), (50, 9, 96, "all_L"),
+                   (16385, 64, 64, "mixed")]  # the bf16 long-history shape (maxlen 64)
 
 
 @pytest.mark.parametrize("N,L,H,kind", BF16_GRU_SHAPES)
 def test_bigru_recurrence_bf16_matches_plain(cuda, N, L, H, kind):
-    """K2 in bf16 (H = 8, 100: the ragged shared-memory tiles; 256: the
-    wide kernel): y within one bf16 ulp, exact zeros past each length, the
-    same bits twice."""
+    """K2 in bf16: up to H = 128 the mma.sync kernel (HP / 16 = 1 .. 8
+    warps: H = 8, 16, 32, 33, 48, 64, 80, 96, 100, 120, 128; 8, 33, 100,
+    120 padded, 33 odd, so 2-byte accesses), past it the wide kernel (129,
+    256): y within one bf16 ulp, exact zeros past each length, the same
+    bits twice; L = 64 at N = 16,385: the bf16 long-history shape."""
     _, xg, _, _, _, lengths, w_hh, b_hh = _bf16_backward_inputs(cuda, N, L, H, kind)
     before = gru_cuda.bigru_recurrence.launches
     y = gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh)
@@ -377,7 +380,7 @@ def test_bigru_recurrence_bf16_matches_plain(cuda, N, L, H, kind):
     assert torch.equal(gru_cuda.bigru_recurrence(xg, lengths, w_hh, b_hh), y)
 
 
-@pytest.mark.parametrize("N,L,H,kind", BF16_K3_SHAPES)
+@pytest.mark.parametrize("N,L,H,kind", BF16_GRU_SHAPES)
 def test_bigru_backward_bf16_matches_plain(cuda, N, L, H, kind):
     """K3 in bf16: dxg within one bf16 ulp, dW_hh and db_hh (f32) within
     1e-4 of their l2 norms, the same bits twice.  Up to H = 128 the sweep

@@ -14,7 +14,8 @@ Forward:
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
   time, exact zeros past each length; up to H = 128 the rows ordered by
   length (csrc/row_order.cuh, shared with K3) and walked in 16-row tiles
-  with W_hh in shared memory, past it W_hh in L2 (any H).
+  with W_hh in shared memory (in bf16 its own kernel, h @ W_hh on bf16
+  mma.sync), past it W_hh in L2 (any H).
 
 Backward:
 
@@ -48,9 +49,10 @@ sum of the two cotangents, the ghh operand of both its products (ghh @
 W_hh^T and h_prev^T ghh) and dxg on store, keeps db_hh the f32 sum of the
 unrounded ghh and returns dW_hh / db_hh in f32; K4 returns f32 sums of
 the bf16 products.  K1 (up to E = 256) and K4 run native bf16 wgmma
-(m64nNk16, f32 accumulators), K3's sweep up to H = 128 bf16 mma.sync
-(m16n8k16, f32 accumulators); K2, the rest of K3 and K1's wide-E kernels
-run one TF32 product of the widened bf16 values (exact in TF32).  K9 in
+(m64nNk16, f32 accumulators), K2 and K3's sweep up to H = 128 bf16
+mma.sync (m16n8k16, each k-step's product added in f32); past it K2
+takes f32 FMAs of the widened bf16 values, and the rest of K3 and K1's
+wide-E kernels one TF32 product of them (exact in TF32).  K9 in
 bf16 rounds each direction's f32 product to bf16 and adds the two in
 bf16, as the JAX kernel does; its products are bf16 mma.sync.  The plain
 versions carry the same rounding points.
