@@ -21,7 +21,8 @@
    (other --gru_size values; K2 and K3's L2 routes at 256), each launched
    twice for the same bits; K2 and K3 at the long-history 1,048,576 rows
    (K2 timed there beside its bound); K9 past the old grid cap of
-   4,194,240 rows; K7/K8 at D = 16, 200 and 512 and a ragged P.
+   4,194,240 rows; K7/K8 at D = 16, 200 and 512 and a ragged P; f32 K1
+   at E = 100, 200 and 300 (``K1_F32_WIDTHS``) beside f32 torch.addmm.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -108,9 +109,9 @@
 13. ``--compute_dtype bfloat16``: K1-K4's bf16 variants against their
    plain bf16 versions (one bf16 ulp; dW/db within 1e-4 of their l2
    norms; the same bits twice) at the UMPR-R shapes and K1/K4 at
-   ``BF16_WIDTHS`` (the edges of K1's bf16 wgmma route and of K4's
-   whole-row copy, and the wide-E routes), timed beside the bf16 library
-   calls (K4's computing its whole function: f32 dW and db), with K1's,
+   ``BF16_WIDTHS`` (the edges of K1's bf16 routes and of K4's whole-row
+   copy), timed beside the bf16 library calls (K4's computing its whole
+   function: f32 dW and db; K1's at each width beside its bound), with K1's,
    K2's, K3's and K4's ptxas report, K2 and K3 by kernel, bf16 K2 also
    at H = 128 and at (16,385, 64, 64) and bf16 K3 at H = 128 and 192
    (``K2_BF16_AT``, ``K3_BF16_WIDTHS``); UMPR-R trained in bf16
@@ -121,8 +122,9 @@
    0.08); a bf16 UMPR-R resume, bit-equal.
 14. The rest of ``--compute_dtype bfloat16`` and export: K5/K6's bf16
    variants at the three fused VGG blocks (yp, idx, dx bit-equal, db
-   within one ulp) and K9's at the UMPR-R shape (within one ulp), timed
-   beside the bf16 library calls; a bf16 x's gradient through
+   within one ulp) and K9's at the UMPR-R shape and ``K9_BF16_AT``
+   (within one ulp), timed beside the bf16 library calls and their
+   bounds; a bf16 x's gradient through
    ``bigru_split`` (K9 bf16, card against CPU); then through
    ``umpr_tpu_torch.main.main``, one epoch each in bf16: full UMPR at 224
    px with ``--vgg_fused_pool True`` (every K5/K6 launch bf16; fused
@@ -151,13 +153,22 @@ the checkout.
 
     python3 chip_smoke.py --steps
 
-builds K2, K8 and the bf16 K4, K3 and K2 with one design choice changed
-at a time (``K2_STEPS``, ``K8_STEPS``, ``K4_STEPS``, ``K3_STEPS``,
-``K2_BF16_STEPS``: text edits of the final sources, which
-tests/test_torch_chip_steps.py holds to today's sources on the CPU) and
-times each beside the final kernel, K4's at each E of ``K4_WIDTHS`` and
-at ``K4_ROWS`` rows per chunk, bf16 K3's and K2's with their agreement
-with the plain version; then stops.
+builds K2, K8 and the bf16 K4, K3, K2, K1 and K9 with one design choice
+changed at a time (``K2_STEPS``, ``K8_STEPS``, ``K4_STEPS``,
+``K3_STEPS``, ``K2_BF16_STEPS``, ``K1_BF16_STEPS``, ``K9_BF16_STEPS``:
+text edits of the final sources, which tests/test_torch_chip_steps.py
+holds to today's sources on the CPU) and times each beside the final
+kernel, K4's at each E of ``K4_WIDTHS`` and at ``K4_ROWS`` rows per
+chunk, K1's at ``K1_BF16_STEP_WIDTHS``, K9's at ``K9_BF16_STEP_SHAPES``,
+bf16 K3's, K2's, K1's and K9's with their agreement with the plain
+version; then stops.
+
+    python3 chip_smoke.py --turns <parent checkout>
+
+builds the parent checkout's K1 and K9 sources beside this tree's and
+times their bf16 entry points on the same inputs in turns (parent,
+change, change, parent) at each ``BF16_WIDTHS`` E and ``K9_BF16_AT``
+shape, beside the bf16 library call and the bound; then stops.
 """
 
 from __future__ import annotations
@@ -526,6 +537,48 @@ def bound(n_bytes, flops, tf32_flops=0, bf16_flops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_bound(M, E, G, size):
+    """K1's bound at (M, E, 6H = G) for `size`-byte IO: x, W, b read and
+    xg written once, the bias adds on the CUDA cores, the products at the
+    3xTF32 (f32) or bf16 tensor-core rate."""
+    flops = 2 * M * E * G
+    return bound(size * (M * E + E * G + G + M * G), M * G,
+                 **({"tf32_flops": 3 * flops} if size == 4 else {"bf16_flops": flops}))
+
+
+K1_F32_WIDTHS = (100, 200, 300)  # f32 K1 past E = 112: the mma.sync kernel (GloVe, word2vec)
+
+
+def k1_f32_widths(device, M, G, widths=K1_F32_WIDTHS):
+    """f32 K1 at (M, E, G) for each E of `widths` (w scaled by sqrt(50 /
+    E)), held against its plain version (max abs error within K1_TOL of
+    the largest |xg|) and timed beside torch.addmm in f32 (TF32 off, as
+    set_f32_parity leaves it) and its bound.  Returns {E: {...}}."""
+    out = {}
+    for e in widths:
+        g = torch.Generator(device=device).manual_seed(e)
+        x = torch.randn(M, e, generator=g, device=device)
+        w = torch.randn(e, G, generator=g, device=device) * (50 / e) ** 0.5
+        b = torch.randn(G, generator=g, device=device)
+        k1 = lambda: gru_cuda.gru_input_proj(x, w, b)  # noqa: E731
+        xg = k1()
+        torch.cuda.synchronize()
+        want = gru_cuda.gru_input_proj_ref(x, w, b)
+        err = (xg - want).abs().max().item()
+        if not (err <= K1_TOL * want.abs().max().item() and torch.equal(k1(), xg)):
+            raise AssertionError(f"f32 K1 at E = {e} disagrees with its plain version")
+        t_bound, by = k1_bound(M, e, G, 4)
+        out[e] = {"device_ms": device_ms(k1), "bound_ms": t_bound, "bound_by": by,
+                  "addmm_device_ms": device_ms(lambda: torch.addmm(b, x, w)),
+                  "max_abs_err": err, "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        print(f"K1 f32 at E = {e}: device ms {_ms(out[e]['device_ms'])}, torch.addmm "
+              f"{_ms(out[e]['addmm_device_ms'])} (TF32 {out[e]['allow_tf32']}), bound "
+              f"{t_bound:.4f} ({by})")
+        del x, xg, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_phase(device, N=2560, L=20, E=50, H=64):
     """Each kernel against its plain version at the UMPR-R shapes."""
     g = torch.Generator().manual_seed(0)
@@ -560,7 +613,7 @@ def kernel_phase(device, N=2560, L=20, E=50, H=64):
                 lambda: gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih),
                 lambda: torch.addmm(b_ih, x2, w_ih)),
         "bound_ms": t_bound, "bound_by": by,
-        "library_call": "torch.addmm"})
+        "library_call": "torch.addmm", "at_E": k1_f32_widths(device, M, 6 * H)})
 
     xg = xg.view(N, L, 6 * H)
     y, err = k2_check(xg, lengths, w_hh, b_hh)
@@ -1928,6 +1981,219 @@ def k2_bf16_steps_phase(device, shapes=K2_BF16_STEP_SHAPES):
             times[label][f"{N}x{L}x{H}"] = {**parts, "y_past_ulp": past,
                                             "within_tolerance": within}
         del xg, want, y
+        torch.cuda.empty_cache()
+    return times
+
+
+# bf16 K1's streaming kernel (csrc/gru_input_proj.cu
+# gru_input_proj_bf16_stream, 256 < E <= 544) and bf16 K9's wgmma kernel
+# (csrc/gru_input_proj_dx.cu gru_input_proj_dx_bf16_wgmma), each design
+# choice taken back at a time: (label, [(file, text, replacement), ...]).
+# "one k16 step a group": each step's wgmma issued alone behind a wait for
+# the step before, in a branch past the last step (ptxas then serialises
+# every wgmma, its C7520 warning); "W in order": every block reads K1's W
+# slice from its first item; "scalar W loads": K1's W slice as 2-byte
+# loads (the E <= 256 kernel's loader too); stages, chunk width and
+# warpgroups a block as named; "grid of one block an SM": K9's walkers
+# unbalanced (a few warpgroups take one tile more than the rest); the
+# "timing only" steps leave out a part of the work (their results are
+# wrong) to show what the rest costs.
+K1S_GROUPS = """    uint32_t a[KSC][4];
+    for (int c = 0; c < NC; ++c) {
+      cp_async_wait<STAGES - 2>();  // chunk g has landed ...
+      named_barrier(1 + wg, WG);    // ... for the warpgroup, which has read chunk g - 1
+      fetch(g + STAGES - 1);        // into chunk g - 1's stage
+      const bf16* chunk = ring + g % STAGES * BM * XS;
+      ++g;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < KSC; ++j)
+        chunk_a<U>(a[j], chunk, XS, 16 * j, K - c * KC, warp, lane, sh0, sh8);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSC; ++j)
+        WgmmaBf16<BN>::run(acc, a[j], desc(wt + min(c * KSC + j, KS - 1) * B16_WT),
+                           c * KSC + j > 0);
+      wgmma_commit();
+    }
+"""
+K1S_STEPWISE = """    uint32_t a0[4], a1[4];
+    const bf16* chunk = ring;
+    auto step = [&](int ks, uint32_t(&a)[4]) {
+      if (ks % KSC == 0) {
+        cp_async_wait<STAGES - 2>();
+        named_barrier(1 + wg, WG);
+        fetch(g + STAGES - 1);
+        chunk = ring + g % STAGES * BM * XS;
+        ++g;
+      }
+      chunk_a<U>(a, chunk, XS, ks % KSC * 16, K - ks / KSC * KC, warp, lane, sh0, sh8);
+      wgmma_fence();
+      WgmmaBf16<BN>::run(acc, a, desc(wt + ks * B16_WT), ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+    };
+    for (int ks = 0; ks < KS; ks += 2) {
+      step(ks, a0);
+      if (ks + 1 < KS) step(ks + 1, a1);
+    }
+"""
+K1S_PRODUCT = """        WgmmaBf16<BN>::run(acc, a[j], desc(wt + min(c * KSC + j, KS - 1) * B16_WT),
+                           c * KSC + j > 0);"""
+K1_BF16_STEPS = (
+    ("final", []),
+    ("one k16 step a group", [("gru_input_proj.cu", K1S_GROUPS, K1S_STEPWISE)]),
+    ("W in order", [("gru_input_proj.cu", "  const int rot = blockIdx.y * threads;",
+                     "  const int rot = 0;")]),
+    ("scalar W loads", [("gru_input_proj.cu",
+                         "  if (N % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {",
+                         "  if (K < 0) {")]),
+    ("2 stages", [("gru_input_proj.cu", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
+    ("4 stages (to E = 480)", [("gru_input_proj.cu", "constexpr int STAGES = 3;",
+                                "constexpr int STAGES = 4;")]),
+    ("3 warpgroups (to E = 368)", [("gru_input_proj.cu", "constexpr int S_WGS = 2;",
+                                    "constexpr int S_WGS = 3;")]),
+    ("chunks of 128 (to E = 352)", [("gru_input_proj.cu", "constexpr int KC = 64; ",
+                                     "constexpr int KC = 128;")]),
+    ("no x copies (timing only)", [("gru_input_proj.cu", "      copy_rows<U, KC>(",
+                                    "      if (M < 0) copy_rows<U, KC>(")]),
+    ("no products (timing only)", [("gru_input_proj.cu", K1S_PRODUCT, "        ;")]),
+    ("no stores (timing only)", [("gru_input_proj.cu", "    store_tile(acc, bias, stage, out",
+                                  "    if (M < 0) store_tile(acc, bias, stage, out")]))
+K1_BF16_STEP_WIDTHS = (256, 257, 300, 400, 520)  # E each K1 step is timed at (M = 51,200)
+K9S_GROUPS = """      uint32_t a[D_KSC][4];
+      for (int c = 0; c < NC3; ++c) {
+        cp_async_wait<D_STAGES - 2>();  // chunk g has landed ...
+        named_barrier(1 + wg, WG);      // ... for the warpgroup, which has read chunk g - 1
+        fetch(g + D_STAGES - 1);        // into chunk g - 1's stage
+        const bf16* chunk = ring + g % D_STAGES * BM * D_XS;
+        ++g;
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < D_KSC; ++j)
+          chunk_a<U>(a[j], chunk, D_XS, 16 * j, K3 - c * D_KC, warp, lane, sh0, sh8);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < D_KSC; ++j)
+          WgmmaBf16<BN>::run(acc, a[j], desc(wt + (d * KS3 + min(c * D_KSC + j, KS3 - 1)) * WT),
+                             c * D_KSC + j > 0);
+        wgmma_commit();
+      }
+"""
+K9S_STEPWISE = """      uint32_t a0[4], a1[4];
+      const bf16* chunk = ring;
+      auto step = [&](int s, uint32_t(&a)[4]) {
+        if (s % D_KSC == 0) {
+          cp_async_wait<D_STAGES - 2>();
+          named_barrier(1 + wg, WG);
+          fetch(g + D_STAGES - 1);
+          chunk = ring + g % D_STAGES * BM * D_XS;
+          ++g;
+        }
+        chunk_a<U>(a, chunk, D_XS, s % D_KSC * 16, K3 - s / D_KSC * D_KC, warp, lane, sh0, sh8);
+        wgmma_fence();
+        WgmmaBf16<BN>::run(acc, a, desc(wt + (d * KS3 + s) * WT), s > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      };
+      for (int s = 0; s < KS3; s += 2) {
+        step(s, a0);
+        if (s + 1 < KS3) step(s + 1, a1);
+      }
+      wgmma_wait<0>();
+"""
+K9S_NO_COPIES = ("gru_input_proj_dx.cu", "      copy_rows<U, D_KC>(",
+                 "      if (M < 0) copy_rows<U, D_KC>(")
+K9S_NO_PRODUCTS = ("gru_input_proj_dx.cu", """          WgmmaBf16<BN>::run(acc, a[j], desc(wt + (d * KS3 + min(c * D_KSC + j, KS3 - 1)) * WT),
+                             c * D_KSC + j > 0);""", "          ;")
+K9S_NO_W = ("gru_input_proj_dx.cu", "  for (int i = tid; i < 2 * KS3 * BN * 2; i += WG * D_WGS) {",
+            "  for (int i = tid; i < 2 * KS3 * BN * 2 * (M < 0); i += WG * D_WGS) {")
+K9_BF16_STEPS = (
+    ("final", []),
+    ("one k16 step a group", [("gru_input_proj_dx.cu", K9S_GROUPS, K9S_STEPWISE)]),
+    ("grid of one block an SM", [("gru_input_proj_dx.cu", """  const int walkers = std::max(1, (m_tiles + each * D_WGS - 1) / (each * D_WGS));""",
+                                  """  const int walkers = std::max(1, std::min((m_tiles + D_WGS - 1) / D_WGS, per_col));""")]),
+    ("2 stages", [("gru_input_proj_dx.cu", "constexpr int D_STAGES = 3;", "constexpr int D_STAGES = 2;")]),
+    ("4 stages", [("gru_input_proj_dx.cu", "constexpr int D_STAGES = 3;", "constexpr int D_STAGES = 4;")]),
+    ("2 warpgroups", [("gru_input_proj_dx.cu", "constexpr int D_WGS = 3;", "constexpr int D_WGS = 2;")]),
+    ("2 warpgroups, 4 stages", [("gru_input_proj_dx.cu", "constexpr int D_WGS = 3;", "constexpr int D_WGS = 2;"),
+                                ("gru_input_proj_dx.cu", "constexpr int D_STAGES = 3;", "constexpr int D_STAGES = 4;")]),
+    ("chunks of 128", [("gru_input_proj_dx.cu", "constexpr int D_KC = 64; ", "constexpr int D_KC = 128;")]),
+    ("no dxg copies (timing only)", [K9S_NO_COPIES]),
+    ("no products (timing only)", [K9S_NO_PRODUCTS]),
+    ("no W load (timing only)", [K9S_NO_W]),
+    ("no copies, products or W load (timing only)", [K9S_NO_COPIES, K9S_NO_PRODUCTS, K9S_NO_W]))
+K9_BF16_STEP_SHAPES = ((51200, 384, 50), (51200, 384, 64), (51200, 102, 50), (51200, 384, 300))
+
+
+def k1_bf16_steps_phase(device, M=51200, G=384, widths=K1_BF16_STEP_WIDTHS):
+    """bf16 K1 with one design choice of its streaming kernel taken back at
+    a time (K1_BF16_STEPS), each built beside the final source, held
+    against the plain version (_bf16_agreement; the final source raises)
+    and timed (device ms under torch.profiler) at (M, E, G) for each E of
+    `widths`.  A step whose shared memory no longer fits a width runs the
+    kernel the final source routes past it.  Returns {label: {E: ms}}."""
+    fns = build_steps("gru_input_proj", K1_BF16_STEPS,
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                      "gru_input_proj_bf16")
+    times = {label: {} for label in fns}
+    for e in widths:
+        g = torch.Generator(device=device).manual_seed(e)
+        x = torch.randn(M, e, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(e, G, generator=g, device=device) * (50 / e) ** 0.5).to(torch.bfloat16)
+        b = torch.randn(G, generator=g, device=device).to(torch.bfloat16)
+        want = gru_cuda.gru_input_proj_ref(x, w, b)
+        out = torch.empty(M, G, device=device, dtype=torch.bfloat16)
+        for label, fn in fns.items():
+            def call(fn=fn, label=label):
+                if fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, e, G,
+                      torch.cuda.current_stream().cuda_stream):
+                    raise AssertionError(f"K1 bf16 step {label!r} failed to launch")
+
+            call()
+            torch.cuda.synchronize()
+            where = f"K1 bf16 step {label!r} at E = {e}"
+            _, within = _bf16_agreement(out, want, where)
+            if label == "final" and not within:
+                raise AssertionError("K1's final bf16 source disagrees with its plain version")
+            times[label][e] = device_ms(call)
+            print(f"{where}: device ms {_ms(times[label][e])}")
+        del x, want, out
+        torch.cuda.empty_cache()
+    return times
+
+
+def k9_bf16_steps_phase(device, shapes=K9_BF16_STEP_SHAPES):
+    """bf16 K9 with one design choice of its wgmma kernel taken back at a
+    time (K9_BF16_STEPS), each built beside the final source, held against
+    the plain version (the final source raises) and timed (device ms
+    under torch.profiler) at each (M, 6H, E) of `shapes`.  Returns
+    {label: {"MxGxE": ms}}."""
+    fns = build_steps("gru_input_proj_dx", K9_BF16_STEPS,
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                      "gru_input_proj_dx_bf16")
+    times = {label: {} for label in fns}
+    for M, G, E in shapes:
+        g = torch.Generator(device=device).manual_seed(M + G + E)
+        dxg = torch.randn(M, G, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(E, G, generator=g, device=device) / G ** 0.5).to(torch.bfloat16)
+        want = gru_cuda.gru_input_proj_dx_ref(dxg, w)
+        dx = torch.empty(M, E, device=device, dtype=torch.bfloat16)
+        for label, fn in fns.items():
+            def call(fn=fn, label=label):
+                if fn(dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M, G, E,
+                      torch.cuda.current_stream().cuda_stream):
+                    raise AssertionError(f"K9 bf16 step {label!r} failed to launch")
+
+            call()
+            torch.cuda.synchronize()
+            where = f"K9 bf16 step {label!r} at (M, 6H, E) = {(M, G, E)}"
+            _, within = _bf16_agreement(dx, want, where)
+            if label == "final" and not within:
+                raise AssertionError("K9's final bf16 source disagrees with its plain version")
+            times[label][f"{M}x{G}x{E}"] = device_ms(call)
+            print(f"{where}: device ms {_ms(times[label][f'{M}x{G}x{E}'])}")
+        del dxg, want, dx
         torch.cuda.empty_cache()
     return times
 
@@ -3754,9 +4020,13 @@ def bf16_kernel_phase(device, N=2560, L=20, E=50, H=64, widths=BF16_WIDTHS):
         same(k1e, out1)
         same(k4e, out4)
         at_e[e] = {"gru_input_proj_device_ms": device_ms(k1e),
+                   "addmm_device_ms": device_ms(lambda: torch.addmm(b_ih, xe, we)),
+                   "gru_input_proj_bound_ms": k1_bound(M, e, 6 * H, 2)[0],
                    "gru_input_proj_bwd_device_ms": device_ms(k4e)}
-    t_bound, by = bound(2 * (x2.numel() + w_ih.numel() + b_ih.numel() + xg.numel()),
-                        M * 6 * H, bf16_flops=2 * M * E * 6 * H)
+        print(f"K1 bf16 at E = {e}: device ms {_ms(at_e[e]['gru_input_proj_device_ms'])}, "
+              f"bf16 torch.addmm {_ms(at_e[e]['addmm_device_ms'])}, bound "
+              f"{at_e[e]['gru_input_proj_bound_ms']:.4f}")
+    t_bound, by = k1_bound(M, E, 6 * H, 2)
     row("gru_input_proj_bf16", "gru_input_proj.cu", 319, err,
         timed(k1, lambda: gru_cuda.gru_input_proj_ref(x2, w_ih, b_ih),
               lambda: torch.addmm(b_ih, x2, w_ih)),
@@ -4179,17 +4449,134 @@ def bf16_pool_dx_kernel_phase(device, shapes=POOL_SHAPES, M=51200, E=50, H=64):
     if not torch.equal(k9(), dx9):
         raise AssertionError("K9 bf16: a second launch gave other bits")
     # bf16 products at the bf16 rate; the two directions' rounded sum on the CUDA cores
-    t_bound, by = bound(2 * (dxg.numel() + w.numel() + dx9.numel()), M * E,
-                        bf16_flops=2 * M * 6 * H * E)
+    t_bound, by = k9_bound(M, 6 * H, E)
     row = {"name": "gru_input_proj_dx_bf16", "route": "cuda",
            "source": "umpr_tpu_torch/csrc/gru_input_proj_dx.cu",
            "replaces": "umpr_tpu/ops/gru_pallas.py:394", "replaces_branch": "emit_dxc=True",
            "io": "bfloat16", "max_abs_err": err,
            **timed(k9, lambda: gru_cuda.gru_input_proj_dx_ref(dxg, w),
                    lambda: torch.mm(dxg, w.t())),
-           "bound_ms": t_bound, "bound_by": by, "library_call": "torch.mm(dxg, w_ih.t()) (bf16)"}
+           "bound_ms": t_bound, "bound_by": by, "library_call": "torch.mm(dxg, w_ih.t()) (bf16)",
+           "at_shape": k9_bf16_shapes(device)}
     print_row(row)
     return kernel_rows + [row]
+
+
+def k9_bound(M, G, E):
+    """bf16 K9's bound at (M, 6H = G, E): dxg and W read and dx written
+    once, the products at the bf16 rate, the directions' rounded sum on
+    the CUDA cores."""
+    return bound(2 * (M * G + E * G + M * E), M * E, bf16_flops=2 * M * G * E)
+
+
+# bf16 K9 off the UMPR-R shape (M, 6H, E): its column tiles (E = 56, 64,
+# 65, 300), odd H = 17 (2-byte halves), H = 100 (3H = 300) and a 3H past
+# its wgmma kernel's shared memory (H = 256, the mma.sync kernel)
+K9_BF16_AT = ((51200, 384, 56), (51200, 384, 64), (51200, 384, 65), (51200, 384, 300),
+              (51200, 102, 50), (51200, 600, 50), (20000, 1536, 50))
+
+
+def k9_bf16_shapes(device, shapes=K9_BF16_AT):
+    """bf16 K9 at each (M, 6H, E) of `shapes`: within one ulp of its
+    plain version but for BF16_PAST_ULP's share (_bf16_check), the same
+    bits twice, its device ms beside bf16 torch.mm's and its bound.
+    Returns {"MxGxE": {...}}."""
+    out = {}
+    for M, G, E in shapes:
+        g = torch.Generator(device=device).manual_seed(M + G + E)
+        dxg = torch.randn(M, G, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(E, G, generator=g, device=device) / G ** 0.5).to(torch.bfloat16)
+        k9 = lambda: gru_cuda.gru_input_proj_dx(dxg, w)  # noqa: E731
+        dx = k9()
+        torch.cuda.synchronize()
+        where = f"K9 bf16 at (M, 6H, E) = {(M, G, E)}"
+        err = _bf16_check(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w), where)
+        if not torch.equal(k9(), dx):
+            raise AssertionError(f"{where}: a second launch gave other bits")
+        t_bound, by = k9_bound(M, G, E)
+        r = out[f"{M}x{G}x{E}"] = {
+            "device_ms": device_ms(k9), "mm_device_ms": device_ms(lambda: torch.mm(dxg, w.t())),
+            "bound_ms": t_bound, "bound_by": by, "max_abs_err": err}
+        print(f"{where}: device ms {_ms(r['device_ms'])}, bf16 torch.mm "
+              f"{_ms(r['mm_device_ms'])}, bound {t_bound:.4f} ({by})")
+        del dxg, dx
+        torch.cuda.empty_cache()
+    return out
+
+
+def turns_phase(device, parent):
+    """bf16 K1 and K9 of the tree at `parent` (a checkout's root, e.g.
+    a git archive of the parent commit under build/) against this tree's,
+    on the same inputs, timed in turns (parent, change, change, parent;
+    device ms under torch.profiler): K1 at (51,200, E, 384) for each E of
+    BF16_WIDTHS and E = 50, K9 at the UMPR-R shape and K9_BF16_AT, each
+    beside bf16 torch.addmm / torch.mm and its bound.  The parent's
+    sources are built here (one nvcc each, at once) into
+    build/chip_smoke/parent/.  Returns {"K1": {E: ...}, "K9": {shape: ...}}."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    kernels = (("gru_input_proj", "gru_input_proj_bf16", [P] * 4 + [I] * 3 + [P]),
+               ("gru_input_proj_dx", "gru_input_proj_dx_bf16", [P] * 3 + [I] * 3 + [P]))
+    root = WORK / "parent"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(root / f"lib{name}.so"),
+         str(Path(parent) / "umpr_tpu_torch" / "csrc" / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, _, _ in kernels}
+    fns = {}
+    for name, symbol, argtypes in kernels:
+        out, _ = procs[name].communicate()
+        if procs[name].returncode != 0:
+            raise AssertionError(f"the parent's {name} did not build:\n{out}")
+        parent_fn = getattr(ctypes.CDLL(str(root / f"lib{name}.so")), symbol)
+        parent_fn.argtypes, parent_fn.restype = argtypes, ctypes.c_int
+        fns[name] = (parent_fn, _build.kernel_function(name, argtypes, symbol)[0])
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+
+    def in_turns(pair, args):
+        calls = []
+        for fn in pair:
+            def call(fn=fn):
+                if fn(*args, stream):
+                    raise AssertionError("a launch failed")
+            calls.append(call)
+        p1, c1, c2, p2 = (device_ms(calls[i]) for i in (0, 1, 1, 0))
+        return {"parent_device_ms": [p1, p2], "device_ms": [c1, c2]}
+
+    out = {"K1": {}, "K9": {}}
+    M, G = 51200, 384
+    for e in (50,) + BF16_WIDTHS:
+        g = torch.Generator(device=device).manual_seed(e)
+        x = torch.randn(M, e, generator=g, device=device).to(bf)
+        w = (torch.randn(e, G, generator=g, device=device) * (50 / e) ** 0.5).to(bf)
+        b = torch.randn(G, generator=g, device=device).to(bf)
+        xg = torch.empty(M, G, device=device, dtype=bf)
+        r = out["K1"][e] = in_turns(fns["gru_input_proj"], (x.data_ptr(), w.data_ptr(),
+                                                            b.data_ptr(), xg.data_ptr(), M, e, G))
+        r["addmm_device_ms"] = device_ms(lambda: torch.addmm(b, x, w))
+        r["bound_ms"] = k1_bound(M, e, G, 2)[0]
+        print(f"turns, K1 bf16 at E = {e}: parent {_ms(r['parent_device_ms'][0])}, change "
+              f"{_ms(r['device_ms'][0])}, change {_ms(r['device_ms'][1])}, parent "
+              f"{_ms(r['parent_device_ms'][1])}; torch.addmm {_ms(r['addmm_device_ms'])}, bound "
+              f"{r['bound_ms']:.4f}", flush=True)
+        del x, xg
+    for M9, G9, E9 in ((51200, 384, 50),) + K9_BF16_AT:
+        g = torch.Generator(device=device).manual_seed(M9 + G9 + E9)
+        dxg = torch.randn(M9, G9, generator=g, device=device).to(bf)
+        w = (torch.randn(E9, G9, generator=g, device=device) / G9 ** 0.5).to(bf)
+        dx = torch.empty(M9, E9, device=device, dtype=bf)
+        r = out["K9"][f"{M9}x{G9}x{E9}"] = in_turns(
+            fns["gru_input_proj_dx"], (dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M9, G9, E9))
+        r["mm_device_ms"] = device_ms(lambda: torch.mm(dxg, w.t()))
+        r["bound_ms"] = k9_bound(M9, G9, E9)[0]
+        print(f"turns, K9 bf16 at (M, 6H, E) = {(M9, G9, E9)}: parent "
+              f"{_ms(r['parent_device_ms'][0])}, change {_ms(r['device_ms'][0])}, change "
+              f"{_ms(r['device_ms'][1])}, parent {_ms(r['parent_device_ms'][1])}; torch.mm "
+              f"{_ms(r['mm_device_ms'])}, bound {r['bound_ms']:.4f}", flush=True)
+        del dxg, dx
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bf16_train(device_name, work, flags, corpus=None):
@@ -4477,14 +4864,20 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's, K3's and K2's designs
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:  # bf16 K1 and K9 against a parent tree
+        with torch.no_grad():
+            print(json.dumps({"turns": turns_phase(torch.device("cuda"), sys.argv[2])}))
+        return 0
+    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's, K3's, K2's, K1's and K9's designs
         _build.build(("affinity_tiles", "bigru_recurrence", "bigru_backward"))
         with torch.no_grad():
             print(json.dumps({"k2_steps": k2_steps_phase(torch.device("cuda")),
                               "k8_steps": k8_steps_phase(torch.device("cuda")),
                               "k4_bf16_steps": k4_steps_phase(torch.device("cuda")),
                               "k3_bf16_steps": k3_steps_phase(torch.device("cuda")),
-                              "k2_bf16_steps": k2_bf16_steps_phase(torch.device("cuda"))}))
+                              "k2_bf16_steps": k2_bf16_steps_phase(torch.device("cuda")),
+                              "k1_bf16_steps": k1_bf16_steps_phase(torch.device("cuda")),
+                              "k9_bf16_steps": k9_bf16_steps_phase(torch.device("cuda"))}))
         return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     serve.set_f32_parity()

@@ -220,8 +220,9 @@ def test_bf16_projection_plain_version_matches_the_jax_kernels(seed):
     combined time and interleaved gates, de-interleaved with _deinterleave
     and the bwd half flipped back to true time.  Within one bf16 ulp: both
     round the same f32 sum once, on store, summed in another order.
-    (_build_xg, the XLA route, rounds twice: the product, then the bias
-    add, so it is not the kernels' yardstick.)"""
+    (_build_xg, the XLA route the JAX package takes past E = 64, rounds
+    twice: the product, then the bias add; the plain version does so past
+    E = 64 too, tests/test_torch_wide_embedding.py.)"""
     from umpr_tpu.ops import gru_pallas as gp
 
     _, x, p, xt, w_ih, b_ih = _projection_case(seed)

@@ -20,7 +20,8 @@ from umpr_tpu_torch.ops import _build
 # each step list of chip_smoke.py and the source it edits
 STEP_LISTS = {"K2_STEPS": "bigru_recurrence", "K2_BF16_STEPS": "bigru_recurrence",
               "K3_STEPS": "bigru_backward", "K4_STEPS": "gru_input_proj_bwd",
-              "K8_STEPS": "affinity_finish"}
+              "K8_STEPS": "affinity_finish", "K1_BF16_STEPS": "gru_input_proj",
+              "K9_BF16_STEPS": "gru_input_proj_dx"}
 STEPS = [(lst, label) for lst in STEP_LISTS for label, _ in getattr(chip_smoke, lst)]
 
 

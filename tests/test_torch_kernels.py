@@ -279,22 +279,35 @@ def _l2_close(got, want, tol=1e-4):
     assert (got - want).norm() <= tol * want.norm().clamp(min=1e-30)
 
 
-K1_BF16_WGMMA_MAX_E = 256  # csrc/gru_input_proj.cu: the bf16 wgmma kernel's E range
+# csrc/gru_input_proj.cu: the bf16 wgmma kernel's E range, the streaming
+# kernel's after it (the mma.sync kernel and the deep one past it), and
+# the last E whose xg is rounded once (gru_cuda.PROJ_ROUND_ONCE_MAX_E)
+K1_BF16_WGMMA_MAX_E = 256
+K1_BF16_STREAM_MAX_E = 544
+K1_BF16_ROUND_ONCE_MAX_E = gru_cuda.PROJ_ROUND_ONCE_MAX_E
 
 
 @pytest.mark.parametrize("M,E,N", [
     (51200, 50, 384), (130, 17, 102), (1000, 400, 384), (3000, 520, 102), (777, 521, 384),
     (700, 800, 384), (1, 50, 384), (63, 8, 384), (65, 16, 768), (130, 64, 102),
     (51200, 17, 102), (65, 50, 768), (63, 64, 384), (130, K1_BF16_WGMMA_MAX_E, 384),
-    (130, K1_BF16_WGMMA_MAX_E + 1, 384), (1048576, 50, 384)])
+    (130, K1_BF16_WGMMA_MAX_E + 1, 384), (1048576, 50, 384),
+    (130, K1_BF16_ROUND_ONCE_MAX_E, 384), (130, K1_BF16_ROUND_ONCE_MAX_E + 1, 384),
+    (65, K1_BF16_ROUND_ONCE_MAX_E + 1, 102), (777, K1_BF16_WGMMA_MAX_E + 1, 102),
+    (51200, 300, 384), (63, 300, 102), (1000, 258, 384), (1000, 264, 768), (1000, 301, 384),
+    (65, 300, 768), (1000, K1_BF16_STREAM_MAX_E, 384), (777, K1_BF16_STREAM_MAX_E, 102),
+    (1000, K1_BF16_STREAM_MAX_E + 1, 384), (777, K1_BF16_STREAM_MAX_E + 1, 102)])
 def test_gru_input_proj_bf16_matches_plain(cuda, M, E, N):
     """K1 in bf16: up to E = 256 the bf16 wgmma kernel (E = 50: a 100-byte
     row, the tile copies take 16-byte pieces of the whole span and 2-byte
     copies for the tail; odd E = 17 reads its fragments in 2-byte halves;
     6H = 102 stores 2 bytes at a time, 384 and 768 whole 16-byte pieces;
-    M = 1, 63, 65, 130: ragged last tiles), 257 .. 521 the mma.sync kernel,
-    800 the one that reads global memory; within one bf16 ulp, launches and
-    bf16 launches +1, the same bits twice."""
+    M = 1, 63, 65, 130: ragged last tiles), 257 .. 544 the streaming kernel
+    (E = 264: 16-byte row pieces, 300 and 520: 8-byte, 258: 4-byte, 257,
+    301, 521: 4-byte pieces of rows that start at odd elements), 545 the
+    mma.sync kernel, 800 the one that reads global memory; E = 64 | 65 the
+    rounding switch (the product rounded before the bias past 64); within
+    one bf16 ulp, launches and bf16 launches +1, the same bits twice."""
     g = torch.Generator().manual_seed(M + E)
     x, w, b = (_bf16(torch.randn(s, generator=g)).to(cuda) for s in ((M, E), (E, N), (N,)))
     w = _bf16(w.float() * min(1.0, (50 / E) ** 0.5))
@@ -339,6 +352,58 @@ def test_bf16_projection_kernels_ignore_nan_past_the_data(cuda):
     want_dw, want_db = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
     _l2_close(dw, want_dw)
     _l2_close(db, want_db)
+
+
+@pytest.mark.parametrize("E", [50, 300, 301])
+def test_bf16_projection_kernels_at_unaligned_addresses(cuda, E):
+    """K1 and K9 in bf16 on views that start one element into their
+    buffers (2-byte aligned addresses, every row start odd or even in
+    turn): K1's streaming kernel (E = 300, 301) and K9's kernel then copy
+    4-byte pieces from each row's aligned start, K1's wgmma kernel (E =
+    50) its 2-byte tail path; against the plain versions, the same bits
+    twice."""
+    M, G = 1000, 384
+    g = torch.Generator().manual_seed(E)
+
+    def unaligned(shape, scale=1.0):
+        n = shape[0] * shape[1]
+        buf = _bf16(torch.randn(n + 1, generator=g) * scale).to(cuda)
+        return buf[1:].view(shape)
+
+    x, dxg = unaligned((M, E)), unaligned((M, G))
+    w = _bf16(torch.randn(E, G, generator=g) * (50 / E) ** 0.5).to(cuda)
+    b = _bf16(torch.randn(G, generator=g)).to(cuda)
+    w9 = unaligned((E, G), G ** -0.5)
+    out, dx = gru_cuda.gru_input_proj(x, w, b), gru_cuda.gru_input_proj_dx(dxg, w9)
+    torch.cuda.synchronize()
+    _within_ulp(out, gru_cuda.gru_input_proj_ref(x, w, b))
+    _within_ulp(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w9))
+    assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
+    assert torch.equal(gru_cuda.gru_input_proj_dx(dxg, w9), dx)
+
+
+@pytest.mark.parametrize("E,H", [(300, 64), (50, 64), (300, 17)])
+def test_bf16_stream_kernels_ignore_nan_past_the_data(cuda, E, H):
+    """K1's streaming kernel (E = 300) and K9's bf16 kernel zero what lies
+    past their data by selects, never by multiplying: after launches over
+    all-NaN inputs of the same shapes (NaN left in the shared memory),
+    inputs followed by NaN in memory give finite outputs within one ulp of
+    the plain version's, at M = 65 (a last tile of one row), E = 300 (a
+    last chunk of 44 columns) and H = 17 (3H = 51: a last k16 step of 3
+    columns, 2-byte halves)."""
+    M, G = 65, 6 * H
+    g = torch.Generator().manual_seed(E + H)
+    x, dxg = (_bf16(torch.randn(s, generator=g)).to(cuda) for s in ((M, E), (M, G)))
+    w = _bf16(torch.randn(E, G, generator=g) * (50 / E) ** 0.5).to(cuda)
+    b = _bf16(torch.randn(G, generator=g)).to(cuda)
+    gru_cuda.gru_input_proj(torch.full_like(x, float("nan")), w, b)
+    gru_cuda.gru_input_proj_dx(torch.full_like(dxg, float("nan")), w)
+    x, dxg = _after_nan(x, 64 * E), _after_nan(dxg, 64 * G)
+    out, dx = gru_cuda.gru_input_proj(x, w, b), gru_cuda.gru_input_proj_dx(dxg, w)
+    torch.cuda.synchronize()
+    assert out.isfinite().all() and dx.isfinite().all()
+    _within_ulp(out, gru_cuda.gru_input_proj_ref(x, w, b))
+    _within_ulp(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w))
 
 
 def _bf16_backward_inputs(cuda, N, L, H, kind, E=50):
@@ -580,13 +645,23 @@ def test_gru_input_proj_dx_matches_plain(cuda, M, G, E):
 
 @pytest.mark.parametrize("M,G,E", [(1, 384, 50), (130, 102, 17), (0, 192, 17),
                                    (51200, 384, 50), (3000, 384, 400), (777, 102, 521),
-                                   (20000, 1536, 50), (1000, 1800, 50), (1000, 600, 70)])
+                                   (20000, 1536, 50), (1000, 1800, 50), (1000, 600, 70),
+                                   (63, 102, 56), (65, 102, 64), (130, 102, 65), (1000, 102, 300),
+                                   (1, 384, 56), (63, 384, 64), (65, 384, 65), (3000, 384, 300),
+                                   (51200, 384, 300), (1000, 48, 50), (1000, 120, 50),
+                                   (1000, 1086, 56), (1000, 1092, 56), (1000, 924, 64),
+                                   (1000, 930, 64), (1000, 1248, 64)])
 def test_gru_input_proj_dx_bf16_matches_plain(cuda, M, G, E):
     """K9 in bf16: each direction's f32 sum rounded to bf16, then one bf16
-    add, within one bf16 ulp of the plain version; 6H = 102 (H = 17, odd:
-    one element at a time), E = 400, 521 (column tiles of 64), 6H = 1,800
-    (H = 300: W past the shared memory, read from L2); the same bits
-    twice."""
+    add, within one bf16 ulp of the plain version.  The wgmma kernel: E =
+    56, 64 one column tile (n = 56, 64), 65, 300, 400, 521 column tiles of
+    64; 6H = 102 (H = 17, odd: 4-byte row pieces from aligned starts,
+    2-byte halves; 3H = 51 ends inside a k16 step), 48 (H = 8, 3H = 24),
+    120 (H = 20: 8-byte pieces), 384, 600 (H = 100: 3H = 300); M = 1, 63,
+    65: ragged last tiles; 6H = 1,086 at E = 56 and 924 at E = 64 its
+    last widths (3H = 543, 462).  Past them (1,092, 930, 1,248, 1,536) the
+    mma.sync kernel with W's fragments in shared memory, past 3H = 896
+    (1,800) from L2; the same bits twice."""
     g = torch.Generator().manual_seed(M + G + 1)
     dxg = _bf16(torch.randn(M, G, generator=g)).to(cuda)
     w = _bf16(torch.randn(E, G, generator=g) / G ** 0.5).to(cuda)

@@ -6,9 +6,11 @@
 // [r | z | n].  f32 in, f32 out, f32-accurate products (3xTF32, see
 // tf32x3.cuh) with f32 accumulation.  The bf16 variant
 // (gru_input_proj_bf16, --compute_dtype bfloat16) reads bf16 x, W and b,
-// accumulates in f32 and rounds xg to bf16 on store, as the TPU kernel's
-// bf16 IO does (_proj_fwd_kernel); up to E = 256 its products are native
-// bf16 wgmma (wgmma_bf16.cuh), see "bf16 IO" below.
+// accumulates in f32 and rounds xg to bf16 as the JAX package does:
+// once, on store, up to E = 64 (the TPU kernel's bf16 IO,
+// _proj_fwd_kernel), and past it also the product before the bias is
+// added (_build_xg); up to E = 544 its products are native bf16 wgmma
+// (wgmma_bf16.cuh), see "bf16 IO" below.
 //
 // Replaces two TPU kernels of umpr_tpu/ops/gru_pallas.py:
 //   B3 _pallas_project_fwd / _proj_fwd_kernel (pallas_call at :319), the
@@ -50,7 +52,7 @@
 //     (Staging the tile in shared memory and writing whole rows, by
 //     threads or as bulk copies, measured no faster on the card.)
 // E > 112 does not fit that shared memory; there a plain mma.sync kernel
-// on 32 x 32 tiles takes over (word2vec's 300 runs there), and past E = 452,
+// on 32 x 32 tiles takes over (word2vec's 300 in f32), and past E = 452,
 // where its W slice and x ring outgrow the shared memory too, a kernel that
 // reads its fragments from global memory (any E).  Each output element is
 // computed by one thread in a fixed order, so the bits do not depend on the
@@ -59,6 +61,12 @@
 // bf16 IO.  At the UMPR-R shapes it reads 5.1 MB (x), writes 39.3 MB (xg)
 // and does 2.0 GFLOP of bf16 products: 13.3 us at 3.35 TB/s against 2 us
 // at 989 TFLOP/s, so it is bound by its xg stores even more than f32 is.
+// Rounding: the JAX package takes its Pallas projection only while 2E
+// fits one 128-lane tile (gru_pallas.py:95, :132), whose bf16 xg is the
+// f32 sum plus the bias rounded once; past E = 64 it takes _build_xg
+// (:556-573), XLA's bf16 x @ w (the f32 sum rounded), then the bias add
+// (rounded again).  Every bf16 epilogue here rounds as the JAX package
+// does at its E (xg_value, ROUND_ONCE_MAX_E).
 // Up to E = 256 (gru_input_proj_bf16_wgmma, the largest E whose W tiles,
 // x ring and store staging fit the shared memory) the design is the f32
 // kernel's persistent walk with three changes:
@@ -70,14 +78,42 @@
 //     takes it as it lands), but a 64-row tile is one contiguous span, and
 //     at even E each lane reads its fragment as 32-bit (k, k + 1) pairs;
 //     odd E reads 2-byte halves.  Columns past E are zeroed by selects;
-//   - the epilogue adds the f32 bias, rounds once to bf16 and stages the
+//   - the epilogue adds the f32 bias, rounds to bf16 and stages the
 //     warpgroup's 64 x 128 tile in shared memory (rows 272 bytes apart:
 //     the quads' 4-byte writes hit 32 distinct banks); the warpgroup then
 //     writes whole 256-byte row pieces as 16-byte stores (a per-lane bf16
 //     pair would fill half a 32-byte sector per instruction), or 2-byte
 //     stores where 6H is no multiple of 8 (H = 17: 6H = 102).
-// Past E = 256 the mma.sync and deep kernels above take bf16 too: each
-// k-step one TF32 product of the widened bf16 values (exact in TF32).
+// W's slice is read as 16-byte rows of 8 columns and transposed in
+// registers (load_w_tiles) where 6H % 8 == 0, else as 2-byte loads.
+// 256 < E <= 544 (word2vec's and GloVe's 300 among them):
+// gru_input_proj_bf16_stream.  Whole x tiles no longer fit beside W's
+// slice (266,752 bytes at E = 300), and of the ways to make room this
+// keeps W resident and streams x's depth:
+//   - W's 128-column slice stays in shared memory (E = 544: 139 KB), read
+//     once a block; streaming it too would read it again from L2 for
+//     every row tile (2x x's bytes at E = 300), and a single x buffer
+//     (which fits only to E = 384) or one warpgroup a block would leave
+//     no copy in flight beside the products;
+//   - each warpgroup's x tile arrives as chunks of 64 columns x 64 rows
+//     through a 3-stage cp.async ring (two chunks in flight, the next
+//     tile's first ones during this tile's epilogue), each row's piece
+//     copied in the largest unit its start allows: 16 bytes at E % 8 ==
+//     0, 8 at E % 4 == 0 (E = 300: 600-byte rows), 4 at even E; at odd E
+//     4-byte pieces from each row's 4-byte aligned start, the row's data
+//     then one element in where it starts at an odd address (copy_rows);
+//   - A by ldmatrix.x4 from the chunk (rows 144 bytes apart: conflict
+//     free), columns past E zeroed by selects; 2-byte halves at odd E;
+//   - wgmma m64n128k16, f32 accumulators, a chunk's four k16 steps
+//     issued as one group with no branch among them (the steps past E
+//     multiply A's zeros with W's last tile): a wgmma in a branch makes
+//     ptxas serialise every one (0.0836 ms against 0.0725 at E = 300 on
+//     an H100, chip_smoke.py --steps); then the staged 16-byte epilogue
+//     above.
+// Each output is one thread's accumulator summed over k in order, so the
+// bits do not depend on the grid or the run.  Past E = 544 the mma.sync
+// and deep kernels above take bf16 too: each k-step one TF32 product of
+// the widened bf16 values (exact in TF32).
 
 #include <algorithm>
 
@@ -118,7 +154,7 @@ __device__ __forceinline__ void split_a(const T* p0, const T* p8, int ks, int K,
 __global__ void __launch_bounds__(WG * WGS, 1)
 gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
-                     bool vec) {
+                     bool vec, bool) {
   extern __shared__ float4 smem4[];
   const int KS = (K + 7) / 8;
   float* wt = reinterpret_cast<float*>(smem4);  // [KS][big, small][WT]
@@ -229,6 +265,86 @@ gru_input_proj_wgmma(const float* __restrict__ x, const float* __restrict__ w,
 constexpr int B16_WT = BN * 16;   // bf16 of one k16 step's W tile
 constexpr int B16_SST = BN + 8;   // staging row stride, bf16 (272 bytes)
 
+// The JAX package's bf16 xg (umpr_tpu/ops/gru_pallas.py:95 _MXU_LANES,
+// :132 _proj_mode): up to E = 64 its Pallas projection rounds the f32 sum
+// plus the bias once; past it _build_xg (:556-573) rounds x @ w to bf16,
+// adds the bias and rounds the sum again.  Every bf16 epilogue below
+// takes `twice` = (E > ROUND_ONCE_MAX_E); gru_cuda.PROJ_ROUND_ONCE_MAX_E
+// is the plain version's.
+constexpr int ROUND_ONCE_MAX_E = 64;
+
+// an xg value before it is rounded on store: the f32 sum (for bf16 IO
+// first rounded to bf16 where `twice`) plus the f32 bias
+template <class T>
+__device__ __forceinline__ float xg_value(float sum, float bias, bool twice) {
+  if constexpr (is_bf16<T>) {
+    if (twice) sum = round_to<bf16>(sum);
+  }
+  return sum + bias;
+}
+
+// One 32-bit word of a uint4 (i = 0..3, uniform or not: selects)
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// W's column slice [col0, col0 + BN) as K-major bf16 tiles, one per k16
+// step (tile_offset), zeros past K and past N; `threads` threads from
+// tid.  Where N % 8 == 0 and w is 16-byte aligned an item is an 8 x 8
+// block (8 rows k of 8 columns n): eight 16-byte row loads, transposed in
+// registers by byte permutes into eight 16-byte column stores (8 k of one
+// n, as the tile holds them); the 8 lanes of a quarter warp store their
+// columns in the orders j ^ q, q = 0..7, so each store instruction hits 8
+// distinct 16-byte bank groups.  Otherwise column n's 8 k of one k half
+// as 2-byte loads, one 16-byte store.  Every block reads the same slice
+// at once, so block b starts at item b * threads (wrapping): the SMs'
+// first reads spread over the slice's L2 lines.
+__device__ void load_w_tiles(bf16* wt, const bf16* w, int col0, int K, int N, int KS, int tid,
+                             int threads) {
+  using namespace wgmma_bf16;
+  const int rot = blockIdx.y * threads;  // a multiple of 16: quarter warps keep their columns
+  if (N % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
+    const int items = KS * 2 * (BN / 8);
+    for (int i0 = tid; i0 < items; i0 += threads) {
+      const int i = (i0 + rot) % items;
+      const int g = i % (BN / 8), kb = i / (BN / 8), n = col0 + 8 * g;
+      uint4 r[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = 8 * kb + u;
+        r[u] = k < K && n < N ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)k * N + n))
+                              : make_uint4(0u, 0u, 0u, 0u);
+      }
+      bf16* dst = wt + (kb >> 1) * B16_WT + tile_offset(8 * g, (kb & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = j ^ (g & 7);  // this store's column of the block
+        const uint32_t sel = c & 1 ? 0x7632u : 0x5410u;  // the high or low halves
+        uint32_t o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          o[q] = __byte_perm(word(r[2 * q], c >> 1), word(r[2 * q + 1], c >> 1), sel);
+        *reinterpret_cast<uint4*>(dst + tile_offset(c, 0)) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    return;
+  }
+  for (int i0 = tid; i0 < KS * 2 * BN; i0 += threads) {
+    const int i = (i0 + rot) % (KS * 2 * BN);
+    const int n = i % BN, k0 = (i / BN) * 8;  // k0 = 16 ks + 8 kh
+    const bool in = col0 + n < N;
+    uint32_t q[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + 2 * u;
+      q[u] = pack(in && k < K ? bits(w[(size_t)k * N + col0 + n]) : 0u,
+                  in && k + 1 < K ? bits(w[(size_t)(k + 1) * N + col0 + n]) : 0u);
+    }
+    *reinterpret_cast<uint4*>(wt + (k0 / 16) * B16_WT + tile_offset(n, k0 & 15)) =
+        make_uint4(q[0], q[1], q[2], q[3]);
+  }
+}
+
 size_t bf16_smem(int K) {
   return (size_t)(K + 15) / 16 * B16_WT * sizeof(bf16) + BN * sizeof(float) +
          ((size_t)WGS * BM * B16_SST + (size_t)WGS * 2 * BM * K) * sizeof(bf16);
@@ -247,11 +363,50 @@ __device__ __forceinline__ uint32_t a_pair(const bf16* p, int k, int K) {
   }
 }
 
+// The bf16 epilogue of a warpgroup's 64 x 128 tile: xg_value's sums,
+// rounded, into its staging tile; then, once the warpgroup has staged
+// them, whole row pieces of the tile as 16-byte stores.
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const float* bias,
+                                           bf16* stage, bf16* out, int tile, int M, int N,
+                                           int col0, int r0, int tig, int t, int wg,
+                                           bool twice) {
+  using wgmma_bf16::round_pair;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + 2 * tig;
+    *reinterpret_cast<uint32_t*>(stage + r0 * B16_SST + c) =
+        round_pair(xg_value<bf16>(acc[4 * j], bias[c], twice),
+                   xg_value<bf16>(acc[4 * j + 1], bias[c + 1], twice));
+    *reinterpret_cast<uint32_t*>(stage + (r0 + 8) * B16_SST + c) =
+        round_pair(xg_value<bf16>(acc[4 * j + 2], bias[c], twice),
+                   xg_value<bf16>(acc[4 * j + 3], bias[c + 1], twice));
+  }
+  named_barrier(1 + wg, WG);  // the tile is staged
+  const int rows = min(BM, M - tile * BM);
+  bf16* dst = out + (size_t)tile * BM * N + col0;
+  // 16-byte row pieces need out 16-byte aligned and rows of a multiple of
+  // 8 bf16 (col0 is a multiple of 128): then a piece lies wholly inside
+  // or past N
+  if ((reinterpret_cast<uintptr_t>(out) & 15) == 0 && N % 8 == 0) {
+    for (int i = t; i < rows * (BN / 8); i += WG) {
+      const int r = i / (BN / 8), c = 8 * (i % (BN / 8));
+      if (col0 + c < N)
+        *reinterpret_cast<uint4*>(dst + (size_t)r * N + c) =
+            *reinterpret_cast<const uint4*>(stage + r * B16_SST + c);
+    }
+  } else {
+    for (int i = t; i < rows * BN; i += WG) {
+      const int r = i / BN, c = i % BN;
+      if (col0 + c < N) dst[(size_t)r * N + c] = stage[r * B16_SST + c];
+    }
+  }
+}
+
 template <bool PAIR>
 __global__ void __launch_bounds__(WG * WGS, 2)
 gru_input_proj_bf16_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
                           const bf16* __restrict__ b, bf16* __restrict__ out, int M, int K,
-                          int N, bool vec) {
+                          int N, bool vec, bool twice) {
   using namespace wgmma_bf16;
   extern __shared__ float4 smem4[];
   const int KS = (K + 15) / 16;
@@ -271,21 +426,7 @@ gru_input_proj_bf16_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w
     copy_span(ring, x + (size_t)tile * BM * K, min(BM, M - tile * BM) * K, vec, t, WG);
   cp_async_commit();
 
-  // W's column slice as K-major bf16 tiles: item i is column n's 8 k of
-  // one k half, one 16-byte store; zeros past K and past N
-  for (int i = tid; i < KS * 2 * BN; i += WG * WGS) {
-    const int n = i % BN, k0 = (i / BN) * 8;  // k0 = 16 ks + 8 kh
-    const bool in = col0 + n < N;
-    uint32_t q[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int k = k0 + 2 * u;
-      q[u] = pack(in && k < K ? bits(w[(size_t)k * N + col0 + n]) : 0u,
-                  in && k + 1 < K ? bits(w[(size_t)(k + 1) * N + col0 + n]) : 0u);
-    }
-    *reinterpret_cast<uint4*>(wt + (k0 / 16) * B16_WT + tile_offset(n, k0 & 15)) =
-        make_uint4(q[0], q[1], q[2], q[3]);
-  }
+  load_w_tiles(wt, w, col0, K, N, KS, tid, WG * WGS);
   if (tid < BN) bias[tid] = col0 + tid < N ? __bfloat162float(b[col0 + tid]) : 0.f;
   fence_proxy_async();
   __syncthreads();
@@ -338,36 +479,98 @@ gru_input_proj_bf16_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w
     wgmma_wait<0>();
     fence_regs(acc);
 
-    // the f32 sum plus the f32 bias, rounded once, into the staging tile
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = j * 8 + 2 * tig;
-      *reinterpret_cast<uint32_t*>(stage + r0 * B16_SST + c) =
-          round_pair(acc[4 * j] + bias[c], acc[4 * j + 1] + bias[c + 1]);
-      *reinterpret_cast<uint32_t*>(stage + (r0 + 8) * B16_SST + c) =
-          round_pair(acc[4 * j + 2] + bias[c], acc[4 * j + 3] + bias[c + 1]);
-    }
-    named_barrier(1 + wg, WG);  // the tile is staged
-    const int rows = min(BM, M - tile * BM);
-    bf16* dst = out + (size_t)tile * BM * N + col0;
-    // 16-byte row pieces need out 16-byte aligned and rows of a multiple of
-    // 8 bf16 (col0 is a multiple of 128): then a piece lies wholly inside
-    // or past N
-    if ((reinterpret_cast<uintptr_t>(out) & 15) == 0 && N % 8 == 0) {
-      for (int i = t; i < rows * (BN / 8); i += WG) {
-        const int r = i / (BN / 8), c = 8 * (i % (BN / 8));
-        if (col0 + c < N)
-          *reinterpret_cast<uint4*>(dst + (size_t)r * N + c) =
-              *reinterpret_cast<const uint4*>(stage + r * B16_SST + c);
-      }
-    } else {
-      for (int i = t; i < rows * BN; i += WG) {
-        const int r = i / BN, c = i % BN;
-        if (col0 + c < N) dst[(size_t)r * N + c] = stage[r * B16_SST + c];
-      }
-    }
+    store_tile(acc, bias, stage, out, tile, M, N, col0, r0, tig, t, wg, twice);
   }
   cp_async_wait<0>();  // the last committed group is empty; leave none behind
+}
+
+// ---- the bf16 streaming kernel (bf16 IO, 256 < E <= 544): W's slice
+// resident, x's depth streamed in chunks (see the header)
+
+constexpr int KC = 64;        // x columns a chunk: 4 k16 steps
+constexpr int KSC = KC / 16;
+constexpr int XS = KC + 8;    // a chunk's row stride in shared memory, bf16 (144 bytes)
+constexpr int STAGES = 3;     // chunks in a warpgroup's ring: two in flight
+constexpr int S_WGS = 2;      // warpgroups a block, each walking its own row tiles
+
+size_t stream_smem(int K) {
+  return (size_t)(K + 15) / 16 * B16_WT * sizeof(bf16) + BN * sizeof(float) +
+         (size_t)S_WGS * (BM * B16_SST + STAGES * BM * XS) * sizeof(bf16);
+}
+
+template <int U>
+__global__ void __launch_bounds__(WG * S_WGS, 1)
+gru_input_proj_bf16_stream(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                           const bf16* __restrict__ b, bf16* __restrict__ out, int M, int K,
+                           int N, bool, bool twice) {
+  using namespace wgmma_bf16;
+  extern __shared__ float4 smem4[];
+  const int KS = (K + 15) / 16, NC = (K + KC - 1) / KC;
+  bf16* wt = reinterpret_cast<bf16*>(smem4);                 // [KS][B16_WT]
+  float* bias = reinterpret_cast<float*>(wt + KS * B16_WT);  // [BN]
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32, tig = lane & 3;
+  bf16* stage = reinterpret_cast<bf16*>(bias + BN) + wg * BM * B16_SST;  // [BM][B16_SST]
+  bf16* ring = reinterpret_cast<bf16*>(bias + BN) + S_WGS * BM * B16_SST +
+               wg * STAGES * BM * XS;  // this warpgroup's [STAGES][BM][XS]
+  const int col0 = blockIdx.x * BN;
+  const int walkers = gridDim.y * S_WGS;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int first = blockIdx.y * S_WGS + wg;
+
+  // chunk g of this warpgroup's walk: depth chunk g % NC of its row tile
+  // first + (g / NC) walkers, into ring stage g % STAGES; one commit group
+  // a chunk, empty past the last tile
+  auto fetch = [&](int g) {
+    const int tile = first + g / NC * walkers, c = g % NC;
+    if (tile < m_tiles)
+      copy_rows<U, KC>(ring + g % STAGES * BM * XS, XS, x + (size_t)tile * BM * K + c * KC, K,
+                       min(BM, M - tile * BM), min(KC, K - c * KC), t, WG);
+    cp_async_commit();
+  };
+  // the first chunks go out before W is read
+  for (int g = 0; g < STAGES - 1; ++g) fetch(g);
+  load_w_tiles(wt, w, col0, K, N, KS, tid, WG * S_WGS);
+  if (tid < BN) bias[tid] = col0 + tid < N ? __bfloat162float(b[col0 + tid]) : 0.f;
+  fence_proxy_async();
+  __syncthreads();
+
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows of a tile: r0, r0 + 8
+  int g = 0;                               // the next chunk to take from the ring
+  for (int tile = first; tile < m_tiles; tile += walkers) {
+    // rows past M hold stale values: they reach only their own outputs,
+    // which are not stored
+    const uintptr_t row0 = (reinterpret_cast<uintptr_t>(x) >> 1) + (size_t)(tile * BM + r0) * K;
+    const int sh0 = U == 2 ? (int)(row0 & 1) : 0, sh8 = U == 2 ? (int)((row0 + 8 * K) & 1) : 0;
+    float acc[BN / 2];
+    // one wgmma group a chunk, issued whole: steps past KS read A's zeros
+    // (the selects past K) against W's last tile, so no wgmma sits in a
+    // branch (ptxas serialises those); the A registers are rewritten only
+    // once the group before is done, while its products run beside this
+    // chunk's wait, barrier and copies
+    uint32_t a[KSC][4];
+    for (int c = 0; c < NC; ++c) {
+      cp_async_wait<STAGES - 2>();  // chunk g has landed ...
+      named_barrier(1 + wg, WG);    // ... for the warpgroup, which has read chunk g - 1
+      fetch(g + STAGES - 1);        // into chunk g - 1's stage
+      const bf16* chunk = ring + g % STAGES * BM * XS;
+      ++g;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < KSC; ++j)
+        chunk_a<U>(a[j], chunk, XS, 16 * j, K - c * KC, warp, lane, sh0, sh8);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSC; ++j)
+        WgmmaBf16<BN>::run(acc, a[j], desc(wt + min(c * KSC + j, KS - 1) * B16_WT),
+                           c * KSC + j > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_tile(acc, bias, stage, out, tile, M, N, col0, r0, tig, t, wg, twice);
+  }
+  cp_async_wait<0>();  // the groups left are empty; leave none behind
 }
 
 // ---- the mma.sync kernel (large E, word2vec's 300): 32 x 32 tiles
@@ -399,7 +602,7 @@ __device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&ah)[4
 template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
 gru_input_proj_mma(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                   T* __restrict__ out, int M, int K, int N, bool vec) {
+                   T* __restrict__ out, int M, int K, int N, bool vec, bool twice) {
   constexpr int NT = NBN / 8;
   extern __shared__ uint4 smem[];
   const int KS = (K + 7) / 8;
@@ -450,8 +653,9 @@ gru_input_proj_mma(const T* __restrict__ x, const T* __restrict__ w, const T* __
     for (int h = 0; h < 2; ++h) {
       const int r = tile * NBM + wm * 16 + gid + 8 * h;
       if (r >= M) continue;
-      if (c < N) out[(size_t)r * N + c] = io_from<T>(acc[2 * h] + bias0);
-      if (c + 1 < N) out[(size_t)r * N + c + 1] = io_from<T>(acc[2 * h + 1] + bias1);
+      if (c < N) out[(size_t)r * N + c] = io_from<T>(xg_value<T>(acc[2 * h], bias0, twice));
+      if (c + 1 < N)
+        out[(size_t)r * N + c + 1] = io_from<T>(xg_value<T>(acc[2 * h + 1], bias1, twice));
     }
   }
   cp_async_wait<0>();
@@ -466,7 +670,7 @@ constexpr int DBM = 64, DBN = 64;
 template <class T>
 __global__ void __launch_bounds__(THREADS)
 gru_input_proj_deep(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                    T* __restrict__ out, int M, int K, int N, bool) {
+                    T* __restrict__ out, int M, int K, int N, bool, bool twice) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm = warp % 4, wn = warp / 4;
@@ -503,8 +707,10 @@ gru_input_proj_deep(const T* __restrict__ x, const T* __restrict__ w, const T* _
       for (int h = 0; h < 2; ++h) {
         const int r = h ? r8 : r0;
         if (r >= M) continue;
-        if (c < N) out[(size_t)r * N + c] = io_from<T>(acc[j][2 * h] + ld(b[c]));
-        if (c + 1 < N) out[(size_t)r * N + c + 1] = io_from<T>(acc[j][2 * h + 1] + ld(b[c + 1]));
+        if (c < N) out[(size_t)r * N + c] = io_from<T>(xg_value<T>(acc[j][2 * h], ld(b[c]), twice));
+        if (c + 1 < N)
+          out[(size_t)r * N + c + 1] =
+              io_from<T>(xg_value<T>(acc[j][2 * h + 1], ld(b[c + 1]), twice));
       }
     }
   }
@@ -512,7 +718,8 @@ gru_input_proj_deep(const T* __restrict__ x, const T* __restrict__ w, const T* _
 
 template <class Kernel, class T>
 int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_block, const T* x,
-           const T* w, const T* b, T* out, int M, int K, int N, cudaStream_t stream) {
+           const T* w, const T* b, T* out, int M, int K, int N, cudaStream_t stream,
+           bool twice = false) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -532,18 +739,35 @@ int launch(Kernel kernel, int threads, size_t smem, int bm, int bn, int per_bloc
   // 16-byte copies need x 16-byte aligned; each tile starts bm*K elements
   // (4 bm K or 2 bm K bytes, bm a multiple of 32) further on
   const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  kernel<<<dim3(col_tiles, walkers), threads, smem, stream>>>(x, w, b, out, M, K, N, vec);
+  kernel<<<dim3(col_tiles, walkers), threads, smem, stream>>>(x, w, b, out, M, K, N, vec,
+                                                              twice);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the mma.sync kernel, or past its shared memory the deep one
 template <class T>
-int run_narrow(const T* x, const T* w, const T* b, T* out, int M, int K, int N,
-               cudaStream_t s) {
+int run_narrow(const T* x, const T* w, const T* b, T* out, int M, int K, int N, cudaStream_t s,
+               bool twice) {
   if (narrow_smem<T>(K) <= SMEM_LIMIT)
     return launch(gru_input_proj_mma<T>, THREADS, narrow_smem<T>(K), NBM, NBN, 1, x, w, b, out,
-                  M, K, N, s);
-  return launch(gru_input_proj_deep<T>, THREADS, 0, DBM, DBN, 1, x, w, b, out, M, K, N, s);
+                  M, K, N, s, twice);
+  return launch(gru_input_proj_deep<T>, THREADS, 0, DBM, DBN, 1, x, w, b, out, M, K, N, s,
+                twice);
+}
+
+// the largest unit (16, 8, 4 bytes; 2: none) that every chunk's row start
+// of x is aligned to: x's address, its row stride 2K and the chunk offsets
+// (multiples of 2 KC = 128 bytes)
+int stream_unit(const bf16* x, int K) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x) | (uintptr_t)(2 * K);
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
+}
+
+template <int U>
+int run_stream(const bf16* x, const bf16* w, const bf16* b, bf16* out, int M, int K, int N,
+               cudaStream_t s, bool twice) {
+  return launch(gru_input_proj_bf16_stream<U>, WG * S_WGS, stream_smem(K), BM, BN, S_WGS, x, w,
+                b, out, M, K, N, s, twice);
 }
 
 int run(const float* x, const float* w, const float* b, float* out, int M, int K, int N,
@@ -553,19 +777,30 @@ int run(const float* x, const float* w, const float* b, float* out, int M, int K
   if (wide_smem(K) <= SMEM_LIMIT)
     return launch(gru_input_proj_wgmma, WG * WGS, wide_smem(K), BM, BN, WGS, x, w, b, out, M, K,
                   N, s);
-  return run_narrow(x, w, b, out, M, K, N, s);
+  return run_narrow(x, w, b, out, M, K, N, s, false);
 }
 
 int run(const bf16* x, const bf16* w, const bf16* b, bf16* out, int M, int K, int N,
         void* stream) {
   if (M == 0 || N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_smem(K) > SMEM_LIMIT) return run_narrow(x, w, b, out, M, K, N, s);
-  if (K % 2 == 0)
-    return launch(gru_input_proj_bf16_wgmma<true>, WG * WGS, bf16_smem(K), BM, BN, WGS, x, w, b,
-                  out, M, K, N, s);
-  return launch(gru_input_proj_bf16_wgmma<false>, WG * WGS, bf16_smem(K), BM, BN, WGS, x, w, b,
-                out, M, K, N, s);
+  const bool twice = K > ROUND_ONCE_MAX_E;
+  if (bf16_smem(K) <= SMEM_LIMIT) {
+    if (K % 2 == 0)
+      return launch(gru_input_proj_bf16_wgmma<true>, WG * WGS, bf16_smem(K), BM, BN, WGS, x, w,
+                    b, out, M, K, N, s, twice);
+    return launch(gru_input_proj_bf16_wgmma<false>, WG * WGS, bf16_smem(K), BM, BN, WGS, x, w, b,
+                  out, M, K, N, s, twice);
+  }
+  if (stream_smem(K) <= SMEM_LIMIT) {
+    switch (stream_unit(x, K)) {
+      case 16: return run_stream<16>(x, w, b, out, M, K, N, s, twice);
+      case 8: return run_stream<8>(x, w, b, out, M, K, N, s, twice);
+      case 4: return run_stream<4>(x, w, b, out, M, K, N, s, twice);
+      default: return run_stream<2>(x, w, b, out, M, K, N, s, twice);
+    }
+  }
+  return run_narrow(x, w, b, out, M, K, N, s, twice);
 }
 
 }  // namespace

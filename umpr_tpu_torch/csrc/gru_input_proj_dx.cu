@@ -52,20 +52,51 @@
 //
 // bf16 IO (gru_input_proj_dx_bf16, --compute_dtype bfloat16): dxg, W_ih
 // and dx bf16, with the TPU kernel's three rounding points
-// (gru_pallas.py:366-368, :822-826, :842): each direction's product
-// dxg_d @ W_d^T, summed in f32 over its own 3H columns, is rounded to
-// bf16; the two are added in bf16 (one rounding).  So one f32 accumulator
-// per direction, not one over all 6H.  A bf16 product is exact, so the
-// products run as native bf16 mma.sync m16n8k16 with f32 accumulation:
-// blocks of 8 warps, each warp 16 rows x 64 columns for both directions
-// (two accumulators of 8 n8 groups), a 128-row tile per block, walked
-// grid-stride; W's fragments for the block's 64 columns are laid out once
-// in shared memory in the order the lanes read them (8 bytes a lane, no
-// bank conflict), or read from global memory (L2) where they do not fit
-// (3H past 896); dxg's fragments are 4-byte pairs straight from global
-// memory, one k-step loaded ahead.  At the UMPR-R shapes it reads 39.3 MB
-// and writes 5.1 MB: 13.3 us at 3.35 TB/s, against 2.0 GFLOP of bf16
-// products (2 us at 989 TFLOP/s).
+// (gru_pallas.py:366-368, :822-826, :842; the wide route's :893-897
+// rounds alike): each direction's product dxg_d @ W_d^T, summed in f32
+// over its own 3H columns, is rounded to bf16; the two are added in bf16
+// (one rounding).  So one f32 accumulator per direction, not one over all
+// 6H.  At the UMPR-R shapes it reads 39.3 MB (dxg) and writes 5.1 MB: 13.3
+// us at 3.35 TB/s, against 2.0 GFLOP of bf16 products (2 us at 989
+// TFLOP/s).  So the kernel exists to keep dxg's stream in flight
+// (gru_input_proj_dx_bf16_wgmma):
+//   - persistent blocks, one per SM, of three warpgroups (two left dxg's
+//     reads too little in flight: 0.0302 ms against 0.0284 at the UMPR-R
+//     shape, 0.2171 against 0.1701 at E = 300 on an H100, chip_smoke.py
+//     --steps),
+//     each walking its own 64-row tiles, as few blocks as give every
+//     warpgroup the same number of tiles; block (c, j) keeps dx's column
+//     tile c (E padded to n = 56 or 64, column tiles of 64 past E = 64);
+//   - W_ih's slice resident as wgmma's K-major B tiles, one set per
+//     direction, each direction's k from 0 (zeros past 3H, so a k16 step
+//     never mixes the directions, at any H): the rows of w (E, 6H) are
+//     K-major already, so each 16-byte piece of a tile is a cp.async of
+//     one row's 8 k (4-byte pieces where 6H % 8 != 0, 2-byte loads at
+//     odd H); 43 KB at 6H = 384, n = 56;
+//   - dxg's rows through a 3-stage cp.async ring per warpgroup (two
+//     chunks in flight), a chunk 64 rows x 64 columns of one direction,
+//     copied in the largest unit the row starts allow (16 bytes where H %
+//     8 == 0, at odd H 4-byte pieces from each row's aligned start,
+//     copy_rows in wgmma_bf16.cuh), rows 144 bytes apart in shared memory;
+//   - A by ldmatrix.x4 (2-byte halves at odd H), columns past 3H zeroed by
+//     selects; wgmma m64n56k16 or m64n64k16 into that direction's f32
+//     accumulator, a chunk's four k16 steps issued as one group with no
+//     branch among them (a wgmma in a branch makes ptxas serialise them
+//     all: 0.0304 ms on an H100);
+//   - the epilogue rounds each accumulator, adds the two and rounds, and
+//     stages the tile: where one column tile covers E its rows are one
+//     contiguous span of dx (64 E bf16 at a 16-byte aligned offset),
+//     written as 16-byte stores; else 16-byte row pieces where E % 8 ==
+//     0, 2-byte stores otherwise.
+// Where W's slice and the rings do not fit the shared memory (3H past 544
+// at E <= 56, 464 past it), an mma.sync kernel (m16n8k16): blocks of 8
+// warps, each warp 16 rows x 64 columns for both directions (two
+// accumulators of 8 n8 groups), a 128-row tile per block, walked
+// grid-stride; W's fragments for the block's 64 columns laid out once in
+// shared memory in the order the lanes read them, or read from global
+// memory (L2) past 3H = 896; dxg's fragments 4-byte pairs straight from
+// global memory, one k-step loaded ahead.  Each output is one thread's
+// sum in a fixed order in every kernel: the same bits on every run.
 
 #include <algorithm>
 
@@ -443,6 +474,231 @@ gru_input_proj_dx_bf16_mma(const bf16* __restrict__ dxg, const bf16* __restrict_
   }
 }
 
+// ---- bf16 IO on native bf16 wgmma (see the header): W's slice resident,
+// dxg's rows streamed in chunks of one direction's columns
+
+constexpr int D_KC = 64;               // dxg columns a chunk: 4 k16 steps of one direction
+constexpr int D_KSC = D_KC / 16;
+constexpr int D_XS = D_KC + 8;         // a chunk's row stride in shared memory (144 bytes)
+constexpr int D_STAGES = 3;            // chunks in a warpgroup's ring: two in flight
+constexpr int D_WGS = 3;               // warpgroups a block, each walking its own row tiles
+
+// W's tiles (2 directions x KS3 k16 steps x BN columns x 16 k), both
+// warpgroups' rings and staging tiles (64 rows of BN + 8)
+size_t wgmma_smem(int bn, int K3) {
+  return ((size_t)2 * ((K3 + 15) / 16) * bn * 16 +
+          (size_t)D_WGS * (D_STAGES * BM * D_XS + BM * (bn + 8))) * sizeof(bf16);
+}
+
+template <int BN, int U>
+__global__ void __launch_bounds__(WG * D_WGS, 1)
+gru_input_proj_dx_bf16_wgmma(const bf16* __restrict__ dxg, const bf16* __restrict__ w,
+                             bf16* __restrict__ dx, int M, int G, int E, int wu) {
+  using namespace wgmma_bf16;
+  constexpr int WT = BN * 16;  // bf16 of one k16 step's W tile
+  extern __shared__ float4 smem4[];
+  const int K3 = G / 2, KS3 = (K3 + 15) / 16, NC3 = (K3 + D_KC - 1) / D_KC;
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32, tig = lane & 3;
+  bf16* wt = reinterpret_cast<bf16*>(smem4);  // [2][KS3][WT]
+  bf16* ring = wt + 2 * KS3 * WT + wg * D_STAGES * BM * D_XS;  // [D_STAGES][BM][D_XS]
+  bf16* stage = wt + 2 * KS3 * WT + D_WGS * D_STAGES * BM * D_XS + wg * BM * (BN + 8);
+  const int col0 = blockIdx.x * BN;
+  const int walkers = gridDim.y * D_WGS;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int first = blockIdx.y * D_WGS + wg;
+
+  // chunk g of this warpgroup's walk: chunk g % NC3 of direction g / NC3 %
+  // 2's columns of row tile first + g / (2 NC3) walkers, into ring stage g
+  // % D_STAGES; one commit group a chunk, empty past the last tile
+  auto fetch = [&](int g) {
+    const int tile = first + g / (2 * NC3) * walkers, d = g / NC3 % 2, c = g % NC3;
+    if (tile < m_tiles)
+      copy_rows<U, D_KC>(ring + g % D_STAGES * BM * D_XS, D_XS,
+                         dxg + (size_t)tile * BM * G + d * K3 + c * D_KC, G,
+                         min(BM, M - tile * BM), min(D_KC, K3 - c * D_KC), t, WG);
+    cp_async_commit();
+  };
+  // the first chunks go out before W is read
+  for (int g = 0; g < D_STAGES - 1; ++g) fetch(g);
+
+  // W's slice: B (k, n) of direction d = w[col0 + n][3H d + k], whose rows
+  // are K-major already.  Item i is n's 8 k of one k half of one k16 step:
+  // one 16-byte piece of the tile, copied whole (wu = 16: w, G and 3H
+  // 16-byte aligned) or as 4-byte copies (wu = 4), else 2-byte loads;
+  // zeros past 3H and past E.
+  for (int i = tid; i < 2 * KS3 * BN * 2; i += WG * D_WGS) {
+    const int h = i & 1, n = (i >> 1) % BN, ds = (i >> 1) / BN;  // ds = d KS3 + s
+    const int d = ds / KS3, k0 = ds % KS3 * 16 + 8 * h;
+    bf16* dst = wt + ds * WT + tile_offset(n, 8 * h);
+    const bf16* src = w + (size_t)(col0 + n) * G + d * K3 + k0;
+    const int valid = col0 + n < E ? max(0, min(8, K3 - k0)) : 0;  // k of the piece inside 3H
+    if (wu == 16) {
+      cp_async_zfill<16>(dst, valid ? src : w, 2 * valid);
+    } else if (wu == 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cp_async_zfill<4>(dst + 2 * q, 2 * q < valid ? src + 2 * q : w,
+                          max(0, min(4, 2 * (valid - 2 * q))));
+    } else {
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = pack(2 * q < valid ? bits(src[2 * q]) : 0u,
+                    2 * q + 1 < valid ? bits(src[2 * q + 1]) : 0u);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();  // W's pieces (and the first chunks) have landed ...
+  fence_proxy_async();  // ... for wgmma
+  __syncthreads();
+
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows of a tile: r0, r0 + 8
+  int g = 0;                               // the next chunk to take from the ring
+  for (int tile = first; tile < m_tiles; tile += walkers) {
+    // rows past M hold stale values: they reach only their own outputs,
+    // which are not stored
+    const uintptr_t row0 = (reinterpret_cast<uintptr_t>(dxg) >> 1) + (size_t)(tile * BM + r0) * G;
+    float acc0[BN / 2], acc1[BN / 2];
+    // one direction's product: KS3 k16 steps over its 3H columns into acc
+    auto direction = [&](auto& acc, int d) {
+      const int sh0 = U == 2 ? (int)((row0 + d * K3) & 1) : 0;
+      const int sh8 = U == 2 ? (int)((row0 + 8 * (size_t)G + d * K3) & 1) : 0;
+      // one wgmma group a chunk, issued whole: steps past 3H read A's
+      // zeros (the selects past 3H) against the direction's last W tile,
+      // so no wgmma sits in a branch (ptxas serialises those); the A
+      // registers are rewritten only once the group before is done, while
+      // its products run beside this chunk's wait, barrier and copies
+      uint32_t a[D_KSC][4];
+      for (int c = 0; c < NC3; ++c) {
+        cp_async_wait<D_STAGES - 2>();  // chunk g has landed ...
+        named_barrier(1 + wg, WG);      // ... for the warpgroup, which has read chunk g - 1
+        fetch(g + D_STAGES - 1);        // into chunk g - 1's stage
+        const bf16* chunk = ring + g % D_STAGES * BM * D_XS;
+        ++g;
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < D_KSC; ++j)
+          chunk_a<U>(a[j], chunk, D_XS, 16 * j, K3 - c * D_KC, warp, lane, sh0, sh8);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < D_KSC; ++j)
+          WgmmaBf16<BN>::run(acc, a[j], desc(wt + (d * KS3 + min(c * D_KSC + j, KS3 - 1)) * WT),
+                             c * D_KSC + j > 0);
+        wgmma_commit();
+      }
+    };
+    direction(acc0, 0);
+    direction(acc1, 1);
+    wgmma_wait<0>();
+    fence_regs(acc0);
+    fence_regs(acc1);
+
+    // each direction's sum rounded to bf16, then the bf16 add (one
+    // rounding), into the staging tile: the whole 64 x E tile, row stride
+    // E, where one column tile covers E (its rows are then one contiguous
+    // span of dx), else 64 x BN at row stride BN + 8
+    const int ew = min(BN, E - col0);  // columns of this tile
+    const int ss = gridDim.x == 1 ? E : BN + 8;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float o0 = round_to<bf16>(acc0[i]) + round_to<bf16>(acc1[i]);
+        const float o1 = round_to<bf16>(acc0[i + 1]) + round_to<bf16>(acc1[i + 1]);
+        bf16* p = stage + (r0 + 8 * h) * ss + c;
+        if (c + 1 < ew && ss % 2 == 0) {
+          *reinterpret_cast<uint32_t*>(p) = round_pair(o0, o1);
+        } else {
+          if (c < ew) p[0] = __float2bfloat16_rn(o0);
+          if (c + 1 < ew) p[1] = __float2bfloat16_rn(o1);
+        }
+      }
+    }
+    named_barrier(1 + wg, WG);  // the tile is staged
+    const int rows = min(BM, M - tile * BM);
+    const bool a16 = (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
+    if (gridDim.x == 1) {
+      // rows * E contiguous bf16 from dx + 64 tile E (a 16-byte aligned
+      // offset): 16-byte stores, the tail 2 bytes at a time
+      bf16* dst = dx + (size_t)tile * BM * E;
+      const int n = rows * E, nv = a16 ? n / 8 : 0;
+      for (int i = t; i < nv; i += WG)
+        reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(stage)[i];
+      for (int i = 8 * nv + t; i < n; i += WG) dst[i] = stage[i];
+    } else {
+      bf16* dst = dx + (size_t)tile * BM * E + col0;
+      if (a16 && E % 8 == 0) {  // 16-byte row pieces (col0 and ew multiples of 8)
+        for (int i = t; i < rows * (BN / 8); i += WG) {
+          const int r = i / (BN / 8), c = 8 * (i % (BN / 8));
+          if (c < ew)
+            *reinterpret_cast<uint4*>(dst + (size_t)r * E + c) =
+                *reinterpret_cast<const uint4*>(stage + r * ss + c);
+        }
+      } else {
+        for (int i = t; i < rows * BN; i += WG) {
+          const int r = i / BN, c = i % BN;
+          if (c < ew) dst[(size_t)r * E + c] = stage[r * ss + c];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the groups left are empty; leave none behind
+}
+
+// the largest unit (16, 8, 4 bytes; 2: none) that a pointer p and the
+// byte offsets `off` are all aligned to
+int unit(const void* p, uintptr_t off) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | off;
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
+}
+
+template <int BN, int U>
+int launch_wgmma(const bf16* dxg, const bf16* w, bf16* dx, int M, int G, int E,
+                 cudaStream_t stream) {
+  const auto kernel = gru_input_proj_dx_bf16_wgmma<BN, U>;
+  const size_t smem = wgmma_smem(BN, G / 2);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG * D_WGS, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const int col_tiles = (E + BN - 1) / BN;
+  const int m_tiles = (M + BM - 1) / BM;
+  // blocks per column tile, each walking two row tiles at once
+  // blocks per column tile, each walking two row tiles at once, as few as
+  // give every warpgroup the same number of tiles (no wave of stragglers)
+  const int per_col = std::max(1, (std::max(per_sm, 1) * sms + col_tiles - 1) / col_tiles);
+  const int each = (m_tiles + per_col * D_WGS - 1) / (per_col * D_WGS);
+  const int walkers = std::max(1, (m_tiles + each * D_WGS - 1) / (each * D_WGS));
+  // W's 16-byte pieces: w, its rows (2G bytes) and the bwd half (6H bytes)
+  // 16-byte aligned; 4-byte copies where they are 4-byte aligned
+  const int wu = unit(w, (uintptr_t)(2 * G) | (uintptr_t)G);
+  kernel<<<dim3(col_tiles, walkers), WG * D_WGS, smem, stream>>>(dxg, w, dx, M, G, E,
+                                                                wu == 8 ? 4 : wu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int run_wgmma(const bf16* dxg, const bf16* w, bf16* dx, int M, int G, int E, cudaStream_t s) {
+  // dxg's chunk row starts: its address, its rows (2G bytes), the bwd
+  // half's offset (6H = G bytes) and the chunk offsets (128 bytes)
+  switch (unit(dxg, (uintptr_t)(2 * G) | (uintptr_t)G)) {
+    case 16: return launch_wgmma<BN, 16>(dxg, w, dx, M, G, E, s);
+    case 8: return launch_wgmma<BN, 8>(dxg, w, dx, M, G, E, s);
+    case 4: return launch_wgmma<BN, 4>(dxg, w, dx, M, G, E, s);
+    default: return launch_wgmma<BN, 2>(dxg, w, dx, M, G, E, s);
+  }
+}
+
 template <class Kernel>
 int launch_bf16(Kernel kernel, size_t smem, const bf16* dxg, const bf16* w, bf16* dx, int M,
                 int G, int E, cudaStream_t stream) {
@@ -496,6 +752,9 @@ extern "C" int gru_input_proj_dx_bf16(const bf16* dxg, const bf16* w, bf16* dx, 
   if (M == 0 || E == 0) return 0;
   if (G % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bn = E <= 56 ? 56 : 64;
+  if (wgmma_smem(bn, G / 2) <= SMEM_LIMIT)
+    return bn == 56 ? run_wgmma<56>(dxg, w, dx, M, G, E, s) : run_wgmma<64>(dxg, w, dx, M, G, E, s);
   if (bf16_smem(G / 2) <= SMEM_LIMIT)
     return launch_bf16(gru_input_proj_dx_bf16_mma<true>, bf16_smem(G / 2), dxg, w, dx, M, G, E,
                        s);

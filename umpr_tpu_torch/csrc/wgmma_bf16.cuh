@@ -10,6 +10,10 @@
 // A comes from registers (wgmma's A-from-registers form), as 32-bit pairs
 // of bf16 (the lower k in the lower half); B from shared memory, K-major
 // without swizzle, through a matrix descriptor.
+//
+// K1's bf16 streaming kernel (E past 256) and K9's bf16 kernel take A
+// from row chunks of their input that cp.async copies into a shared ring
+// (copy_rows, chunk_a, at the end).
 
 #pragma once
 
@@ -156,6 +160,84 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4], const __nv_bfloa
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(p)
                : "memory");
+}
+
+// ---- row chunks through cp.async
+//
+// A chunk is `rows` rows of n <= KC contiguous bf16, row r at src + r ld
+// in global memory, copied to row r of a shared tile whose row stride XS
+// is a multiple of 8.  U is the copy unit in bytes: 16, 8 or 4 where every
+// row start is U-aligned (cp.async.cg for 16, .ca for 8 and 4); U = 2
+// where a row may start at an odd bf16 (an odd row length or column
+// offset): each row is copied in 4-byte pieces from its 4-byte aligned
+// start, so its data lands row_shift<2>(its address) elements into its
+// shared row, and its A fragments are read as 2-byte halves.  Bytes of a
+// piece past the row's data are zero-filled (cp.async's src-size) and
+// never read: chunk_a zeroes what lies past n by selects.
+
+// cp.async of `bytes` (<= B) from src, the rest of the B zero-filled;
+// src and dst B-aligned
+template <int B>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d), "l"(src), "n"(B),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// the bf16 offset of a row's data in its shared row: 1 where U = 2 and the
+// row starts at an odd bf16 address, else 0
+template <int U>
+__device__ __forceinline__ int row_shift(const __nv_bfloat16* p) {
+  if constexpr (U == 2)
+    return static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 1 & 1);
+  else
+    return 0;
+}
+
+// the cp.asyncs of one chunk (see above), `threads` threads from t
+template <int U, int KC>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int XS, const __nv_bfloat16* src,
+                                          size_t ld, int rows, int n, int t, int threads) {
+  constexpr int B = U == 2 ? 4 : U;          // bytes a cp.async
+  constexpr int P = 2 * KC / B + (U == 2);   // pieces a row
+  for (int i = t; i < rows * P; i += threads) {
+    const int r = i / P, p = i % P;
+    const __nv_bfloat16* row = src + r * ld;
+    const int sh = row_shift<U>(row);
+    const int avail = 2 * (n + sh) - p * B;  // bytes of the row's data from this piece on
+    if (avail > 0)
+      cp_async_zfill<B>(dst + r * XS + p * (B / 2),
+                        reinterpret_cast<const char*>(row - sh) + p * B, avail < B ? avail : B);
+  }
+}
+
+// The A fragment of the k16 step at column kk of a shared chunk (rows 16
+// warp .. + 15; copy_rows), zeros at columns n and past.  U >= 4: one
+// ldmatrix.x4 (the rows 16-byte aligned) and selects (n is even there);
+// U = 2: 2-byte halves of rows whose data starts sh0 (row g) and sh8 (row
+// g + 8) elements in.
+template <int U>
+__device__ __forceinline__ void chunk_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int XS,
+                                        int kk, int n, int warp, int lane, int sh0, int sh8) {
+  const int k = kk + 2 * (lane & 3);
+  if constexpr (U == 2) {
+    const __nv_bfloat16* p0 = tile + (warp * 16 + (lane >> 2)) * XS + sh0;
+    const __nv_bfloat16* p8 = p0 + 8 * XS + sh8 - sh0;
+    auto h = [&](const __nv_bfloat16* p, int c) { return c < n ? bits(p[c]) : 0u; };
+    a[0] = pack(h(p0, k), h(p0, k + 1));
+    a[1] = pack(h(p8, k), h(p8, k + 1));
+    a[2] = pack(h(p0, k + 8), h(p0, k + 9));
+    a[3] = pack(h(p8, k + 8), h(p8, k + 9));
+  } else {
+    ldsm_x4(a, tile + (warp * 16 + (lane & 7) + (lane >> 3 & 1) * 8) * XS + kk + (lane >> 4) * 8);
+    if (k >= n) a[0] = a[1] = 0u;
+    if (k + 8 >= n) a[2] = a[3] = 0u;
+  }
 }
 
 }  // namespace wgmma_bf16

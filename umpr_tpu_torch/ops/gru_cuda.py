@@ -9,7 +9,8 @@ Forward:
   and B3 (input projection): xg = x @ [W_ih_f | W_ih_b] + b_ih in true time,
   a persistent streaming kernel with 3xTF32 products on the tensor cores
   (f32-accurate, as B3's Precision.HIGHEST; csrc/tf32x3.cuh), in bf16
-  native bf16 wgmma with a staged epilogue (csrc/wgmma_bf16.cuh);
+  native bf16 wgmma with a staged epilogue (csrc/wgmma_bf16.cuh): whole x
+  tiles up to E = 256, x's depth streamed in chunks up to E = 544;
 - K2 ``bigru_recurrence`` (csrc/bigru_recurrence.cu) replaces B1 (the
   masked recurrence, ``emit_hs=False``) and B6 (output repack): y in true
   time, exact zeros past each length; up to H = 128 the rows ordered by
@@ -43,19 +44,22 @@ Backward:
 K1-K4 and K9 also take bfloat16 IO (``--compute_dtype bfloat16``, the JAX
 package's bf16 path of the same kernels, gru_pallas.py:151-165): bf16
 loads and stores, f32 state and accumulation, and the JAX kernels'
-rounding points: K1 rounds xg on store; K2 rounds the carried f32 state
+rounding points: K1 rounds xg on store, and past E = 64 (where the JAX
+package's bf16 projection is XLA's x @ w, then the bias add) also the
+product before the bias is added; K2 rounds the carried f32 state
 to bf16 as the operand of h @ W_hh and stores y in bf16; K3 rounds the
 sum of the two cotangents, the ghh operand of both its products (ghh @
 W_hh^T and h_prev^T ghh) and dxg on store, keeps db_hh the f32 sum of the
 unrounded ghh and returns dW_hh / db_hh in f32; K4 returns f32 sums of
-the bf16 products.  K1 (up to E = 256) and K4 run native bf16 wgmma
-(m64nNk16, f32 accumulators), K2 and K3's sweep up to H = 128 bf16
+the bf16 products.  K1 (up to E = 544), K4 and K9 (up to 3H = 544 at E
+<= 56, 464 past it) run native bf16 wgmma (m64nNk16, f32 accumulators),
+K2 and K3's sweep up to H = 128 bf16
 mma.sync (m16n8k16, each k-step's product added in f32); past it K2
 takes f32 FMAs of the widened bf16 values, and the rest of K3 and K1's
 wide-E kernels one TF32 product of them (exact in TF32).  K9 in
 bf16 rounds each direction's f32 product to bf16 and adds the two in
-bf16, as the JAX kernel does; its products are bf16 mma.sync.  The plain
-versions carry the same rounding points.
+bf16, as the JAX kernel does; past its wgmma widths its products are bf16
+mma.sync.  The plain versions carry the same rounding points.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and only
 then.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -94,10 +98,25 @@ def _rounder(io):
     return lambda t: t
 
 
+# The JAX package projects x through its Pallas kernels only while 2E
+# fits one 128-lane tile (gru_pallas.py:95 _MXU_LANES, :132 _proj_mode):
+# there bf16 xg is the f32 sum plus the bias, rounded once.  Past E = 64
+# it takes _build_xg (:556-573), whose bf16 x @ w is rounded before the
+# bias is added, and rounded again after.  K1 (csrc/gru_input_proj.cu
+# ROUND_TWICE_PAST_E) rounds the same way on each side of this width.
+PROJ_ROUND_ONCE_MAX_E = 64
+
+
 def gru_input_proj_ref(x, w, b):
-    """Plain version of K1: x (M, E) @ w (E, 6H) + b (6H,) -> (M, 6H); in
-    bf16 the f32 sum is rounded once, on store."""
-    return (_widen(x) @ _widen(w) + _widen(b)).to(x.dtype)
+    """Plain version of K1: x (M, E) @ w (E, 6H) + b (6H,) -> (M, 6H).  In
+    bf16 up to E = PROJ_ROUND_ONCE_MAX_E the f32 sum plus the bias is
+    rounded once, on store (the JAX Pallas projection); past it the f32
+    sum is rounded to bf16, the bias added in f32 and the result rounded
+    again (the JAX package's _build_xg)."""
+    xw = _widen(x) @ _widen(w)
+    if x.dtype == BF16 and x.shape[1] > PROJ_ROUND_ONCE_MAX_E:
+        xw = xw.to(BF16).float()
+    return (xw + _widen(b)).to(x.dtype)
 
 
 def bigru_recurrence_ref(xg, lengths, w_hh, b_hh):
