@@ -22,7 +22,9 @@
    twice for the same bits; K2 and K3 at the long-history 1,048,576 rows
    (K2 timed there beside its bound); K9 past the old grid cap of
    4,194,240 rows; K7/K8 at D = 16, 200 and 512 and a ragged P; f32 K1
-   at E = 100, 200 and 300 (``K1_F32_WIDTHS``) beside f32 torch.addmm.
+   at E = 100, 200 and 300 (``K1_F32_WIDTHS``: its wgmma and transposed
+   kernels) beside f32 torch.addmm, with both their values past 1e-5 of
+   the plain version in f64.
 3. Serve UMPR-R at the reference widths (B=64, S=L=20, E=50, H=64) from a
    seeded synthetic corpus and a seeded checkpoint: HTTP /predict requests
    through make_http_server, one CSV-mode pass through serve.main, and the
@@ -153,22 +155,26 @@ the checkout.
 
     python3 chip_smoke.py --steps
 
-builds K2, K8 and the bf16 K4, K3, K2, K1 and K9 with one design choice
-changed at a time (``K2_STEPS``, ``K8_STEPS``, ``K4_STEPS``,
-``K3_STEPS``, ``K2_BF16_STEPS``, ``K1_BF16_STEPS``, ``K9_BF16_STEPS``:
-text edits of the final sources, which tests/test_torch_chip_steps.py
-holds to today's sources on the CPU) and times each beside the final
-kernel, K4's at each E of ``K4_WIDTHS`` and at ``K4_ROWS`` rows per
-chunk, K1's at ``K1_BF16_STEP_WIDTHS``, K9's at ``K9_BF16_STEP_SHAPES``,
-bf16 K3's, K2's, K1's and K9's with their agreement with the plain
-version; then stops.
+builds K2, K8, the bf16 K4, K3, K2, K1 and K9 and the f32 K1 with one
+design choice changed at a time (``K2_STEPS``, ``K8_STEPS``,
+``K4_STEPS``, ``K3_STEPS``, ``K2_BF16_STEPS``, ``K1_BF16_STEPS``,
+``K9_BF16_STEPS``, ``K1_F32_STEPS``: text edits of the final sources,
+which tests/test_torch_chip_steps.py holds to today's sources on the
+CPU) and times each beside the final kernel, K4's at each E of
+``K4_WIDTHS`` and at ``K4_ROWS`` rows per chunk, bf16 K1's at
+``K1_BF16_STEP_WIDTHS``, K9's at ``K9_BF16_STEP_SHAPES``, f32 K1's at
+``K1_F32_STEP_WIDTHS``, bf16 K3's, K2's, K1's and K9's and f32 K1's with
+their agreement with the plain version; then stops.
 
     python3 chip_smoke.py --turns <parent checkout>
 
 builds the parent checkout's K1 and K9 sources beside this tree's and
-times their bf16 entry points on the same inputs in turns (parent,
-change, change, parent) at each ``BF16_WIDTHS`` E and ``K9_BF16_AT``
-shape, beside the bf16 library call and the bound; then stops.
+times them on the same inputs in turns (parent, change, change, parent):
+bf16 K1 at each ``BF16_WIDTHS`` E, bf16 K9 at each ``K9_BF16_AT`` shape,
+f32 K1 at each ``K1_F32_TURN_WIDTHS`` E, each beside its library call and
+its bound, and f32 UMPR-R's train step with a 300-d word table as a graph
+of 4 steps with either K1; then f32 K4 and K9 of this tree at
+``K49_F32_WIDTHS`` beside their library calls and bounds; then stops.
 """
 
 from __future__ import annotations
@@ -546,14 +552,25 @@ def k1_bound(M, E, G, size):
                  **({"tf32_flops": 3 * flops} if size == 4 else {"bf16_flops": flops}))
 
 
-K1_F32_WIDTHS = (100, 200, 300)  # f32 K1 past E = 112: the mma.sync kernel (GloVe, word2vec)
+K1_F32_WIDTHS = (100, 200, 300)  # f32 K1 at GloVe's and word2vec's widths
+
+
+def _past_f64(y, exact):
+    """y's values past rtol = atol = 1e-5 of `exact` (the card tests'
+    tolerance), and the largest |y - exact| / (1e-5 + 1e-5 |exact|)."""
+    ratio = (y.double() - exact).abs() / (1e-5 + 1e-5 * exact.abs())
+    return int((ratio > 1).sum()), ratio.max().item()
 
 
 def k1_f32_widths(device, M, G, widths=K1_F32_WIDTHS):
     """f32 K1 at (M, E, G) for each E of `widths` (w scaled by sqrt(50 /
     E)), held against its plain version (max abs error within K1_TOL of
     the largest |xg|) and timed beside torch.addmm in f32 (TF32 off, as
-    set_f32_parity leaves it) and its bound.  Returns {E: {...}}."""
+    set_f32_parity leaves it) and its bound; "kernels" names the kernels
+    the profiler saw (the route: gru_input_proj_wgmma up to E = 112,
+    gru_input_proj_xt<vec> up to 352); "past_1e-5_f64" counts the kernel's and the f32 plain version's
+    (cuBLAS's) values past rtol = atol = 1e-5 of the plain version in f64,
+    beside the largest share of that bound.  Returns {E: {...}}."""
     out = {}
     for e in widths:
         g = torch.Generator(device=device).manual_seed(e)
@@ -567,13 +584,20 @@ def k1_f32_widths(device, M, G, widths=K1_F32_WIDTHS):
         err = (xg - want).abs().max().item()
         if not (err <= K1_TOL * want.abs().max().item() and torch.equal(k1(), xg)):
             raise AssertionError(f"f32 K1 at E = {e} disagrees with its plain version")
+        exact = gru_cuda.gru_input_proj_ref(x.double(), w.double(), b.double())
+        past = {"kernel": _past_f64(xg, exact), "plain_f32": _past_f64(want, exact)}
+        del exact
         t_bound, by = k1_bound(M, e, G, 4)
-        out[e] = {"device_ms": device_ms(k1), "bound_ms": t_bound, "bound_by": by,
+        split = device_split(k1)
+        out[e] = {"device_ms": sum(split.values()) if split else None,
+                  "kernels": sorted(split), "bound_ms": t_bound, "bound_by": by,
+                  "past_1e-5_f64": past,
                   "addmm_device_ms": device_ms(lambda: torch.addmm(b, x, w)),
                   "max_abs_err": err, "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
-        print(f"K1 f32 at E = {e}: device ms {_ms(out[e]['device_ms'])}, torch.addmm "
-              f"{_ms(out[e]['addmm_device_ms'])} (TF32 {out[e]['allow_tf32']}), bound "
-              f"{t_bound:.4f} ({by})")
+        print(f"K1 f32 at E = {e}: device ms {_ms(out[e]['device_ms'])} ({out[e]['kernels']}), "
+              f"torch.addmm {_ms(out[e]['addmm_device_ms'])} (TF32 {out[e]['allow_tf32']}), "
+              f"bound {t_bound:.4f} ({by}); past 1e-5 of f64 (count, largest share): "
+              f"kernel {past['kernel']}, plain f32 {past['plain_f32']}")
         del x, xg, want
         torch.cuda.empty_cache()
     return out
@@ -2124,6 +2148,245 @@ K9_BF16_STEPS = (
     ("no W load (timing only)", [K9S_NO_W]),
     ("no copies, products or W load (timing only)", [K9S_NO_COPIES, K9S_NO_PRODUCTS, K9S_NO_W]))
 K9_BF16_STEP_SHAPES = ((51200, 384, 50), (51200, 384, 64), (51200, 102, 50), (51200, 384, 300))
+
+
+# f32 K1's kernel past E = 112 (gru_input_proj_xt in
+# csrc/gru_input_proj.cu, E <= 352), each design choice changed at a time:
+# "3xTF32": its products as 3xTF32 (x's chunk split into TF32 big and
+# small B tiles, W's fragments into big and small in registers, three
+# wgmma m64n128k8 a k8 step: the same tensor-core time as six bf16
+# m64n128k16 a k16 step, x's parts 8 bytes an element against 6);
+# "accumulators chained over the tile": no f32 sum a chunk, the tensor
+# core accumulates over the whole depth; "64-column tiles": a block holds
+# 64 columns of W (x read 6 times at 6H = 384, not 3), each warpgroup's
+# wgmma m64n64k16 on its half of the x tile's rows (a third warpgroup,
+# 192 columns, would not fit W's f32 slice at E = 300); "one B buffer":
+# the next chunk's B tiles are
+# stored once the products are done, not while they run; "next chunk's A
+# split while the products run": W's fragments for chunk g + 1 split
+# before chunk g's wait (24 registers more).  "timing only" steps leave a
+# part of the work out.
+K1X_A_TOP = """    uint32_t a1[2][4], a2[2][4], a3[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4* f = reinterpret_cast<const float4*>(
+          wf + ((size_t)min(2 * c + j, KS - 1) * X_THREADS + tid) * 8);
+      const float4 lo4 = f[0], hi4 = f[1];
+      split3(lo4.x, lo4.y, a1[j][0], a2[j][0], a3[j][0]);
+      split3(lo4.z, lo4.w, a1[j][1], a2[j][1], a3[j][1]);
+      split3(hi4.x, hi4.y, a1[j][2], a2[j][2], a3[j][2]);
+      split3(hi4.z, hi4.w, a1[j][3], a2[j][3], a3[j][3]);
+    }
+    wgmma_fence();
+"""
+K1X_A_DECL = """  float acc[X_BX / 2], sum[X_BX / 2];
+  for (int g = 0; g < chunks; ++g) {
+"""
+K1X_A_AHEAD = """  float acc[X_BX / 2], sum[X_BX / 2];
+  uint32_t a1[2][4], a2[2][4], a3[2][4], n1[2][4], n2[2][4], n3[2][4];
+  auto split_w = [&](int c, uint32_t (&b1)[2][4], uint32_t (&b2)[2][4], uint32_t (&b3)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4* f = reinterpret_cast<const float4*>(
+          wf + ((size_t)min(2 * c + j, KS - 1) * X_THREADS + tid) * 8);
+      const float4 lo4 = f[0], hi4 = f[1];
+      split3(lo4.x, lo4.y, b1[j][0], b2[j][0], b3[j][0]);
+      split3(lo4.z, lo4.w, b1[j][1], b2[j][1], b3[j][1]);
+      split3(hi4.x, hi4.y, b1[j][2], b2[j][2], b3[j][2]);
+      split3(hi4.z, hi4.w, b1[j][3], b2[j][3], b3[j][3]);
+    }
+  };
+  split_w(0, a1, a2, a3);
+  for (int g = 0; g < chunks; ++g) {
+"""
+K1X_A_NEXT = """      load(g + 2);
+    }
+    split_w((g + 1) % NC, n1, n2, n3);
+"""
+K1X_A_COPY = """    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a1[j][i] = n1[j][i];
+        a2[j][i] = n2[j][i];
+        a3[j][i] = n3[j][i];
+      }
+    // the chunk's sum, added in f32"""
+K1X_NO_LOADS = ("gru_input_proj.cu", "    const bool in = g < chunks && r < M;",
+                "    const bool in = M < 0;")
+K1X_NO_B = ("gru_input_proj.cu", "      store(g + 1);\n", "      if (M < 0) store(g + 1);\n")
+K1X_NO_XG = ("gru_input_proj.cu", "    if (c == NC - 1) {", "    if (M < 0) {")
+K1X_NO_W = ("gru_input_proj.cu", "  for (int i = tid; i < KS * 16 * X_BM; i += X_THREADS) {",
+            "  for (int i = tid; i < KS * 16 * X_BM * (M < 0); i += X_THREADS) {")
+K1X_PRODUCTS = """      WgmmaBf16<X_BX>::run(acc, a3[j], desc(q1), j > 0);
+      WgmmaBf16<X_BX>::run(acc, a1[j], desc(q3), 1);
+      WgmmaBf16<X_BX>::run(acc, a2[j], desc(q2), 1);
+      WgmmaBf16<X_BX>::run(acc, a2[j], desc(q1), 1);
+      WgmmaBf16<X_BX>::run(acc, a1[j], desc(q2), 1);
+      WgmmaBf16<X_BX>::run(acc, a1[j], desc(q1), 1);"""
+K1X_B_LOOP = """#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bf16* q1 = bt + (g & 1) * X_BUF + j * 3 * X_BT;
+      const bf16* q2 = q1 + X_BT;
+      const bf16* q3 = q2 + X_BT;
+""" + K1X_PRODUCTS + "\n    }\n"
+K1X_TF32_PRODUCTS = """    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 f = reinterpret_cast<const float4*>(
+          wf + ((size_t)min(2 * c + j / 2, KS - 1) * X_THREADS + tid) * 8)[j % 2];
+      tf32x3::split(f.x, ah[j][0], al[j][0]);
+      tf32x3::split(f.y, ah[j][1], al[j][1]);
+      tf32x3::split(f.z, ah[j][2], al[j][2]);
+      tf32x3::split(f.w, ah[j][3], al[j][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* qb = reinterpret_cast<const float*>(bt + (g & 1) * X_BUF) + j * X_BT;
+      tf32x3::Wgmma<X_BX>::run(acc, al[j], tf32x3::b_desc(qb), j > 0);
+      tf32x3::Wgmma<X_BX>::run(acc, ah[j], tf32x3::b_desc(qb + X_BT / 2), 1);
+      tf32x3::Wgmma<X_BX>::run(acc, ah[j], tf32x3::b_desc(qb), 1);
+    }
+"""
+K1X_STORE = """  auto store = [&](int g) {
+    bf16* dst = bt + (g & 1) * X_BUF + xh * 3 * X_BT;
+    uint32_t p1[8], p2[8], p3[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      split3(xv[q].x, xv[q].y, p1[2 * q], p2[2 * q], p3[2 * q]);
+      split3(xv[q].z, xv[q].w, p1[2 * q + 1], p2[2 * q + 1], p3[2 * q + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = tile_offset(xr, 8 * h);
+      *reinterpret_cast<uint4*>(dst + at) =
+          make_uint4(p1[4 * h], p1[4 * h + 1], p1[4 * h + 2], p1[4 * h + 3]);
+      *reinterpret_cast<uint4*>(dst + X_BT + at) =
+          make_uint4(p2[4 * h], p2[4 * h + 1], p2[4 * h + 2], p2[4 * h + 3]);
+      *reinterpret_cast<uint4*>(dst + 2 * X_BT + at) =
+          make_uint4(p3[4 * h], p3[4 * h + 1], p3[4 * h + 2], p3[4 * h + 3]);
+    }
+  };
+"""
+# a k8 step's B tiles [big | small], TF32's K-major layout (tf32x3.cuh
+# b_offset), four k8 steps a chunk
+K1X_TF32_STORE = """  auto store = [&](int g) {
+    float* dst = reinterpret_cast<float*>(bt + (g & 1) * X_BUF + xh * 4 * X_BT);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t big[4], small[4];
+      tf32x3::split(xv[q].x, big[0], small[0]);
+      tf32x3::split(xv[q].y, big[1], small[1]);
+      tf32x3::split(xv[q].z, big[2], small[2]);
+      tf32x3::split(xv[q].w, big[3], small[3]);
+      float* tb = dst + (q >> 1) * X_BT + tf32x3::b_offset(xr, 4 * (q & 1));
+      *reinterpret_cast<uint4*>(tb) = make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(tb + X_BT / 2) = make_uint4(small[0], small[1], small[2],
+                                                            small[3]);
+    }
+  };
+"""
+# W's fragments in TF32's register order: float 4 h + r of k16 step s
+# holds k8 step h's a[r], m = gid + 8 (r & 1), k = 16 s + 8 h + tig + 4 (r >> 1)
+K1X_W_ORDER = """    const int owner = m / 64 * WG + mw / 16 * 32 + mw % 8 * 4 + kk % 8 / 2;
+    const int q = mw % 16 / 8 + 2 * (kk / 8);
+    wf[((size_t)(k / 16) * X_THREADS + owner) * 8 + 2 * q + kk % 2] ="""
+K1X_TF32_W_ORDER = """    const int owner = m / 64 * WG + mw / 16 * 32 + mw % 8 * 4 + kk % 4;
+    const int q = mw % 16 / 8 + 2 * (kk % 8 / 4);
+    wf[((size_t)(k / 16) * X_THREADS + owner) * 8 + 4 * (kk / 8) + q] ="""
+K1X_OVERLAP = """    if (g + 1 < chunks) {
+      store(g + 1);
+      load(g + 2);
+    }
+    wgmma_wait<0>();
+"""
+K1X_FOLD = "sum[i] = (c == 0 ? 0.f : sum[i]) + acc[i];"
+K1_F32_STEPS = (
+    ("final", []),
+    ("3xTF32 (wgmma m64n128k8)", [
+        ("gru_input_proj.cu", "constexpr int X_BUF = X_KC / 16 * 3 * X_BT;",
+         "constexpr int X_BUF = X_KC / 16 * 4 * X_BT;"),
+        ("gru_input_proj.cu", K1X_W_ORDER, K1X_TF32_W_ORDER),
+        ("gru_input_proj.cu", K1X_STORE, K1X_TF32_STORE),
+        ("gru_input_proj.cu", K1X_A_TOP + K1X_B_LOOP, K1X_TF32_PRODUCTS)]),
+    ("accumulators chained over the tile", [
+        ("gru_input_proj.cu", "WgmmaBf16<X_BX>::run(acc, a3[j], desc(q1), j > 0);",
+         "WgmmaBf16<X_BX>::run(acc, a3[j], desc(q1), c > 0 || j > 0);"),
+        ("gru_input_proj.cu", K1X_FOLD, "sum[i] = acc[i];")]),
+    ("64-column tiles", [
+        ("gru_input_proj.cu", "constexpr int X_BM = 128;", "constexpr int X_BM = 64;"),
+        ("gru_input_proj.cu", "* X_THREADS + tid) * 8);", "* X_THREADS + t) * 8);"),
+        ("gru_input_proj.cu", "const bf16* q1 = bt + (g & 1) * X_BUF + j * 3 * X_BT;",
+         "const bf16* q1 = bt + (g & 1) * X_BUF + j * 3 * X_BT + wg * tile_offset(64, 0);"),
+        ("gru_input_proj.cu", "WgmmaBf16<X_BX>::run(", "WgmmaBf16<X_BX / 2>::run("),
+        ("gru_input_proj.cu", "float acc[X_BX / 2], sum[X_BX / 2];",
+         "float acc[X_BX / 4], sum[X_BX / 4];"),
+        ("gru_input_proj.cu", "for (int i = 0; i < X_BX / 2; ++i) sum[i] = (c == 0",
+         "for (int i = 0; i < X_BX / 4; ++i) sum[i] = (c == 0"),
+        ("gru_input_proj.cu", "for (int j = 0; j < X_BX / 8; ++j) {",
+         "for (int j = 0; j < X_BX / 16; ++j) {"),
+        ("gru_input_proj.cu", "const int r = tile * X_BX + 8 * j + 2 * tig + e;",
+         "const int r = tile * X_BX + wg * 64 + 8 * j + 2 * tig + e;"),
+        ("gru_input_proj.cu", "const int cA = wg * 64 + warp * 16 + gid;",
+         "const int cA = warp * 16 + gid;")]),
+    ("one B buffer", [
+        ("gru_input_proj.cu", "bt + (g & 1) * X_BUF", "bt"),
+        ("gru_input_proj.cu", K1X_OVERLAP,
+         "    wgmma_wait<0>();\n    __syncthreads();  // every warpgroup is done with the buffer\n"
+         "    if (g + 1 < chunks) {\n      store(g + 1);\n      load(g + 2);\n    }\n")]),
+    ("next chunk's A split while the products run", [
+        ("gru_input_proj.cu", K1X_A_TOP, "    wgmma_fence();\n"),
+        ("gru_input_proj.cu", K1X_A_DECL, K1X_A_AHEAD),
+        ("gru_input_proj.cu", "      load(g + 2);\n    }\n", K1X_A_NEXT),
+        ("gru_input_proj.cu", "    fence_regs(acc);\n    // the chunk's sum, added in f32", K1X_A_COPY)]),
+    ("no x loads (timing only)", [K1X_NO_LOADS]),
+    ("no B tile stores (timing only)", [K1X_NO_B]),
+    ("no products (timing only)", [("gru_input_proj.cu", K1X_PRODUCTS, "      ;")]),
+    ("no xg stores (timing only)", [K1X_NO_XG]),
+    ("no W load (timing only)", [K1X_NO_W]),
+    ("products only (timing only)", [K1X_NO_LOADS, K1X_NO_B, K1X_NO_XG, K1X_NO_W]))
+K1_F32_STEP_WIDTHS = (113, 300)  # E each f32 K1 step is timed at (M = 51,200)
+
+
+def k1_f32_steps_phase(device, M=51200, G=384, widths=K1_F32_STEP_WIDTHS):
+    """f32 K1 with one design choice of its transposed kernel changed at a
+    time (K1_F32_STEPS), each built beside the final source, held against
+    the plain version in f64 (max abs error; "past_1e-5": the values
+    outside rtol = atol = 1e-5, the card tests' tolerance; the final source
+    must keep K1_TOL of the largest |xg|) and timed (device ms under
+    torch.profiler) at (M, E, G) for each E of `widths`.  Returns {label:
+    {E: {"device_ms", "max_abs_err", "past_1e-5"}}}."""
+    fns = build_steps("gru_input_proj", K1_F32_STEPS,
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = {label: {} for label in fns}
+    for e in widths:
+        g = torch.Generator(device=device).manual_seed(e)
+        x = torch.randn(M, e, generator=g, device=device)
+        w = torch.randn(e, G, generator=g, device=device) * (50 / e) ** 0.5
+        b = torch.randn(G, generator=g, device=device)
+        want = gru_cuda.gru_input_proj_ref(x.double(), w.double(), b.double())
+        xg = torch.empty(M, G, device=device)
+        for label, fn in fns.items():
+            def call(fn=fn, label=label):
+                if fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), xg.data_ptr(), M, e, G,
+                      torch.cuda.current_stream().cuda_stream):
+                    raise AssertionError(f"K1 f32 step {label!r} failed to launch")
+
+            call()
+            torch.cuda.synchronize()
+            diff = (xg.double() - want).abs()
+            err = diff.max().item()
+            if label == "final" and not err <= K1_TOL * want.abs().max().item():
+                raise AssertionError("K1's final f32 source disagrees with its plain version")
+            r = out[label][e] = {"device_ms": device_ms(call), "max_abs_err": err,
+                                 "past_1e-5": int((diff > 1e-5 + 1e-5 * want.abs()).sum())}
+            print(f"K1 f32 step {label!r} at E = {e}: device ms {_ms(r['device_ms'])}, "
+                  f"max abs err {err:.3e}, past 1e-5 {r['past_1e-5']}")
+        del x, want, xg
+        torch.cuda.empty_cache()
+    return out
 
 
 def k1_bf16_steps_phase(device, M=51200, G=384, widths=K1_BF16_STEP_WIDTHS):
@@ -4504,18 +4767,142 @@ def k9_bf16_shapes(device, shapes=K9_BF16_AT):
     return out
 
 
+K1_F32_TURN_WIDTHS = (113, 200, 300, 352, 353, 400, 452, 453, 520, 709, 1617)  # routes' edges
+K49_F32_WIDTHS = (100, 200, 300)  # f32 K4 and K9 at GloVe's and word2vec's widths
+TURNS_DIM = 300  # the word table of the f32 UMPR-R train step timed in turns
+
+
+def k49_f32_widths(device, M=51200, G=384, widths=K49_F32_WIDTHS):
+    """f32 K4 and K9 at (M, E, 6H = G) for each E of `widths`, each held
+    against its plain version (K4: dW and db within SUM_RTOL of their
+    largest entries; K9: within K9_TOL), timed (device ms under
+    torch.profiler) beside its library calls (K4: x.T @ dxg and
+    dxg.sum(0); K9: torch.mm(dxg, w_ih.t()); TF32 off) and its bound (3xTF32
+    products at the TF32 rate).  Returns {"K4": {E: ...}, "K9": {E: ...}}."""
+    out = {"K4": {}, "K9": {}}
+    for e in widths:
+        g = torch.Generator(device=device).manual_seed(e)
+        x = torch.randn(M, e, generator=g, device=device)
+        dxg = torch.randn(M, G, generator=g, device=device)
+        w = torch.randn(e, G, generator=g, device=device) / G ** 0.5
+        k4 = lambda: gru_cuda.gru_input_proj_bwd(x, dxg)  # noqa: E731
+        k9 = lambda: gru_cuda.gru_input_proj_dx(dxg, w)  # noqa: E731
+        dw, db = k4()
+        dx = k9()
+        torch.cuda.synchronize()
+        want_dw, want_db = gru_cuda.gru_input_proj_bwd_ref(x, dxg)
+        rel4 = max(_rel_err(dw, want_dw), _rel_err(db, want_db))
+        rel9 = _rel_err(dx, gru_cuda.gru_input_proj_dx_ref(dxg, w))
+        if not (rel4 <= SUM_RTOL and rel9 <= K9_TOL):
+            raise AssertionError(f"f32 K4 or K9 at E = {e} disagrees with its plain version")
+        t4, by4 = bound(4 * (M * e + M * G + e * G + G), M * G, tf32_flops=3 * 2 * M * e * G)
+        t9, by9 = bound(4 * (M * G + e * G + M * e), 0, tf32_flops=3 * 2 * M * G * e)
+        r4 = out["K4"][e] = {"device_ms": device_ms(k4), "max_rel_err": rel4,
+                             "library_device_ms": device_ms(lambda: (x.t() @ dxg, dxg.sum(0))),
+                             "bound_ms": t4, "bound_by": by4,
+                             "kernels": sorted(device_split(k4, steps=3))}
+        r9 = out["K9"][e] = {"device_ms": device_ms(k9), "max_rel_err": rel9,
+                             "library_device_ms": device_ms(lambda: torch.mm(dxg, w.t())),
+                             "bound_ms": t9, "bound_by": by9,
+                             "kernels": sorted(device_split(k9, steps=3))}
+        for name, r, lib in (("K4", r4, "x.T @ dxg + dxg.sum(0)"),
+                             ("K9", r9, "torch.mm(dxg, w_ih.t())")):
+            print(f"{name} f32 at (M, E, 6H) = {(M, e, G)}: device ms {_ms(r['device_ms'])}, "
+                  f"{lib} {_ms(r['library_device_ms'])}, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}); kernels {r['kernels']}", flush=True)
+        del x, dxg, w, dw, db, dx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k1_kernels(keys):
+    """The K1 kernels among profiler keys (not K4's _bwd nor K9's _dx)."""
+    return sorted(k for k in keys
+                  if "gru_input_proj" in k and "_bwd" not in k and "_dx" not in k)
+
+
+def step_turns(device, parent_lib, dim=TURNS_DIM):
+    """f32 UMPR-R's train step with a seeded synthetic `dim`-d word table,
+    as a graph of DISPATCH_K steps (graph_step_ms), with the parent's K1
+    library (`parent_lib`, a ctypes.CDLL of its gru_input_proj.cu) and this
+    tree's, in turns (parent, change, change, parent): every other kernel
+    is this tree's.  Before each turn one eager train step from the same
+    initial weights and batch runs under torch.profiler: the K1 kernels it
+    launched show which library ran (the parent's lacks
+    gru_input_proj_xt, this tree's takes it), and its loss must agree
+    between the sides within E2E_TOL.  Returns {"parent": [...],
+    "change": [...]}, each turn's ms a step, idle share, first-step loss
+    and K1 kernels."""
+    root = WORK / "turns_step"
+    shutil.rmtree(root, ignore_errors=True)
+    glove = write_splits(root, seed=1, shards=5, dim=dim)
+    cfg = Config(["--review_net_only", "True", "--data_dir", str(root), "--word2vec_file",
+                  str(glove), "--learning_rate", "1e-3", "--cache_dataset", "False"])
+    w2v = Word2vec(str(glove))
+    ds = build_dataset(str(root / "train.csv"), str(root / "photos.json"), str(root / "photos"),
+                       w2v, cfg)
+    model = UMPR(ModelDims.from_config(cfg), w2v.embedding).to(device)
+    init = copy.deepcopy(model)
+    batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))), device)
+    trainer = SimpleNamespace(model=model, config=cfg, device=device,
+                              opt=make_optimizer(model, cfg.l2_regularization, 1e-3))
+    change = _build.library("gru_input_proj")
+    parent_lib.error_string.argtypes, parent_lib.error_string.restype = [ctypes.c_int], \
+        ctypes.c_char_p
+    out = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        _build._libs["gru_input_proj"] = parent_lib if side == "parent" else change
+        try:
+            with torch.enable_grad():
+                losses = []
+
+                def first_step():
+                    m = copy.deepcopy(init)
+                    opt = make_optimizer(m, cfg.l2_regularization, 1e-3)
+                    losses.append(train_step(m, opt, batch)[0].item())
+
+                kernels, _, _ = profile_device(first_step, 1)
+                ms, busy, wall = graph_step_ms(trainer, ds)
+        finally:
+            _build._libs["gru_input_proj"] = change
+        k1 = _k1_kernels(e.key for e in kernels)
+        out[side].append({"ms": ms, "idle": _idle(busy, wall), "first_loss": losses[0],
+                          "k1_kernels": k1})
+        print(f"turns, f32 UMPR-R train step at E = {dim}, graph of {DISPATCH_K} ({side}'s K1): "
+              f"{ms:.4f} ms a step, idle {_idle(busy, wall)}; first step's loss "
+              f"{losses[0]!r} (calls {len(losses)}), K1 kernels {k1}", flush=True)
+    xt = {side: [any("gru_input_proj_xt" in k for k in r["k1_kernels"]) for r in out[side]]
+          for side in out}
+    if not (all(xt["change"]) and not any(xt["parent"])
+            and all(r["k1_kernels"] for rs in out.values() for r in rs)):
+        raise AssertionError(f"the train step did not run the side's K1 in every turn: {xt}")
+    first = [r["first_loss"] for rs in out.values() for r in rs]
+    if not (all(np.isfinite(first))
+            and max(first) - min(first) <= E2E_TOL * max(1.0, abs(first[0]))):
+        raise AssertionError(f"the first step's loss differs between the sides: {first}")
+    return out
+
+
 def turns_phase(device, parent):
-    """bf16 K1 and K9 of the tree at `parent` (a checkout's root, e.g.
-    a git archive of the parent commit under build/) against this tree's,
-    on the same inputs, timed in turns (parent, change, change, parent;
-    device ms under torch.profiler): K1 at (51,200, E, 384) for each E of
-    BF16_WIDTHS and E = 50, K9 at the UMPR-R shape and K9_BF16_AT, each
-    beside bf16 torch.addmm / torch.mm and its bound.  The parent's
-    sources are built here (one nvcc each, at once) into
-    build/chip_smoke/parent/.  Returns {"K1": {E: ...}, "K9": {shape: ...}}."""
+    """The tree at `parent` (a checkout's root, e.g. a git archive of the
+    parent commit under build/) against this one, on the same inputs, in
+    turns (parent, change, change, parent; device ms under torch.profiler):
+    bf16 K1 at (51,200, E, 384) for each E of BF16_WIDTHS and E = 50, bf16
+    K9 at the UMPR-R shape and K9_BF16_AT, f32 K1 at K1_F32_TURN_WIDTHS
+    (with the kernels this tree's K1 ran: its route), each beside its
+    library call (bf16 or f32 torch.addmm / torch.mm, TF32 off) and its
+    bound, and f32 K1's values past 1e-5 of the f64 product (each side's
+    and cuBLAS's: _past_f64); f32 UMPR-R's train step at E = TURNS_DIM
+    with either K1 (step_turns); then f32 K4 and K9 of this tree alone at
+    K49_F32_WIDTHS
+    (k49_f32_widths).  The parent's sources are built here (one nvcc
+    each, at once) into build/chip_smoke/parent/.  Returns {"K1": {E:
+    ...}, "K9": {shape: ...}, "K1_f32": {E: ...}, "umpr_r_step": ...,
+    "K4_K9_f32": ...}."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    kernels = (("gru_input_proj", "gru_input_proj_bf16", [P] * 4 + [I] * 3 + [P]),
-               ("gru_input_proj_dx", "gru_input_proj_dx_bf16", [P] * 3 + [I] * 3 + [P]))
+    kernels = (("gru_input_proj", ("gru_input_proj_bf16", "gru_input_proj"),
+                [P] * 4 + [I] * 3 + [P]),
+               ("gru_input_proj_dx", ("gru_input_proj_dx_bf16",), [P] * 3 + [I] * 3 + [P]))
     root = WORK / "parent"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -4523,14 +4910,16 @@ def turns_phase(device, parent):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(root / f"lib{name}.so"),
          str(Path(parent) / "umpr_tpu_torch" / "csrc" / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, _, _ in kernels}
-    fns = {}
-    for name, symbol, argtypes in kernels:
+    fns, libs = {}, {}
+    for name, symbols, argtypes in kernels:
         out, _ = procs[name].communicate()
         if procs[name].returncode != 0:
             raise AssertionError(f"the parent's {name} did not build:\n{out}")
-        parent_fn = getattr(ctypes.CDLL(str(root / f"lib{name}.so")), symbol)
-        parent_fn.argtypes, parent_fn.restype = argtypes, ctypes.c_int
-        fns[name] = (parent_fn, _build.kernel_function(name, argtypes, symbol)[0])
+        libs[name] = ctypes.CDLL(str(root / f"lib{name}.so"))
+        for symbol in symbols:
+            parent_fn = getattr(libs[name], symbol)
+            parent_fn.argtypes, parent_fn.restype = argtypes, ctypes.c_int
+            fns[symbol] = (parent_fn, _build.kernel_function(name, argtypes, symbol)[0])
     stream = torch.cuda.current_stream().cuda_stream
     bf = torch.bfloat16
 
@@ -4542,40 +4931,57 @@ def turns_phase(device, parent):
                     raise AssertionError("a launch failed")
             calls.append(call)
         p1, c1, c2, p2 = (device_ms(calls[i]) for i in (0, 1, 1, 0))
-        return {"parent_device_ms": [p1, p2], "device_ms": [c1, c2]}
+        return {"parent_device_ms": [p1, p2], "device_ms": [c1, c2],
+                "kernels": sorted(device_split(calls[1], steps=3))}
 
-    out = {"K1": {}, "K9": {}}
-    M, G = 51200, 384
-    for e in (50,) + BF16_WIDTHS:
-        g = torch.Generator(device=device).manual_seed(e)
-        x = torch.randn(M, e, generator=g, device=device).to(bf)
-        w = (torch.randn(e, G, generator=g, device=device) * (50 / e) ** 0.5).to(bf)
-        b = torch.randn(G, generator=g, device=device).to(bf)
-        xg = torch.empty(M, G, device=device, dtype=bf)
-        r = out["K1"][e] = in_turns(fns["gru_input_proj"], (x.data_ptr(), w.data_ptr(),
-                                                            b.data_ptr(), xg.data_ptr(), M, e, G))
-        r["addmm_device_ms"] = device_ms(lambda: torch.addmm(b, x, w))
-        r["bound_ms"] = k1_bound(M, e, G, 2)[0]
-        print(f"turns, K1 bf16 at E = {e}: parent {_ms(r['parent_device_ms'][0])}, change "
+    def print_turns(what, r, lib):
+        print(f"turns, {what}: parent {_ms(r['parent_device_ms'][0])}, change "
               f"{_ms(r['device_ms'][0])}, change {_ms(r['device_ms'][1])}, parent "
-              f"{_ms(r['parent_device_ms'][1])}; torch.addmm {_ms(r['addmm_device_ms'])}, bound "
-              f"{r['bound_ms']:.4f}", flush=True)
-        del x, xg
+              f"{_ms(r['parent_device_ms'][1])}; {lib} {_ms(r['lib_device_ms'])}, bound "
+              f"{r['bound_ms']:.4f}; change's kernels {r['kernels']}", flush=True)
+
+    out = {"K1": {}, "K9": {}, "K1_f32": {}}
+    M, G = 51200, 384
+    for dtype, widths, key in ((bf, (50,) + BF16_WIDTHS, "K1"),
+                               (torch.float32, K1_F32_TURN_WIDTHS, "K1_f32")):
+        for e in widths:
+            g = torch.Generator(device=device).manual_seed(e)
+            x = torch.randn(M, e, generator=g, device=device).to(dtype)
+            w = (torch.randn(e, G, generator=g, device=device) * (50 / e) ** 0.5).to(dtype)
+            b = torch.randn(G, generator=g, device=device).to(dtype)
+            xg = torch.empty(M, G, device=device, dtype=dtype)
+            symbol = "gru_input_proj_bf16" if dtype == bf else "gru_input_proj"
+            args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), xg.data_ptr(), M, e, G)
+            r = out[key][e] = in_turns(fns[symbol], args)
+            r["lib_device_ms"] = device_ms(lambda: torch.addmm(b, x, w))
+            r["bound_ms"] = k1_bound(M, e, G, x.element_size())[0]
+            print_turns(f"K1 {'bf16' if dtype == bf else 'f32'} at E = {e}", r, "torch.addmm")
+            if dtype == torch.float32:  # each side's and cuBLAS's distance from the f64 product
+                exact = gru_cuda.gru_input_proj_ref(x.double(), w.double(), b.double())
+                past = {"plain_f32": _past_f64(torch.addmm(b, x, w), exact)}
+                for side, fn in zip(("parent", "change"), fns[symbol]):
+                    fn(*args, stream)
+                    past[side] = _past_f64(xg, exact)
+                r["past_1e-5_f64"] = past
+                print(f"turns, K1 f32 at E = {e}, values past 1e-5 of f64 (count, largest "
+                      f"share): {past}", flush=True)
+                del exact
+            del x, xg
     for M9, G9, E9 in ((51200, 384, 50),) + K9_BF16_AT:
         g = torch.Generator(device=device).manual_seed(M9 + G9 + E9)
         dxg = torch.randn(M9, G9, generator=g, device=device).to(bf)
         w = (torch.randn(E9, G9, generator=g, device=device) / G9 ** 0.5).to(bf)
         dx = torch.empty(M9, E9, device=device, dtype=bf)
         r = out["K9"][f"{M9}x{G9}x{E9}"] = in_turns(
-            fns["gru_input_proj_dx"], (dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M9, G9, E9))
-        r["mm_device_ms"] = device_ms(lambda: torch.mm(dxg, w.t()))
+            fns["gru_input_proj_dx_bf16"],
+            (dxg.data_ptr(), w.data_ptr(), dx.data_ptr(), M9, G9, E9))
+        r["lib_device_ms"] = device_ms(lambda: torch.mm(dxg, w.t()))
         r["bound_ms"] = k9_bound(M9, G9, E9)[0]
-        print(f"turns, K9 bf16 at (M, 6H, E) = {(M9, G9, E9)}: parent "
-              f"{_ms(r['parent_device_ms'][0])}, change {_ms(r['device_ms'][0])}, change "
-              f"{_ms(r['device_ms'][1])}, parent {_ms(r['parent_device_ms'][1])}; torch.mm "
-              f"{_ms(r['mm_device_ms'])}, bound {r['bound_ms']:.4f}", flush=True)
+        print_turns(f"K9 bf16 at (M, 6H, E) = {(M9, G9, E9)}", r, "torch.mm")
         del dxg, dx
     torch.cuda.empty_cache()
+    out["umpr_r_step"] = step_turns(device, libs["gru_input_proj"])
+    out["K4_K9_f32"] = k49_f32_widths(device)
     return out
 
 
@@ -4864,11 +5270,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:  # bf16 K1 and K9 against a parent tree
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:  # K1 and K9 against a parent tree
+        serve.set_f32_parity()
         with torch.no_grad():
             print(json.dumps({"turns": turns_phase(torch.device("cuda"), sys.argv[2])}))
         return 0
-    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's, K3's, K2's, K1's and K9's designs
+    if sys.argv[1:] == ["--steps"]:  # K2's, K8's, bf16 K4's, K3's, K2's, K1's, K9's, f32 K1's designs
         _build.build(("affinity_tiles", "bigru_recurrence", "bigru_backward"))
         with torch.no_grad():
             print(json.dumps({"k2_steps": k2_steps_phase(torch.device("cuda")),
@@ -4877,7 +5284,8 @@ def main():
                               "k3_bf16_steps": k3_steps_phase(torch.device("cuda")),
                               "k2_bf16_steps": k2_bf16_steps_phase(torch.device("cuda")),
                               "k1_bf16_steps": k1_bf16_steps_phase(torch.device("cuda")),
-                              "k9_bf16_steps": k9_bf16_steps_phase(torch.device("cuda"))}))
+                              "k9_bf16_steps": k9_bf16_steps_phase(torch.device("cuda")),
+                              "k1_f32_steps": k1_f32_steps_phase(torch.device("cuda"))}))
         return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     serve.set_f32_parity()

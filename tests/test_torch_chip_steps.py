@@ -21,6 +21,7 @@ from umpr_tpu_torch.ops import _build
 STEP_LISTS = {"K2_STEPS": "bigru_recurrence", "K2_BF16_STEPS": "bigru_recurrence",
               "K3_STEPS": "bigru_backward", "K4_STEPS": "gru_input_proj_bwd",
               "K8_STEPS": "affinity_finish", "K1_BF16_STEPS": "gru_input_proj",
+              "K1_F32_STEPS": "gru_input_proj",
               "K9_BF16_STEPS": "gru_input_proj_dx"}
 STEPS = [(lst, label) for lst in STEP_LISTS for label, _ in getattr(chip_smoke, lst)]
 
@@ -56,3 +57,29 @@ def test_every_gru_kernel_is_named_by_a_part(source):
     named = {k for _, names, *fused in chip_smoke.K2_PARTS + chip_smoke.K3_PARTS
              for k in names + tuple(fused)}
     assert set(kernels) <= named, set(kernels) - named
+
+
+# profiler keys as torch.profiler names the kernels: K1's f32 and bf16
+# routes, K4's and K9's (which share K1's name as a prefix) and others
+_XT = ("void (anonymous namespace)::gru_input_proj_xt<true>(float const*, float const*, "
+       "float const*, float*, int, int, int, bool, bool)")
+_MMA = ("void (anonymous namespace)::gru_input_proj_mma<float>(float const*, float const*, "
+        "float const*, float*, int, int, int, bool, bool)")
+_BF16 = ("void (anonymous namespace)::gru_input_proj_bf16_stream<8>(__nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, int, bool, bool)")
+_K4 = ("(anonymous namespace)::gru_input_proj_bwd_kernel(float const*, float const*, float*, "
+       "float*, int, int, int, int, int, bool, bool)")
+_K9 = ("(anonymous namespace)::gru_input_proj_dx_deep(float const*, float const*, float*, int, "
+       "int, int, bool)")
+
+
+@pytest.mark.parametrize("keys,want", [
+    ([_XT, _K4, _K9, "bigru_recurrence_kernel", "Memcpy DtoD"], [_XT]),
+    ([_K9, _MMA, _K4], [_MMA]),
+    ([_BF16, _XT], sorted([_BF16, _XT])),
+    ([_K4, _K9, "bigru_backward_hg"], [])])
+def test_k1_kernels_are_told_from_k4_and_k9(keys, want):
+    """chip_smoke.step_turns reads which K1 library ran a train step from
+    the profiler's kernel names: K1's kernels, not K4's (_bwd) nor K9's
+    (_dx), whose names start as K1's do."""
+    assert chip_smoke._k1_kernels(keys) == want

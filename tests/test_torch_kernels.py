@@ -21,15 +21,39 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("M,E,N", [(1, 50, 384), (130, 17, 100), (130, 17, 102),
-                                   (51200, 50, 384), (1000, 300, 384), (1000, 400, 384),
-                                   (3000, 520, 102), (1048576, 50, 384)])
+def _proj_f64(x, w, b):
+    """K1's plain version evaluated in f64, rounded to f32.  f32 K1 is held
+    against it, not against the plain version in f32 (cuBLAS's f32
+    product): at E = 300 and 400, 51,200 rows, that product itself has
+    values past rtol = atol = 1e-5 of the f64 one (chip_smoke.py
+    k1_f32_widths counts them)."""
+    return gru_cuda.gru_input_proj_ref(x.double(), w.double(), b.double()).float()
+
+
+# f32 K1's routes by E (csrc/gru_input_proj.cu): the wgmma kernel up to
+# 112, the transposed kernel (gru_input_proj_xt) up to 352, the mma.sync
+# kernel up to 452, past it the one that reads global memory
+K1_F32_WGMMA_MAX_E = 112
+K1_F32_XT_MAX_E = 352
+
+
+@pytest.mark.parametrize("M,E,N", [
+    (1, 50, 384), (130, 17, 100), (130, 17, 102), (51200, 50, 384), (1000, 300, 384),
+    (1000, 400, 384), (3000, 520, 102), (1048576, 50, 384),
+    (1, K1_F32_WGMMA_MAX_E + 1, 384), (65, K1_F32_WGMMA_MAX_E + 1, 102),
+    (1000, K1_F32_WGMMA_MAX_E + 1, 384), (65, 200, 384), (51200, 200, 384),
+    (1, 300, 384), (65, 300, 102), (51200, 300, 384), (1000, 301, 384), (65, 301, 102),
+    (1000, 302, 384), (1000, K1_F32_XT_MAX_E, 384), (129, K1_F32_XT_MAX_E, 102),
+    (1000, K1_F32_XT_MAX_E + 1, 384), (65, K1_F32_XT_MAX_E + 1, 102)])
 def test_gru_input_proj_matches_plain(cuda, M, E, N):
     """N = 102 (odd H): an odd row length, stored one float at a time;
-    E = 300 and 400 take the mma.sync kernel (word2vec widths), E = 520
-    the one that reads its fragments from global memory; w is scaled so
-    that every case's sums have the spread of E = 50's.  Two launches give
-    the same bits."""
+    E = 113 .. 352 the transposed kernel (E = 200, 300, 352: float4 loads,
+    113, 301, 302: single floats; M = 1, 65, 129, 1000: a last tile of one
+    to a few rows; 6H = 102: a column tile of 102 - 64 = 38 columns), 353
+    and 400 the mma.sync kernel, E = 520 the one that reads its fragments
+    from global memory; w is scaled so that every case's sums have the spread of
+    E = 50's.  Held against the plain version in f64 (_proj_f64).  Two
+    launches give the same bits."""
     g = torch.Generator().manual_seed(M)
     x, w, b = (torch.randn(s, generator=g).to(cuda) for s in ((M, E), (E, N), (N,)))
     w *= min(1.0, (50 / E) ** 0.5)
@@ -37,9 +61,46 @@ def test_gru_input_proj_matches_plain(cuda, M, E, N):
     out = gru_cuda.gru_input_proj(x, w, b)
     torch.cuda.synchronize()
     assert gru_cuda.gru_input_proj.launches == before + 1
-    torch.testing.assert_close(out, gru_cuda.gru_input_proj_ref(x, w, b),
-                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out, _proj_f64(x, w, b), rtol=1e-5, atol=1e-5)
     assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
+
+
+@pytest.mark.parametrize("E", [K1_F32_WGMMA_MAX_E + 1, 200, 300, 301, 400])
+def test_gru_input_proj_at_unaligned_addresses(cuda, E):
+    """f32 K1 on an x view that starts one element into its buffer (rows
+    4-byte aligned): the transposed kernel then loads single floats (E =
+    113 .. 301), the mma.sync kernel copies single floats (E = 400);
+    against the plain version in f64, the same bits twice."""
+    M, N = 1000, 384
+    g = torch.Generator().manual_seed(E)
+    x = torch.randn(M * E + 1, generator=g).to(cuda)[1:].view(M, E)
+    w = (torch.randn(E, N, generator=g) * (50 / E) ** 0.5).to(cuda)
+    b = torch.randn(N, generator=g).to(cuda)
+    out = gru_cuda.gru_input_proj(x, w, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, _proj_f64(x, w, b), rtol=1e-5, atol=1e-5)
+    assert torch.equal(gru_cuda.gru_input_proj(x, w, b), out)
+
+
+@pytest.mark.parametrize("E,N", [(300, 384), (301, 102), (K1_F32_WGMMA_MAX_E + 1, 102)])
+def test_gru_input_proj_ignores_nan_past_the_data(cuda, E, N):
+    """f32 K1's transposed kernel (E = 113 .. 352) zeroes what lies past
+    its data by selects, never by multiplying: after
+    a launch over all-NaN x of the same shape (NaN left in the shared
+    memory), x followed by NaN in memory gives finite outputs equal to the
+    plain version's (in f64), at M = 65 (a last tile of one row) and a last
+    chunk of 12, 13, 17 columns."""
+    M = 65
+    g = torch.Generator().manual_seed(E + N)
+    x = torch.randn(M, E, generator=g).to(cuda)
+    w = (torch.randn(E, N, generator=g) * (50 / E) ** 0.5).to(cuda)
+    b = torch.randn(N, generator=g).to(cuda)
+    gru_cuda.gru_input_proj(torch.full_like(x, float("nan")), w, b)
+    x = _after_nan(x, 64 * E)
+    out = gru_cuda.gru_input_proj(x, w, b)
+    torch.cuda.synchronize()
+    assert out.isfinite().all()
+    torch.testing.assert_close(out, _proj_f64(x, w, b), rtol=1e-5, atol=1e-5)
 
 
 def test_gru_input_proj_past_the_old_grid_cap(cuda):

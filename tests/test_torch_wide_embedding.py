@@ -1,5 +1,12 @@
-"""bf16 at wide embeddings (E > 64: GloVe 100/200/300-d, word2vec's 300)
-in the port against the JAX package on the CPU.
+"""Wide embeddings (E > 64: GloVe 100/200/300-d, word2vec's 300) in the
+port against the JAX package on the CPU, in f32 and bf16.
+
+In f32 the JAX package takes ``_build_xg`` past E = 64 on both
+``use_pallas`` routes (the Pallas recurrence or the scan after it), and
+the port's K1 plain version (K1's yardstick on the card) is one f32
+product plus the bias; the tests at E = 100, 200 and 300 hold the projection,
+``bigru_split``'s outputs and its weight gradients to the JAX package
+within 1e-5 (PARITY.md, masked GRU).
 
 The JAX package projects x through its Pallas kernels only while 2E fits
 one 128-lane tile (umpr_tpu/ops/gru_pallas.py:95, :132).  Past E = 64 its
@@ -20,6 +27,7 @@ import pytest
 import torch
 
 from tests.test_torch_bf16 import _l2, _projection_case, _within_one_ulp
+from tests.test_torch_gru import TOL, _cotangents, _port_param_grads, _setup
 from umpr_tpu.ops import gru_pallas as gp
 from umpr_tpu.ops.gru import bigru_split as jax_bigru_split
 from umpr_tpu.ops.gru import init_bigru
@@ -29,6 +37,53 @@ from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
 
 H = 64
 BF16 = torch.bfloat16
+
+
+F32_WIDE_E = [100, 200, 300]  # GloVe 100-d, GloVe 200-d, GloVe / word2vec 300-d
+
+
+@pytest.mark.parametrize("E", F32_WIDE_E)
+def test_f32_projection_plain_version_matches_build_xg(E):
+    """gru_input_proj_ref in f32 against the JAX package's _build_xg on the
+    same x and weights (de-interleaved, the bwd half flipped back to true
+    time): one f32 product plus the bias on each side, within 1e-5."""
+    jparams, gru, x, _, _ = _setup(0, E=E)
+    N, L, _ = x.shape
+    w_ih, b_ih, _, _ = (t.detach() for t in gru.kernel_operands())
+    got = gru_cuda.gru_input_proj_ref(torch.from_numpy(x).reshape(N * L, E), w_ih, b_ih)
+    assert got.dtype == torch.float32
+    f, b = gp._deinterleave(gp._build_xg(jparams, jnp.asarray(x), H).reshape(N, L, 6 * H), H)
+    want = np.concatenate([np.asarray(f), np.asarray(b)[:, ::-1]], -1)
+    np.testing.assert_allclose(got.numpy().reshape(N, L, 6 * H), want, **TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("E", F32_WIDE_E)
+def test_f32_bigru_split_at_wide_e_matches_jax(E, use_pallas):
+    """bigru_split in f32 (K1-K4's plain versions) against the JAX
+    bigru_split on either route: y_pos and y_sent, then the gradients of
+    sum(y_pos * c_pos) + sum(y_sent * c_sent) with respect to every GRU
+    weight, within 1e-5."""
+    jparams, gru, x, lengths, S = _setup(E, E=E)
+    c_pos, c_sent = _cotangents(E, *x.shape[:2], S)
+    jpos, jsent = jax_bigru_split(jparams, jnp.asarray(x), jnp.asarray(lengths), S,
+                                  use_pallas=use_pallas)
+    with torch.no_grad():
+        pos, sent = bigru_split(gru, torch.from_numpy(x), torch.from_numpy(lengths), S)
+    np.testing.assert_allclose(pos.numpy(), np.asarray(jpos), **TOL)
+    np.testing.assert_allclose(sent.numpy(), np.asarray(jsent), **TOL)
+
+    def loss(p):
+        pos, sent = jax_bigru_split(p, jnp.asarray(x), jnp.asarray(lengths), S,
+                                    use_pallas=use_pallas)
+        return jnp.sum(pos * c_pos) + jnp.sum(sent * c_sent)
+
+    want = jax.grad(loss)(jparams)
+    got = _port_param_grads(gru, x, lengths, S, c_pos, c_sent)
+    for d in ("fwd", "bwd"):
+        for k in ("w_ih", "w_hh", "bias_ih", "bias_hh"):
+            np.testing.assert_allclose(got[d][k], np.asarray(want[d][k]), **TOL,
+                                       err_msg=f"{d}.{k}")
 
 
 def _ulp(v):

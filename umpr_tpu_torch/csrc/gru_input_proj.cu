@@ -4,7 +4,8 @@
 //
 // M = N*L sentence-row tokens in true time; gate order per direction is
 // [r | z | n].  f32 in, f32 out, f32-accurate products (3xTF32, see
-// tf32x3.cuh) with f32 accumulation.  The bf16 variant
+// tf32x3.cuh; for 112 < E <= 352 three-part bf16 splits, below) with f32
+// accumulation.  The bf16 variant
 // (gru_input_proj_bf16, --compute_dtype bfloat16) reads bf16 x, W and b,
 // accumulates in f32 and rounds xg to bf16 as the JAX package does:
 // once, on store, up to E = 64 (the TPU kernel's bf16 IO,
@@ -51,8 +52,49 @@
 //     pairs: the 4 lanes of a row group write one whole 32-byte sector.
 //     (Staging the tile in shared memory and writing whole rows, by
 //     threads or as bulk copies, measured no faster on the card.)
-// E > 112 does not fit that shared memory; there a plain mma.sync kernel
-// on 32 x 32 tiles takes over (word2vec's 300 in f32), and past E = 452,
+// Past E = 112 (GloVe's 200 and 300, word2vec's and fastText's 300) W's
+// 128-column slice, split, no longer fits beside the x tiles (311 KB alone
+// at E = 300).  At (51,200, 300, 384) the f32-accurate products cost
+// 0.072 ms on the tensor cores (35.4 GFLOP of TF32 at 495 TFLOP/s, or as
+// many bf16 products at 989), against 0.042 ms of HBM traffic (x 61 MB,
+// xg 79 MB), so the kernel past it keeps the products on wgmma and
+// streams x.  Its products are split bf16, not 3xTF32: each f32 value is
+// the sum of three bf16 parts (8 + 8 + 8 bits, each the rest rounded),
+// and six products (p1 q1 and the five down to 2^-18 of it: p1 q2, p2 q1,
+// p2 q2, p1 q3, p3 q1) are f32-accurate.  Six bf16 wgmmas m64n128k16 a
+// k16 step take the tensor-core time of 3xTF32's three m64n128k8 for each
+// of its two k8 steps, and x's parts take 6 bytes an element in shared
+// memory, 3xTF32's 8: the same kernel on 3xTF32 measured 12% slower at
+// E = 300 on an H100 (chip_smoke.py --steps).  It keeps every value
+// within 1e-5 + 1e-5 |xg| of the f64 product, where cuBLAS's f32 product
+// does not (chip_smoke.py k1_f32_widths and --turns count all three).  A
+// chunk's products start from zero and are added to an f32 sum once they
+// are done: the tensor core's accumulation, coarser than an f32 add,
+// chained over a tile put values past 1e-5.
+// 112 < E <= 352: gru_input_proj_xt, the product transposed, xg^T = W^T
+// x^T, so that x is read by 3 column tiles (6H = 384), not 6, and the
+// wgmma is m64n128k16:
+//   - a block holds 128 columns of W (two warpgroups of m64) as f32, laid
+//     out as each thread's A fragments (two 16-byte loads a k16 step, 156
+//     KB at E = 300), split into its parts in registers each chunk;
+//   - it walks x tiles of 128 rows, the depth in chunks of 32 columns: each
+//     thread loads 16 floats of one row a chunk ahead (float4 where E % 4
+//     == 0 and x is 16-byte aligned, else single floats; zeros past E and
+//     M), splits them and stores the parts as K-major bf16 B tiles, into
+//     the buffer the chunk before last read, while this chunk's products
+//     run (two buffers of 24 KB);
+//   - a chunk's two k16 steps, six wgmmas each, go as one group with no
+//     branch among them (steps past E multiply B's zeros with W's last
+//     fragments): a wgmma in a branch makes ptxas serialise every one;
+//   - the accumulators hold xg^T: the 8 lanes of a quad row write 8
+//     neighbouring columns of an xg row (32 bytes a store instruction).
+//   Where the time goes (chip_smoke.py --steps, E = 300): its products
+//   alone take 0.13 ms, 55% of the tensor cores' rate: each chunk waits
+//   for its group before adding it in f32, and keeping a group in flight
+//   across chunks (two accumulators, or the next A split ahead) measured
+//   slower.
+// Past E = 352, where W's f32 slice outgrows the shared memory, a plain
+// mma.sync kernel on 32 x 32 tiles takes over, and past E = 452,
 // where its W slice and x ring outgrow the shared memory too, a kernel that
 // reads its fragments from global memory (any E).  Each output element is
 // computed by one thread in a fixed order, so the bits do not depend on the
@@ -573,7 +615,183 @@ gru_input_proj_bf16_stream(const bf16* __restrict__ x, const bf16* __restrict__ 
   cp_async_wait<0>();  // the groups left are empty; leave none behind
 }
 
-// ---- the mma.sync kernel (large E, word2vec's 300): 32 x 32 tiles
+// ---- the f32 transposed kernel (112 < E <= 352): xg^T = W^T x^T, W's
+// 128-column slice resident as f32 A fragments, x's depth split into bf16
+// B tiles (see the header)
+
+// v0, v1 = their three bf16 parts summed, exactly (each part the rest
+// rounded to nearest), as bf16 pairs (v0 in the low halves)
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& p1, uint32_t& p2,
+                                       uint32_t& p3) {
+  using namespace wgmma_bf16;
+  p1 = round_pair(v0, v1);
+  v0 -= lo_f(p1);
+  v1 -= hi_f(p1);
+  p2 = round_pair(v0, v1);
+  p3 = round_pair(v0 - lo_f(p2), v1 - hi_f(p2));
+}
+
+constexpr int X_BM = 128;                    // columns of 6H a block: two warpgroups of m64
+constexpr int X_BX = 128;                    // x rows a tile (wgmma n)
+constexpr int X_KC = 32;                     // x columns a chunk: 2 k16 steps
+constexpr int X_BT = X_BX * 16;              // bf16 of one k16 step's B tile (one part)
+constexpr int X_BUF = X_KC / 16 * 3 * X_BT;  // bf16 of a chunk's B tiles [k16 step][part]
+constexpr int X_THREADS = 2 * WG;
+
+size_t xt_smem(int K) {
+  return (size_t)(K + 15) / 16 * X_THREADS * 8 * sizeof(float) +
+         2 * (size_t)X_BUF * sizeof(bf16) + X_BM * sizeof(float);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(X_THREADS, 1)
+gru_input_proj_xt(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ b, float* __restrict__ out, int M, int K, int N,
+                  bool, bool) {
+  using namespace wgmma_bf16;
+  extern __shared__ float4 smem4[];
+  const int KS = (K + 15) / 16, NC = (K + X_KC - 1) / X_KC;
+  float* wf = reinterpret_cast<float*>(smem4);                            // [KS][X_THREADS][8]
+  bf16* bt = reinterpret_cast<bf16*>(wf + (size_t)KS * X_THREADS * 8);  // [2][X_BUF]
+  float* bias = reinterpret_cast<float*>(bt + 2 * X_BUF);                // [X_BM]
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * X_BM;
+  const int m_tiles = (M + X_BX - 1) / X_BX;
+  // this block's chunks: NC for each of its x tiles blockIdx.y + i gridDim.y
+  const int chunks = (m_tiles - (int)blockIdx.y + (int)gridDim.y - 1) / (int)gridDim.y * NC;
+
+  // W's slice as each thread's A fragments (WgmmaBf16's layout), f32, in
+  // register order: float 2 q + e of k16 step s holds m = gid + 8 (q & 1),
+  // k = 16 s + 2 tig + 8 (q >> 1) + e of its warp's 16 rows of W^T.  Read
+  // in rows of w (consecutive threads, consecutive columns); zeros past K
+  // and past N.
+#pragma unroll 4
+  for (int i = tid; i < KS * 16 * X_BM; i += X_THREADS) {
+    const int m = i % X_BM, k = i / X_BM, mw = m % 64, kk = k % 16;
+    const int owner = m / 64 * WG + mw / 16 * 32 + mw % 8 * 4 + kk % 8 / 2;
+    const int q = mw % 16 / 8 + 2 * (kk / 8);
+    wf[((size_t)(k / 16) * X_THREADS + owner) * 8 + 2 * q + kk % 2] =
+        k < K && col0 + m < N ? w[(size_t)k * N + col0 + m] : 0.f;
+  }
+  if (tid < X_BM) bias[tid] = col0 + tid < N ? b[col0 + tid] : 0.f;
+
+  // chunk g: depth chunk g % NC of x tile blockIdx.y + (g / NC) gridDim.y.
+  // This thread loads 16 columns of one row (one k16 step; zeros past K,
+  // past M and past the block's chunks) a chunk ahead, and stores their
+  // three bf16 parts as that row's pieces of the step's K-major B tiles.
+  const int xr = tid >> 1, xh = tid & 1;
+  float4 xv[4];
+  auto load = [&](int g) {
+    const int r = (blockIdx.y + g / NC * gridDim.y) * X_BX + xr, k0 = g % NC * X_KC + 16 * xh;
+    const bool in = g < chunks && r < M;
+    const float* p = x + (size_t)(in ? r : 0) * K + k0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (VEC) {  // K % 4 == 0: a float4 lies wholly inside or past K
+        xv[q] = in && k0 + 4 * q < K ? __ldg(reinterpret_cast<const float4*>(p) + q)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        const int k = k0 + 4 * q;
+        xv[q] = make_float4(in && k < K ? p[4 * q] : 0.f, in && k + 1 < K ? p[4 * q + 1] : 0.f,
+                            in && k + 2 < K ? p[4 * q + 2] : 0.f,
+                            in && k + 3 < K ? p[4 * q + 3] : 0.f);
+      }
+    }
+  };
+  auto store = [&](int g) {
+    bf16* dst = bt + (g & 1) * X_BUF + xh * 3 * X_BT;
+    uint32_t p1[8], p2[8], p3[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      split3(xv[q].x, xv[q].y, p1[2 * q], p2[2 * q], p3[2 * q]);
+      split3(xv[q].z, xv[q].w, p1[2 * q + 1], p2[2 * q + 1], p3[2 * q + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = tile_offset(xr, 8 * h);
+      *reinterpret_cast<uint4*>(dst + at) =
+          make_uint4(p1[4 * h], p1[4 * h + 1], p1[4 * h + 2], p1[4 * h + 3]);
+      *reinterpret_cast<uint4*>(dst + X_BT + at) =
+          make_uint4(p2[4 * h], p2[4 * h + 1], p2[4 * h + 2], p2[4 * h + 3]);
+      *reinterpret_cast<uint4*>(dst + 2 * X_BT + at) =
+          make_uint4(p3[4 * h], p3[4 * h + 1], p3[4 * h + 2], p3[4 * h + 3]);
+    }
+  };
+  load(0);
+  store(0);
+  load(1);
+  fence_proxy_async();
+  __syncthreads();
+
+  const int cA = wg * 64 + warp * 16 + gid;  // this thread's columns of the slice: cA, cA + 8
+  float acc[X_BX / 2], sum[X_BX / 2];
+  for (int g = 0; g < chunks; ++g) {
+    const int c = g % NC;
+    // the chunk's products, from zero into acc: per k16 step the five
+    // smaller ones, then the largest; steps past KS read W's last
+    // fragments against B's zeros, so no wgmma sits in a branch
+    uint32_t a1[2][4], a2[2][4], a3[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4* f = reinterpret_cast<const float4*>(
+          wf + ((size_t)min(2 * c + j, KS - 1) * X_THREADS + tid) * 8);
+      const float4 lo4 = f[0], hi4 = f[1];
+      split3(lo4.x, lo4.y, a1[j][0], a2[j][0], a3[j][0]);
+      split3(lo4.z, lo4.w, a1[j][1], a2[j][1], a3[j][1]);
+      split3(hi4.x, hi4.y, a1[j][2], a2[j][2], a3[j][2]);
+      split3(hi4.z, hi4.w, a1[j][3], a2[j][3], a3[j][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bf16* q1 = bt + (g & 1) * X_BUF + j * 3 * X_BT;
+      const bf16* q2 = q1 + X_BT;
+      const bf16* q3 = q2 + X_BT;
+      WgmmaBf16<X_BX>::run(acc, a3[j], desc(q1), j > 0);
+      WgmmaBf16<X_BX>::run(acc, a1[j], desc(q3), 1);
+      WgmmaBf16<X_BX>::run(acc, a2[j], desc(q2), 1);
+      WgmmaBf16<X_BX>::run(acc, a2[j], desc(q1), 1);
+      WgmmaBf16<X_BX>::run(acc, a1[j], desc(q2), 1);
+      WgmmaBf16<X_BX>::run(acc, a1[j], desc(q1), 1);
+    }
+    wgmma_commit();
+    // the next chunk's B tiles while these products run (both warpgroups'
+    // groups g - 1 read that buffer: done before the last barrier), and the
+    // one after's loads
+    if (g + 1 < chunks) {
+      store(g + 1);
+      load(g + 2);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // the chunk's sum, added in f32 (the tensor core's accumulation, chained
+    // over the chunks of a tile, put values past 1e-5 of the f64 product)
+#pragma unroll
+    for (int i = 0; i < X_BX / 2; ++i) sum[i] = (c == 0 ? 0.f : sum[i]) + acc[i];
+    if (c == NC - 1) {
+      // xg (row n, column m) = sum of D[m][n] + bias[m]: per n8 group j,
+      // rows 8 j + 2 tig (+1) of the tile; the 8 lanes of a tig write 8
+      // neighbouring columns of a row (32 bytes)
+      const int tile = blockIdx.y + g / NC * gridDim.y;
+#pragma unroll
+      for (int j = 0; j < X_BX / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = tile * X_BX + 8 * j + 2 * tig + e;
+          if (r >= M) continue;
+          float* row = out + (size_t)r * N + col0;
+          if (col0 + cA < N) row[cA] = sum[4 * j + e] + bias[cA];
+          if (col0 + cA + 8 < N) row[cA + 8] = sum[4 * j + 2 + e] + bias[cA + 8];
+        }
+      }
+    }
+    fence_proxy_async();  // the next chunk's B tiles, to the tensor cores ...
+    __syncthreads();      // ... once every thread stored its part and read this chunk's
+  }
+}
+
+// ---- the mma.sync kernel (f32 352 < E <= 452, bf16 past 544): 32 x 32 tiles
 
 constexpr int THREADS = 256;  // 8 warps: 2 x 4 warps of 16 x 8
 constexpr int NBM = 32, NBN = 32;
@@ -777,6 +995,13 @@ int run(const float* x, const float* w, const float* b, float* out, int M, int K
   if (wide_smem(K) <= SMEM_LIMIT)
     return launch(gru_input_proj_wgmma, WG * WGS, wide_smem(K), BM, BN, WGS, x, w, b, out, M, K,
                   N, s);
+  if (xt_smem(K) <= SMEM_LIMIT) {
+    if (K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+      return launch(gru_input_proj_xt<true>, X_THREADS, xt_smem(K), X_BX, X_BM, 1, x, w, b, out,
+                    M, K, N, s);
+    return launch(gru_input_proj_xt<false>, X_THREADS, xt_smem(K), X_BX, X_BM, 1, x, w, b, out,
+                  M, K, N, s);
+  }
   return run_narrow(x, w, b, out, M, K, N, s, false);
 }
 
