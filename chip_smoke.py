@@ -138,10 +138,19 @@
    UMPR-R and full UMPR at 224 px, f32 and bf16, each artifact against
    the Predictor's model (1e-4 in f32, 0.08 in bf16) and timed beside
    it, and a UMPR-R artifact traced on the CPU moved to the card (1e-5).
+14b. ROADMAP A7, data parallelism (``parallel_phase``): UMPR-R through
+   ``umpr_tpu_torch.main`` as two gloo ranks sharing the card (each rank a
+   ``chip_smoke.py --rank_run`` process writing to files, every wait
+   bounded) against one rank: ranks bit-equal, within 1e-5 of one rank,
+   best/ and last/ written by rank 0 alone, K1-K4 in each rank, ms per
+   step of both (correctness, not scaling); then a world of one on NCCL at
+   ``--steps_per_dispatch 4``: its all-reduce captured in the graph, the
+   bits of the run without a process group.
 15. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
    ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line,
    ``{"streaming_build": ...}``, ``{"bf16": ...}``, ``{"bf16_paths":
-   ...}``, ``{"export": ...}`` and a ``{"kernels": [...]}`` line
+   ...}``, ``{"export": ...}``, ``{"parallel": ...}`` and a
+   ``{"kernels": [...]}`` line
    (launches: each kernel's main path -- the full-UMPR run for K1-K6, the
    long-history training for K7/K8, the input-gradient run for K9, bf16
    UMPR-R training for the bf16 K1-K4 rows, bf16 full UMPR with the fused
@@ -187,6 +196,7 @@ import itertools
 import json
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -213,7 +223,7 @@ from umpr_tpu_torch.ops.gru import BiGRU, bigru_split
 from umpr_tpu_torch import serve
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train import checkpoint as ckpt
-from umpr_tpu_torch.train.optim import make_optimizer
+from umpr_tpu_torch.train.optim import BETA2, make_optimizer
 from umpr_tpu_torch.train.step import evaluate_mse, train_step
 
 REPO = Path(__file__).resolve().parent
@@ -3872,7 +3882,7 @@ def a5_accum_and_remat(device_name, trainer, train, cfg):
     then remat at --steps_per_dispatch 2 (a graph of 2 steps) against 2
     remat steps at k = 1: the same bits."""
     from umpr_tpu_torch.models.visual_net import keep_masks
-    from umpr_tpu_torch.train.optim import make_optimizer
+    from umpr_tpu_torch.train.optim import BETA2, make_optimizer
     from umpr_tpu_torch.train.step import MultiTrainStep, train_step_accum
     model, dev, px = trainer.model, trainer.device, cfg.photo_size
     vgg = model.visual_net.vgg16
@@ -5261,7 +5271,304 @@ def export_phase(device_name):
     return out
 
 
+PARALLEL_TIMEOUT = 300  # seconds that a world of parallel_phase may take
+PARALLEL_STEP_ITERS = 10  # back-to-back train steps timed in each run
+
+
+def start_procs(cmds, outs, cwds=None, env=None, timeout=PARALLEL_TIMEOUT):
+    """One process per command in `cmds`, its output (stdout and stderr)
+    to the file in `outs`, never to a pipe: a rank blocked on a full pipe
+    would block the others inside a collective.  `cwds`: each process's
+    working directory (default this repo).  -> the handle for
+    finish_procs, with a deadline `timeout` seconds from now."""
+    procs = []
+    for i, (cmd, out) in enumerate(zip(cmds, outs)):
+        log = open(out, "w")
+        procs.append((subprocess.Popen(cmd, cwd=REPO if cwds is None else cwds[i], env=env,
+                                       stdout=log, stderr=subprocess.STDOUT), log, Path(out)))
+    return procs, time.monotonic() + timeout
+
+
+def finish_procs(started, check=True):
+    """Wait for the processes of start_procs until their deadline; any
+    left then is killed.  With `check`, the first process that fails has
+    the others killed at once (they would wait in a collective) and the
+    tails of every output raise; without it every process may end on its
+    own.  -> [(exit code, output tail)]."""
+    procs, deadline = started
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p, _, _ in procs]
+            if None not in codes or (check and any(codes)):
+                break
+            time.sleep(0.1)
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    out = [(p.returncode, out.read_text()[-4000:]) for p, _, out in procs]
+    if check and any(rc for rc, _ in out):
+        raise AssertionError("\n".join(f"--- process {i} of {len(out)} exited {rc}; its "
+                                       f"output's tail:\n{tail}"
+                                       for i, (rc, tail) in enumerate(out)))
+    return out
+
+
+def grad_rms(opt):
+    """Each trainable parameter's RMS gradient over a run as the port's
+    Adam saw it (the L2 term included): sqrt(nu / (1 - beta2^t)), the
+    denominator of its updates."""
+    c2 = 1 - BETA2 ** int(opt.count)
+    return {n: np.sqrt(opt.state[p]["exp_avg_sq"].detach().cpu().numpy() / c2)
+            for n, p in zip(opt.names, opt.params)}
+
+
+def param_gaps(got, want, rms, n=3):
+    """The `n` leaves of `want` (name -> array) whose elements lie farthest
+    from `got`'s, relatively, each with that element's gap, its value and
+    its RMS gradient in `rms` (want's run) beside the leaf's median RMS
+    gradient; and the count of elements past rtol 1e-5 + atol 1e-7 (the
+    elementwise gate of tests/test_parallel.py)."""
+    rows, past = [], 0
+    for k, v in want.items():
+        gap = np.abs(got[k] - v)
+        rel = gap / np.maximum(np.abs(v), 1e-30)
+        j = int(np.argmax(rel))
+        past += int((gap > 1e-5 * np.abs(v) + 1e-7).sum())
+        rows.append({"leaf": k, "rel": float(rel.flat[j]), "gap": float(gap.flat[j]),
+                     "value": float(v.flat[j]), "grad_rms": float(rms[k].flat[j]),
+                     "leaf_median_grad_rms": float(np.median(rms[k]))})
+    return sorted(rows, key=lambda r: -r["rel"])[:n], past
+
+
+def rank_run(out, argv):
+    """One rank of parallel_phase (or its whole run in a world of 1):
+    ``umpr_tpu_torch.main.main(argv)`` with the launch counts zeroed before
+    it and read after it, counting train/step.py's gradient all-reduces
+    (eager or inside a CUDA graph's capture) and the checkpoint writes;
+    then, with the process group still up, the ms per train step on this
+    rank's rows of one global batch (CUDA events, back to back, every rank
+    alike; in a world of one also without the all-reduce, in turns).  Writes ``<out>.json`` and, in ``<out>.npz``, the trainable
+    parameters (``p/<name>``) and their RMS gradients over the run
+    (``g/<name>``)."""
+    from umpr_tpu_torch.data.loader import BatchLoader as Loader
+    from umpr_tpu_torch.parallel import multihost
+    from umpr_tpu_torch.train import step as step_module
+    reduces = {"eager": 0, "captured": 0}
+    reduce_gradients = step_module.reduce_gradients
+
+    def counted(*args):
+        reduces["captured" if torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return reduce_gradients(*args)
+
+    writes, save_items = [], ckpt.save_items
+    step_module.reduce_gradients = counted
+    ckpt.save_items = lambda path, *a, **k: writes.append(Path(path).name) or save_items(
+        path, *a, **k)
+    try:
+        with main_path_counts() as (launches, plain_calls):
+            trainer = train_main.main(argv)
+    finally:
+        step_module.reduce_gradients, ckpt.save_items = reduce_gradients, save_items
+    cfg = trainer.config
+    np.savez(out + ".npz", **{f"p/{n}": p.detach().cpu().numpy()
+                              for n, p in trainer.model.named_parameters() if p.requires_grad},
+             **{f"g/{n}": g for n, g in grad_rms(trainer.opt).items()})
+    graph = getattr(getattr(trainer, "multi_train_step", None), "graph", None)
+    ds = build_dataset(str(Path(cfg.data_dir) / "train.csv"),
+                       str(Path(cfg.data_dir) / "photos.json"),
+                       str(Path(cfg.data_dir) / "photos"), Word2vec(cfg.word2vec_file), cfg)
+    batch = multihost.put_local(next(iter(Loader(ds, cfg.batch_size))), trainer.device,
+                                trainer._rows)
+    def timed(mesh):
+        step = lambda: train_step(trainer.model, trainer.opt, batch, mesh=mesh)
+        if trainer.device.type == "cuda":
+            return time_cuda(step, iters=PARALLEL_STEP_ITERS)
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_STEP_ITERS):
+            step()
+        return (time.perf_counter() - t0) / PARALLEL_STEP_ITERS * 1e3
+
+    ms = timed(trainer.mesh)
+    # a world of one: the same step without its all-reduce, in turns with
+    # it in this process (the all-reduce's own cost, host noise shared)
+    turns = None
+    if trainer.mesh is not None and multihost.world_size() == 1:
+        turns = [timed(m) for m in (None, trainer.mesh, trainer.mesh, None)]
+    json.dump({"rank": multihost.rank(), "world": multihost.world_size(),
+               "backend": multihost.collective_backend(), "steps": trainer.batch_counter,
+               "launches": launches, "plain_calls": plain_calls[0], "reduces": reduces,
+               "writes": writes, "graph_replays": None if graph is None else graph.replays,
+               "ms_per_step": ms, "ms_turns_without_with_with_without": turns,
+               "rows": None if trainer._rows is None else
+               [trainer._rows.start, trainer._rows.stop]}, open(out + ".json", "w"))
+    multihost.shutdown()
+
+
+def rank_result(out):
+    """rank_run's result at `out`: its JSON, ``params`` and ``grad_rms``."""
+    r = json.load(open(out + ".json"))
+    with np.load(out + ".npz") as z:
+        for key, prefix in (("params", "p/"), ("grad_rms", "g/")):
+            r[key] = {k[2:]: z[k] for k in z.files if k.startswith(prefix)}
+    return r
+
+
+def start_ranks(work, n, argv, group=False):
+    """`n` processes of ``chip_smoke.py --rank_run`` over `argv` in `work`,
+    as one world when `group` (an explicit coordinator: n = 1 forms a
+    world of one) or as a run without a process group."""
+    work.mkdir(parents=True)
+    argv = list(argv) + ["--model_path", str(work / "model"), "--log_path",
+                         str(work / "train.log"), "--metrics_jsonl", str(work / "metrics.jsonl")]
+    if group:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            argv += ["--coordinator_address", f"127.0.0.1:{sock.getsockname()[1]}",
+                     "--num_processes", str(n)]
+    cmds = [[sys.executable, str(REPO / "chip_smoke.py"), "--rank_run", str(work / f"rank{i}"),
+             "--", *argv, *(["--process_id", str(i)] if group else [])] for i in range(n)]
+    return work, start_procs(cmds, [work / f"rank{i}.out" for i in range(n)])
+
+
+def wait_ranks(started):
+    """Each rank's rank_result; a failed rank or the deadline kills every
+    rank and raises with the outputs' tails."""
+    work, procs = started
+    finish_procs(procs)
+    return [rank_result(str(work / f"rank{i}")) for i in range(len(procs[0]))]
+
+
+def _metrics(work):
+    return [{k: v for k, v in json.loads(line).items() if k not in ("ts", "elapsed_s")}
+            for line in open(work / "metrics.jsonl")]
+
+
+def parallel_phase(device_name, extra=()):
+    """ROADMAP A7 on one card, through ``umpr_tpu_torch.main``
+    (``rank_run``) at the reference widths (B = 64, S = L = 20, E = 50, H =
+    64, streamed):
+    (a) UMPR-R, one epoch (5 steps) with an evaluation every 2, as two
+        gloo ranks sharing the card and as a run without a process group
+        (in this process, after them):
+        the ranks' parameters and logged lines bit-equal, the parameters
+        within 1e-5 (l2, per tensor) and the logged values within rtol
+        1e-5 of the 1-rank run's (the leaves farthest apart elementwise
+        printed beside their RMS gradients); best/ and last/ written by
+        rank 0 alone,
+        as often as by the 1-rank run; K1-K4 launched in each rank (K3 and
+        K4 once a train step) and no plain version;
+    (b) a world of one on NCCL (an explicit coordinator, --num_processes
+        1) at --steps_per_dispatch 4, 2 epochs: the gradient all-reduce
+        captured in the graph of 4 steps and replayed, and the same bits
+        (parameters, logged values) as the same run without a process
+        group, which calls no all-reduce; the two run in turn, so that
+        each one's eager step time is its own on the card.
+    Each world is a set of processes writing to files, each wait bounded
+    by PARALLEL_TIMEOUT; a failed rank kills the others and the logs'
+    tails are printed.  `extra`: flags for every run (a CPU rehearsal passes
+    ``("--device", "cpu")``; it then expects gloo and no capture).
+    Returns the {"parallel": ...} numbers."""
+    work = WORK / "parallel"
+    if work.exists():
+        shutil.rmtree(work)
+    glove = write_splits(work / "data", seed=1, shards=5)
+    base = ["--review_net_only", "True", "--data_dir", str(work / "data"),
+            "--word2vec_file", str(glove), "--learning_rate", "1e-3", *STREAMING, *extra]
+    on_card = "--device" not in extra
+    t0 = time.perf_counter()
+    a = base + ["--train_epochs", "1", "--eval_every", "2"]
+    two = wait_ranks(start_ranks(work / "two_gloo", 2, a, group=True))
+    # the 1-rank run here, in this process (no process group): one process
+    # start less
+    (work / "one").mkdir()
+    rank_run(str(work / "one" / "rank0"), a + [
+        "--model_path", str(work / "one" / "model"), "--log_path", str(work / "one" / "train.log"),
+        "--metrics_jsonl", str(work / "one" / "metrics.jsonl")])
+    one = rank_result(str(work / "one" / "rank0"))
+    a_s = time.perf_counter() - t0
+    logs = [re.findall(r"train loss [0-9.]+|mse [a-z ]*[0-9.]+",
+                       (work / "two_gloo" / f"train.p{i}.log").read_text()) for i in range(2)]
+    ranks_equal = logs[0] == logs[1] and len(logs[0]) >= 3 and all(
+        np.array_equal(two[1]["params"][k], v) for k, v in two[0]["params"].items())
+    l2 = {k: float(np.linalg.norm(two[0]["params"][k] - v) / np.linalg.norm(v))
+          for k, v in one["params"].items()}
+    gaps, past = param_gaps(two[0]["params"], one["params"], one["grad_rms"])
+    worst = gaps[0]["rel"]
+    got, want = _metrics(work / "two_gloo"), _metrics(work / "one")
+    values = [(e[k], f[k]) for e, f in zip(got, want) for k in ("train_loss", "valid_mse",
+                                                                 "test_mse") if k in f]
+    value_rel = max(abs(x - y) / abs(y) for x, y in values)
+    print(f"parallel (a) on {device_name}: UMPR-R, 2 gloo ranks sharing the card against 1 "
+          f"rank, {one['steps']} steps, {a_s:.1f} s (host clock, both runs, process starts "
+          f"included): ranks bit-equal {ranks_equal}; {len(values)} logged values within "
+          f"{value_rel:.3e} (rtol 1e-5); parameters l2 {max(l2.values()):.3e} (1e-5), "
+          f"elementwise {worst:.3e} ({past} elements past rtol 1e-5 + atol 1e-7); the "
+          f"farthest leaves, each element beside its RMS gradient in the 1-rank run: "
+          + "; ".join(f"{g['leaf']} {g['rel']:.3e} (|gap| {g['gap']:.3e} at |value| "
+                      f"{abs(g['value']):.3e}, RMS gradient {g['grad_rms']:.3e}, the leaf's "
+                      f"median {g['leaf_median_grad_rms']:.3e})" for g in gaps)
+          + f"; writes rank 0 {two[0]['writes']}, rank 1 "
+          f"{two[1]['writes']}, 1-rank run {one['writes']}; K1-K4 launches rank 0 "
+          + str({k: two[0]["launches"][k] for k in FORWARD + GRU_BACKWARD}) + ", rank 1 "
+          + str({k: two[1]["launches"][k] for k in FORWARD + GRU_BACKWARD}))
+    for r in two:
+        counts = r["launches"]
+        if not (r["backend"] == "gloo" and r["world"] == 2 and not r["plain_calls"]
+                and (not on_card or counts["bigru_backward"] == counts["gru_input_proj_bwd"]
+                     == r["steps"] and counts["gru_input_proj"] == counts["bigru_recurrence"]
+                     > r["steps"])):
+            raise AssertionError(f"rank {r['rank']} did not run K1-K4 on gloo: {r}")
+    if not (ranks_equal and [e["event"] for e in got] == [e["event"] for e in want]
+            and value_rel <= 1e-5 and max(l2.values()) <= 1e-5 and two[0]["steps"] == one["steps"]
+            and two[1]["writes"] == [] and two[0]["writes"] == one["writes"]
+            and one["writes"].count("best") >= 1):
+        raise AssertionError("2 ranks on one card disagree with 1 rank")
+
+    t0 = time.perf_counter()
+    b = base + ["--train_epochs", "2", "--eval_every", "4", "--steps_per_dispatch", "4"]
+    # one after the other, so that each times its eager steps alone on the card
+    nccl = wait_ranks(start_ranks(work / "world_of_one", 1, b, group=True))[0]
+    plain = wait_ranks(start_ranks(work / "no_group", 1, b))[0]
+    b_s = time.perf_counter() - t0
+    bits = all(np.array_equal(nccl["params"][k], v) for k, v in plain["params"].items())
+    same_log = _metrics(work / "world_of_one") == _metrics(work / "no_group")
+    turns = nccl["ms_turns_without_with_with_without"]
+    print(f"parallel (b) on {device_name}: a world of one on {nccl['backend']} at "
+          f"--steps_per_dispatch 4, {nccl['steps']} steps, {b_s:.1f} s (host clock, both runs "
+          f"in turn): all-reduces {nccl['reduces']}, graph replays {nccl['graph_replays']}; "
+          f"without a group {plain['reduces']}; parameters bit-equal {bits}, logged values "
+          f"bit-equal {same_log}; eager steps (k = 1, each run alone on the card) "
+          f"{nccl['ms_per_step']:.3f} ms in the world of one, {plain['ms_per_step']:.3f} without "
+          f"a group; in the world of one's process, in turns, without / with / with / without "
+          f"its all-reduce: " + " / ".join(f"{t:.3f}" for t in turns) + " ms")
+    captured = 4 if on_card else 0
+    if not (bits and same_log and nccl["backend"] == ("nccl" if on_card else "gloo")
+            and nccl["reduces"]["captured"] == captured and nccl["reduces"]["eager"] > 0
+            and (not on_card or nccl["graph_replays"] >= 2)
+            and plain["reduces"] == {"eager": 0, "captured": 0} and plain["backend"] is None):
+        raise AssertionError("the NCCL world of one differs from the run without a group")
+    return {"card": device_name,
+            "umpr_r_ms_per_step_two_gloo_ranks_sharing_one_card": [r["ms_per_step"] for r in two],
+            "umpr_r_ms_per_step_one_rank": one["ms_per_step"],
+            "umpr_r_ms_per_step_world_of_one": nccl["ms_per_step"],
+            "umpr_r_ms_per_step_no_group": plain["ms_per_step"],
+            "world_of_one_ms_in_turns_without_with_with_without_all_reduce": turns,
+            "note": "two gloo ranks on one shared card check correctness, not scaling",
+            "steps": {"two_gloo": one["steps"], "world_of_one": nccl["steps"]},
+            "max_value_rel": value_rel, "max_param_l2_rel": max(l2.values()),
+            "max_param_elementwise_rel": worst, "params_past_elementwise_gate": past,
+            "farthest_leaves": gaps, "reduces_world_of_one": nccl["reduces"],
+            "seconds": {"a": round(a_s, 1), "b": round(b_s, 1)}}
+
+
 def main():
+    if sys.argv[1:2] == ["--rank_run"] and sys.argv[3:4] == ["--"]:  # parallel_phase's ranks
+        rank_run(sys.argv[2], sys.argv[4:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5389,6 +5696,8 @@ def main():
     # route, the bf16 scan) and A6 (export)
     bf16_path_launches, bf16_paths = phase("bf16 paths", bf16_paths_phase, card)
     exported = phase("export", export_phase, card)
+    # ROADMAP A7: data-parallel ranks through main, on the one card
+    parallel = phase("parallel", parallel_phase, card)
     for k in kernels:
         k["launches_umpr_r_training_k4"] = dispatch["umpr_r_training"]["launches_on_card"][
             k["name"]]
@@ -5422,6 +5731,7 @@ def main():
     print(json.dumps({"bf16": {k: v for k, v in bf16.items() if k != "launches_bf16"}}))
     print(json.dumps({"bf16_paths": bf16_paths}))
     print(json.dumps({"export": exported}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -10,7 +10,10 @@ Differences from the JAX package:
 - ``device`` defaults to ``"cuda"``.  A CUDA device that is not there
   raises; nothing carries on on the CPU.  ``--device cpu`` is the only way
   onto the CPU.
-- ``multi_gpu`` defaults to False (the port runs on one card).
+- ``multi_gpu`` defaults to False, where the JAX package's is True:
+  training takes one rank per visible card under ``--multi_gpu True``
+  (``parallel/``), but serving does not spread over cards yet (ROADMAP
+  A7b), so the default keeps both on one card until it does.
 - ``use_pallas False`` raises: the card always runs the port's CUDA
   kernels, and only ``--device cpu`` runs their plain versions.
 - Every flag that nothing in the port reads yet keeps its name and
@@ -26,11 +29,14 @@ import ast
 
 import torch
 
+from umpr_tpu_torch.parallel.mesh import check_layout
+from umpr_tpu_torch.parallel.multihost import local_cards, planned_world
+
 
 class Config:
     # ----- training schedule -----
     device = "cuda"  # "cuda" | "cuda:<n>" | "cpu"
-    multi_gpu = False  # True over more than one card: ROADMAP A7
+    multi_gpu = False  # True: training takes one rank per card (serving: A7b)
     train_epochs = 20
     batch_size = 64
     learning_rate = 1e-6
@@ -143,7 +149,10 @@ class Config:
                 raise NotImplementedError(
                     f"--{key} {getattr(self, key)!r} is not ported yet "
                     f"({item}); only its default {defaults[key]!r} is taken")
-        self.torch_device = resolve_device(self.device, self.multi_gpu)
+        self.torch_device = resolve_device(self.device)
+        # the world the flags ask for must fit --mesh_shape and the batch
+        world = planned_world(self.num_processes, local_cards(self.device, self.multi_gpu))
+        check_layout(self.mesh_shape, self.batch_size, world)
 
     @classmethod
     def _attributes(cls):
@@ -166,16 +175,13 @@ class Config:
 NOT_PORTED = {
     # orbax is a JAX library: the port reads and writes npz only
     "checkpoint_backend": "ROADMAP A4, training: orbax checkpoints",
-    **dict.fromkeys((
-        "mesh_shape", "shard_embedding", "coordinator_address",
-        "num_processes", "process_id",
-    ), "ROADMAP A7, parallelism"),
 }
 
 
-def resolve_device(name, multi_gpu=False):
-    """``--device`` -> torch.device.  A CUDA device must exist: this raises
-    instead of running on the CPU."""
+def resolve_device(name):
+    """``--device`` -> torch.device, made the current CUDA device where it
+    is one (a rank of ``--multi_gpu True`` gets ``cuda:<local rank>``).  A
+    CUDA device must exist: this raises instead of running on the CPU."""
     device = torch.device(name)
     if device.type == "cpu":
         return device
@@ -185,8 +191,6 @@ def resolve_device(name, multi_gpu=False):
         raise RuntimeError(
             f"--device {name} asks for a CUDA device and none is available; "
             "pass --device cpu to run on the CPU")
-    if multi_gpu and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--multi_gpu True over {torch.cuda.device_count()} devices is "
-            "not ported yet (ROADMAP A7); pass --multi_gpu False")
+    if device.index is not None:
+        torch.cuda.set_device(device)
     return device

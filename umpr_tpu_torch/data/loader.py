@@ -32,14 +32,18 @@ class BatchLoader:
     with `shuffle`, in one permutation of the samples drawn per iteration
     from ``np.random.default_rng(seed)`` (the JAX loader's order for the
     same seed).  `start_batch` skips that many batches of the order.
-    `resize` is the photos' (width, height)."""
+    `resize` is the photos' (width, height).  `photo_rows` (a slice of
+    the batch: a rank's row block, parallel/) decodes only those rows'
+    photos; the others stay zeros, which that rank never reads."""
 
     def __init__(self, dataset, batch_size, shuffle=False, seed=0, start_batch=0,
-                 ignore_photos=True, resize=(224, 224), workers=0, photo_cache=None):
+                 ignore_photos=True, resize=(224, 224), workers=0, photo_cache=None,
+                 photo_rows=None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.start_batch = start_batch
+        self.photo_rows = photo_rows
         self.ignore_photos = ignore_photos
         self.resize = resize
         self.photo_cache = photo_cache
@@ -65,6 +69,10 @@ class BatchLoader:
         if not self.ignore_photos:
             paths = self.ds.photo_paths[idx]  # a private copy (fancy indexing)
             paths[n_real:] = ""
+            if self.photo_rows is not None:
+                keep = np.zeros(b, dtype=bool)
+                keep[self.photo_rows] = True
+                paths[~keep] = ""
             batch["photos"] = load_photo_batch(paths, self.resize, self._executor,
                                                self.photo_cache)
         return batch
@@ -94,8 +102,8 @@ def with_photo_idx(batches, photo_idx):
 
 
 def to_device(batch, device):
-    """numpy batch -> dict of tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    """numpy batch -> dict of tensors on `device` (0-d arrays stay 0-d)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).reshape(np.shape(v)).to(device)
             for k, v in batch.items()}
 
 
@@ -126,7 +134,10 @@ def prefetch_iter(iterator, depth=2):
     """Run `iterator` in a background thread, `depth` items ahead.
 
     When the consumer stops early, the worker sees the stop flag at its
-    next bounded put and exits, releasing the queued items."""
+    next bounded put and exits, releasing the queued items; closing the
+    generator waits for that.  A thread still running at the
+    interpreter's exit can abort the process (a daemon thread stopped
+    inside a torch call)."""
     q = queue.Queue(maxsize=depth)
     sentinel = object()
     err = []
@@ -163,3 +174,5 @@ def prefetch_iter(iterator, depth=2):
             yield item
     finally:
         stop.set()
+        if t is not threading.current_thread():  # a collector may run this anywhere
+            t.join()

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -49,3 +50,39 @@ class Conv1dSame(nn.Conv1d):
 
     def forward(self, x):
         return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class ShardedEmbedding(nn.Module):
+    """A frozen embedding table split by rows over a process group
+    (``--shard_embedding``; the JAX trainer's vocab-sharded table,
+    trainer.py:173-195).  The table is padded with zero rows to a multiple
+    of the group's size; shard i keeps rows [i*R, (i+1)*R) as ``weight``.
+
+    A lookup gathers the token ids of every rank of the group, reads the
+    rows in its own range, and sums the group's results, of which each
+    rank keeps its own.  The sum runs on the values' bits as int32: every
+    value comes from exactly one shard and the rest add 0, so the lookup
+    gives the replicated table's bits, -0.0 and NaN included (a bf16
+    table is widened to f32 for it and back, exactly).  The table is
+    frozen: no backward runs through the collectives."""
+
+    def __init__(self, table, group):
+        super().__init__()
+        self.group = group
+        self.shards, self.shard = dist.get_world_size(group), dist.get_rank(group)
+        vocab, dim = table.shape
+        self.rows = -(-vocab // self.shards)
+        block = table[self.shard * self.rows:(self.shard + 1) * self.rows]
+        pad = block.new_zeros(self.rows - block.shape[0], dim)
+        self.weight = nn.Parameter(torch.cat([block, pad]).clone(), requires_grad=False)
+
+    def forward(self, ids):
+        ids = ids.contiguous()
+        parts = [torch.empty_like(ids) for _ in range(self.shards)]
+        dist.all_gather(parts, ids, group=self.group)
+        local = torch.stack(parts) - self.shard * self.rows
+        own = (local >= 0) & (local < self.rows)
+        rows = self.weight[torch.where(own, local, 0)].float()
+        bits = torch.where(own[..., None], rows, 0.0).view(torch.int32)
+        dist.all_reduce(bits, group=self.group)
+        return bits[self.shard].view(torch.float32).to(self.weight.dtype)

@@ -4,8 +4,10 @@
 - The GloVe table is frozen and is a checkpoint leaf.
 - Runtime batch maxima give the exists masks, so a statically padded batch
   scores like the reference's dynamically padded one; ``pad_maxima`` in the
-  batch pins them instead (serving pins them to the full padding).
-- The MSE is a mask-weighted mean over real samples.  Full UMPR adds
+  batch pins them instead (serving pins them to the full padding; a rank's
+  row block of a global batch takes the global batch's, parallel/).
+- The MSE is a mask-weighted mean over real samples (over the global
+  batch's ``sample_count`` where the batch carries one).  Full UMPR adds
   ``loss_v_rate * loss_v``, loss_v the mean of the cross-batch (V, V)
   product prefer^T @ match (reference model.py:276).
 - Dead rows are dropped with selects before every product they reach:
@@ -153,7 +155,7 @@ class UMPR(nn.Module):
         rn = self.review_net(both_emb, u_len, i_len, exists)
         if self.dims.review_net_only:
             prediction = _widen(F.relu(self.linear_fusion(rn))[:, 0])
-            loss = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
+            loss = masked_sq_sum(prediction, labels, mask) / _sample_count(batch, mask)
             return prediction, loss, {"loss_r": loss}
 
         ui_tok, ui_len = batch["ui_tokens"], batch["ui_lengths"]
@@ -172,7 +174,7 @@ class UMPR(nn.Module):
         alive = mask[:, None] > 0
         fused = torch.where(alive, torch.cat([rn, final_pos, final_neg], dim=-1), 0.0)
         prediction = _widen(F.relu(self.linear_fusion(fused))[:, 0])
-        loss_r = masked_sq_sum(prediction, labels, mask) / mask.sum().clamp(min=1.0)
+        loss_r = masked_sq_sum(prediction, labels, mask) / _sample_count(batch, mask)
         # cross-batch (V, B) @ (B, V) in f32: dead rows selected out of both
         # operands
         prefer_pos, prefer_neg, pos_match, neg_match = (
@@ -181,6 +183,14 @@ class UMPR(nn.Module):
         loss_v = (prefer_pos.t() @ pos_match + prefer_neg.t() @ neg_match).mean()
         loss = loss_r + self.dims.loss_v_rate * loss_v
         return prediction, loss, {"loss_r": loss_r, "loss_v": loss_v}
+
+
+def _sample_count(batch, mask):
+    """The MSE's normaliser: the batch's count of real samples or, for a
+    rank's row block, the global batch's (``sample_count``).  loss_v needs
+    none: its product sums over the rows, so the ranks' terms add up."""
+    n = batch.get("sample_count")
+    return (mask.sum() if n is None else n).clamp(min=1.0)
 
 
 def _widen(t):

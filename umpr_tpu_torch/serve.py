@@ -63,6 +63,7 @@ from umpr_tpu_torch.data.images import PhotoCache, load_photo_batch
 from umpr_tpu_torch.data.loader import (FIELDS, BatchLoader, chunk_stream, prefetch_iter,
                                         to_device, with_photo_idx)
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
+from umpr_tpu_torch.parallel.multihost import local_cards, planned_world
 from umpr_tpu_torch.text.vocab import Word2vec
 from umpr_tpu_torch.train import checkpoint as ckpt
 from umpr_tpu_torch.train import step
@@ -79,6 +80,15 @@ class Predictor:
     def __init__(self, config, word2vec, model_path):
         self.config = config
         self.device = config.torch_device
+        cards = local_cards(config.device, config.multi_gpu)
+        if cards > 1 or planned_world(config.num_processes) > 1 or config.coordinator_address:
+            # training spreads over ranks (parallel/); a Predictor stays one
+            # process on one card until serving is split over them too
+            raise NotImplementedError(
+                f"serving over {planned_world(config.num_processes, cards)} rank(s) "
+                f"(--multi_gpu {config.multi_gpu} over {cards} card(s), "
+                f"--num_processes {config.num_processes}) is not ported yet (ROADMAP "
+                "A7b); serve with --multi_gpu False on one card")
         if self.device.type == "cuda":
             set_f32_parity()
         model = UMPR(ModelDims.from_config(config), word2vec.embedding,

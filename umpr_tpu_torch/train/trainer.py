@@ -62,7 +62,26 @@ last chunk with all-dead batches, which add (0, 0); any other split
 ``step.train_step_accum`` over k micro-batches; it streams (``on`` is
 then logged as not honoured) and excludes ``--steps_per_dispatch``.
 
-Not ported (their flags raise, ROADMAP A7): multi-host runs.
+Data parallelism (``parallel/``, ROADMAP A7): after
+``multihost.initialize`` the Trainer lays out the mesh
+(``mesh.setup_runtime``) and every rank trains on its row block of each
+global batch, which every rank builds alike: streamed, it keeps its rows
+of the loader's batch (and decodes only their photos, ``photo_rows``);
+resident, it holds the whole corpus and gathers its rows of the global
+index on the device, inside the CUDA graph too.  Each block carries the
+global batch's pad maxima and sample count, and the steps sum the ranks'
+gradients, losses and evaluation parts over the ``dp`` group
+(train/step.py).  Dropout masks are drawn at the global batch's shape
+from the step's generator and each rank takes its rows, so the ranks'
+samples get the masks of the 1-rank run.  ``--shard_embedding`` splits the
+frozen table's rows over the mesh (models/layers.py ``ShardedEmbedding``).
+Files are the primary's: it alone writes ``best/``, ``last/`` and the
+metrics, each write followed by a named barrier; it reads ``--resume_path``
+and ``best/`` and broadcasts them, an error text first, so that a failed
+restore raises on every rank instead of leaving the others waiting; it
+decodes the photo bank and broadcasts it; and its save decisions are
+broadcast.  Checkpoint writes are synchronous in a world of more than one
+rank (as in the JAX trainer): a barrier announces a durable file.
 """
 
 from __future__ import annotations
@@ -81,7 +100,11 @@ from umpr_tpu_torch.convert import (adam_from_jax, adam_to_jax, params_from_jax,
                                     params_to_jax, shape_only)
 from umpr_tpu_torch.data.images import PhotoCache, load_photo_batch
 from umpr_tpu_torch.data.loader import BatchLoader, chunk_stream, prefetch_iter, to_device
+from umpr_tpu_torch.models.layers import ShardedEmbedding
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
+from umpr_tpu_torch.models.visual_net import keep_masks
+from umpr_tpu_torch.parallel import multihost
+from umpr_tpu_torch.parallel.mesh import setup_runtime
 from umpr_tpu_torch.serve import set_f32_parity
 from umpr_tpu_torch.train import checkpoint as ckpt
 from umpr_tpu_torch.train.optim import lr_at_epoch, make_optimizer
@@ -113,6 +136,22 @@ class Trainer:
         if self.k_accum < 1 or config.batch_size % self.k_accum:
             raise ValueError(f"--grad_accum_steps {self.k_accum} must be >= 1 and divide "
                              f"--batch_size {config.batch_size}")
+        self.world = multihost.world_size()
+        self.mesh = setup_runtime(config)
+        # this rank's row block of every global batch (None: the whole batch)
+        self._rows = None if self.mesh is None else self.mesh.rows(config.batch_size)
+        if self.mesh is not None:
+            logger.info(f"Data parallel: {self.mesh}.")
+            if self._rows is not None and (config.batch_size // self.mesh.dp) % self.k_accum:
+                raise ValueError(f"--grad_accum_steps {self.k_accum} must divide the "
+                                 f"{config.batch_size // self.mesh.dp} rows of a rank")
+            if (self.device.type == "cuda" and self.mesh.backend == "gloo"
+                    and self.k_dispatch > 1):
+                raise NotImplementedError(
+                    f"--steps_per_dispatch {self.k_dispatch} with gloo collectives on "
+                    "CUDA: a CUDA graph cannot capture gloo's all-reduce (it runs on "
+                    "the host), and ranks that share a card cannot use NCCL; run one "
+                    "rank per card, or --steps_per_dispatch 1")
         if self.device.type == "cuda":
             set_f32_parity()
             # a resumed run matches an uninterrupted one bit for bit only
@@ -138,17 +177,20 @@ class Trainer:
                 logger.info(f'Loaded VGG16 pretrained weights from "{config.vgg16_weights}"')
             except Exception:
                 logger.info(f'Failed to load VGG16 weights from "{config.vgg16_weights}"')
-        self.model = model.to(self.device)
+        self.model = self._place(model)
         self.opt = make_optimizer(self.model, config.l2_regularization,
                                   config.learning_rate, config.adam_moment_dtype,
                                   config.adam_factored_nu)
         if self.k_dispatch > 1:
-            self.multi_train_step = MultiTrainStep(self.model, self.opt)
-            self.multi_eval_step = MultiEvalStep()
+            self.multi_train_step = MultiTrainStep(self.model, self.opt, self.mesh)
+            self.multi_eval_step = MultiEvalStep(self.mesh)
         self.photo_cache = (PhotoCache(config.photo_cache_mb << 20)
                             if config.photo_cache_mb > 0 else None)
         self._host_embedding = np.asarray(word2vec.embedding, np.float32)
-        self._saver = ckpt.AsyncSaver() if config.async_checkpoint else None
+        # in a world of more than one rank a barrier after each write says
+        # that the file is durable: the writes are synchronous there
+        self._saver = (ckpt.AsyncSaver() if config.async_checkpoint and self.world == 1
+                       else None)
         # the resident corpus of the current fit: id(dataset) -> (dataset,
         # its tensors), and the photo bank's sorted paths
         self._resident = False
@@ -170,8 +212,9 @@ class Trainer:
         ``<path>/last`` (written by either package)."""
         like = params_to_jax({n: torch.empty(p.shape, dtype=p.dtype)
                               for n, p in self._trainable()})
-        trainable, (count, mu, nu), meta = ckpt.restore_last(
-            path, like, adam_to_jax(self.model, self.opt, leaf=shape_only),
+        trainable, (count, mu, nu), meta = self._primary_read(
+            f"resume from {path}", ckpt.restore_last, path, like,
+            adam_to_jax(self.model, self.opt, leaf=shape_only),
             self.config.adam_moment_dtype)
         missing, unexpected = self.model.load_state_dict(params_from_jax(trainable),
                                                          strict=False)
@@ -189,6 +232,33 @@ class Trainer:
             f"Resumed from {path} at epoch {self.start_epoch}, batch "
             f"{self.batch_counter}" + (f" (+{self.start_batch_in_epoch} into the epoch)"
                                        if self.start_batch_in_epoch else "") + ".")
+
+    def _primary_read(self, what, fn, *args):
+        """fn(*args) on the primary (the only reader of checkpoint files),
+        its result broadcast.  A failure's text is broadcast before the
+        arrays, so every rank raises instead of waiting for them."""
+        if self.world == 1:
+            return fn(*args)
+        out, err = None, ""
+        if multihost.is_primary():
+            try:
+                out = fn(*args)
+            except Exception as e:
+                err = f"{type(e).__name__}: {e}"
+        err = multihost.broadcast_str(err)
+        if err:
+            raise RuntimeError(f"{what} failed on the primary rank: {err}")
+        return multihost.broadcast_tree(out)
+
+    def _decide(self, flag):
+        """The primary's decision on every rank."""
+        return multihost.broadcast_str("1" if flag else "0") == "1"
+
+    def _durable(self, name):
+        """After the primary's write: the write joined, then every rank
+        meets at the barrier `name`."""
+        self._ckpt_wait()
+        multihost.barrier(name)
 
     # ---- checkpoint writes (sync, or the file writes on a worker thread) --
     def _host_params(self):
@@ -222,13 +292,39 @@ class Trainer:
         return UMPR(self.dims, self.embedding,
                     torch.Generator().manual_seed(self.config.seed))
 
+    def _place(self, model):
+        """`model` on the device; with --shard_embedding its frozen table
+        split over the mesh (one rank: the whole table).  best/ is written
+        from the unpadded host table, so it does not depend on the layout."""
+        if self.config.shard_embedding and self.mesh is not None:
+            model.embedding = ShardedEmbedding(model.embedding.weight.detach(),
+                                               self.mesh.table_group())
+        return model.to(self.device)
+
     def _loader(self, dataset, shuffle=False, seed=0, start_batch=0):
         cfg = self.config
         return BatchLoader(dataset, cfg.batch_size, shuffle=shuffle, seed=seed,
                            start_batch=start_batch,
                            ignore_photos=cfg.review_net_only,
                            resize=(cfg.photo_size, cfg.photo_size),
-                           workers=cfg.data_workers, photo_cache=self.photo_cache)
+                           workers=cfg.data_workers, photo_cache=self.photo_cache,
+                           photo_rows=self._rows)
+
+    def _dropout(self, batch_counter):
+        """Train step `batch_counter`'s dropout: its generator or, on a rank
+        of a split batch, this rank's rows of the masks that the generator
+        draws for the whole batch, micro-batch by micro-batch as the 1-rank
+        step draws them (so every sample gets the 1-rank run's masks)."""
+        g = self.dropout_generator(batch_counter)
+        if g is None or self._rows is None:
+            return g
+        cfg = self.config
+        per_sample = len(cfg.views) * cfg.photo_count  # VGG rows of a sample
+        shapes = self.model.visual_net.vgg16.dropout_shapes(
+            cfg.batch_size // self.k_accum * per_sample)
+        micro = [keep_masks(shapes, g, self.device) for _ in range(self.k_accum)]
+        rows = slice(self._rows.start * per_sample, self._rows.stop * per_sample)
+        return [torch.cat(call)[rows] for call in zip(*micro)]
 
     def dropout_generator(self, batch_counter):
         """The generator of train step `batch_counter`'s dropout masks, on
@@ -241,7 +337,7 @@ class Trainer:
             int(seed.generate_state(1, np.uint64)[0]))
 
     def _device_batches(self, loader):
-        return prefetch_iter((to_device(b, self.device) for b in loader),
+        return prefetch_iter((multihost.put_local(b, self.device, self._rows) for b in loader),
                              depth=self.config.prefetch_depth)
 
     def _dispatch_stream(self, loader):
@@ -254,6 +350,8 @@ class Trainer:
                 yield "single", b
             return
         put = lambda hb: to_device(hb, self.device)
+        if self._rows is not None:  # this rank's rows of each global batch
+            loader = (multihost.put_global(hb, self._rows) for hb in loader)
         # extract: the host batches (decoded photos included) are dropped
         # as soon as their transfer is made; nothing reads them back
         for dev, _, chunked in chunk_stream(loader, self.k_dispatch, put, put,
@@ -264,8 +362,9 @@ class Trainer:
     def _train_step(self, batch, drop):
         """One train step of a device batch -> (loss, n_real)."""
         if self.k_accum > 1:
-            return train_step_accum(self.model, self.opt, batch, self.k_accum, drop)[:2]
-        return train_step(self.model, self.opt, batch, drop=drop)
+            return train_step_accum(self.model, self.opt, batch, self.k_accum, drop,
+                                    self.mesh)[:2]
+        return train_step(self.model, self.opt, batch, drop=drop, mesh=self.mesh)
 
     # ---- the device-resident corpus (--device_dataset) ----
     def _resident_mode(self, *datasets):
@@ -314,36 +413,37 @@ class Trainer:
         holds the sorted distinct paths, so searchsorted is exact)."""
         entry = self._dev_data.get(id(dataset))
         if entry is None:
-            data = {f: self._upload(getattr(dataset, f)) for f in RESIDENT_FIELDS}
+            data = {f: multihost.put_replicated(getattr(dataset, f), self.device)
+                    for f in RESIDENT_FIELDS}
             if self._bank_uniq is not None:
                 data["photo_bank"] = self._photo_bank()
-                data["photo_idx"] = self._upload(
-                    np.searchsorted(self._bank_uniq, dataset.photo_paths).astype(np.int32))
+                data["photo_idx"] = multihost.put_replicated(
+                    np.searchsorted(self._bank_uniq, dataset.photo_paths).astype(np.int32),
+                    self.device)
             # the dataset is held so that its id is not reused
             entry = self._dev_data[id(dataset)] = (dataset, data)
         return entry[1]
 
-    def _upload(self, arr):
-        # a cached split's arrays are read-only memmaps: copy them first
-        arr = np.ascontiguousarray(arr) if arr.flags.writeable else np.array(arr)
-        return torch.from_numpy(arr).to(self.device)
-
     def _photo_bank(self):
         """The (C, H, W, 3) uint8 bank of ``_bank_uniq``, each photo decoded
         once, by the streaming loader's decoder and cache (so '' and
-        unreadable files give its zeros)."""
+        unreadable files give its zeros).  In a world of more than one rank
+        the primary decodes it and broadcasts the bytes: replicas must hold
+        the same bank, and the other ranks need not have the files."""
         if self._bank is None:
             cfg = self.config
-            workers = cfg.data_workers
-            executor = ThreadPoolExecutor(max_workers=workers) if workers > 0 else None
-            try:
-                imgs = load_photo_batch(self._bank_uniq.reshape(-1, 1, 1),
-                                        (cfg.photo_size, cfg.photo_size), executor,
-                                        self.photo_cache)[:, 0, 0]
-            finally:
-                if executor is not None:
-                    executor.shutdown()
-            self._bank = torch.from_numpy(imgs).to(self.device)
+            imgs = None
+            if multihost.is_primary():
+                workers = cfg.data_workers
+                executor = ThreadPoolExecutor(max_workers=workers) if workers > 0 else None
+                try:
+                    imgs = load_photo_batch(self._bank_uniq.reshape(-1, 1, 1),
+                                            (cfg.photo_size, cfg.photo_size), executor,
+                                            self.photo_cache)[:, 0, 0]
+                finally:
+                    if executor is not None:
+                        executor.shutdown()
+            self._bank = torch.from_numpy(multihost.broadcast_tree(imgs)).to(self.device)
         return self._bank
 
     def _index_stream(self, n, seed, start_batch, shuffle=True, pad_final_chunk=False):
@@ -402,7 +502,7 @@ class Trainer:
                 parts.append(self.multi_eval_step(model, payload, data))
             else:
                 parts.append(eval_step(model, payload if data is None else gather_batch(
-                    data, payload["idx"], payload["n_real"])))
+                    data, payload["idx"], payload["n_real"], self._rows), self.mesh))
         return mse_from_parts(parts)
 
     def _start_profile(self):
@@ -424,10 +524,10 @@ class Trainer:
         self.logger.info(f"Profile trace written to {path}")
 
     def _metric(self, event, **kv):
-        """Append one JSON line to --metrics_jsonl; non-finite floats are
-        written as null."""
+        """Append one JSON line to --metrics_jsonl (the primary's); non-finite
+        floats are written as null."""
         path = self.config.metrics_jsonl
-        if not path:
+        if not path or not multihost.is_primary():
             return
         kv = {k: (None if isinstance(v, float) and not math.isfinite(v) else v)
               for k, v in kv.items()}
@@ -513,15 +613,19 @@ class Trainer:
                                  train_loss=train_loss, valid_mse=valid_mse,
                                  lr=lr, elapsed_s=round(
                                      time.perf_counter() - start_time, 3))
-                    if self.best_loss > valid_mse:
-                        self._save_best(model_path)
+                    if self._decide(self.best_loss > valid_mse):
+                        if multihost.is_primary():
+                            self._save_best(model_path)
+                        self._durable(f"save_best_{self.batch_counter}")
                         self.best_loss = valid_mse
                 if (cfg.save_every_batches and self.batch_counter // cfg.save_every_batches
                         > before // cfg.save_every_batches):
-                    self._save_last(model_path, epoch=epoch,
-                                    batch_counter=self.batch_counter,
-                                    best_loss=self.best_loss,
-                                    batch_in_epoch=batch_in_epoch)
+                    if multihost.is_primary():
+                        self._save_last(model_path, epoch=epoch,
+                                        batch_counter=self.batch_counter,
+                                        best_loss=self.best_loss,
+                                        batch_in_epoch=batch_in_epoch)
+                    self._durable(f"save_mid_{self.batch_counter}")
 
             prof, profile_start = None, 0
             stopped = False
@@ -535,14 +639,14 @@ class Trainer:
                     prof, profile_start = self._start_profile(), self.batch_counter
                 if kind == "chunk":
                     k = chunk_len(payload)
-                    gens = [self.dropout_generator(self.batch_counter + j) for j in range(k)]
+                    gens = [self._dropout(self.batch_counter + j) for j in range(k)]
                     parts.append(self.multi_train_step(payload, gens, dev_train))
                     after_steps(k)
                 else:
                     if dev_train is not None:
-                        payload = gather_batch(dev_train, payload["idx"], payload["n_real"])
-                    loss, n_real = self._train_step(
-                        payload, self.dropout_generator(self.batch_counter))
+                        payload = gather_batch(dev_train, payload["idx"], payload["n_real"],
+                                               self._rows)
+                    loss, n_real = self._train_step(payload, self._dropout(self.batch_counter))
                     parts.append((loss * n_real, n_real))
                     after_steps(1)
                 if _stop_after_batches and batches_this_call >= _stop_after_batches:
@@ -553,6 +657,7 @@ class Trainer:
                 self._stop_profile(prof)
                 profiled = True
             if stopped:
+                stream.close()  # its prefetch thread ends here, not at exit
                 self._ckpt_wait()  # the caller reads the files next
                 return
 
@@ -567,21 +672,25 @@ class Trainer:
             every = max(1, cfg.save_last_every_epochs)
             if ((epoch + 1) % every == 0 or epoch + 1 == cfg.train_epochs
                     or self.batch_counter > cfg.max_batches):
-                self._save_last(model_path, epoch=epoch + 1,
-                                batch_counter=self.batch_counter,
-                                best_loss=self.best_loss, batch_in_epoch=0)
+                if multihost.is_primary():
+                    self._save_last(model_path, epoch=epoch + 1,
+                                    batch_counter=self.batch_counter,
+                                    best_loss=self.best_loss, batch_in_epoch=0)
+                self._durable(f"save_last_{epoch}")
             if self.batch_counter > cfg.max_batches:
                 break
 
         # a run shorter than eval_every reaches no eval point: evaluate once
         # and save, so that test() and --test_only find a best/
         self._ckpt_wait()
-        if not ckpt.has_best(model_path):
+        if self._decide(multihost.is_primary() and not ckpt.has_best(model_path)):
             valid_mse = self._evaluate(valid_loader)
             logger.info(f"Final validation mse is {valid_mse:.6f}")
             self._metric("eval", epoch=cfg.train_epochs,
                          batch=self.batch_counter, valid_mse=valid_mse)
-            self._save_best(model_path)
+            if multihost.is_primary():
+                self._save_best(model_path)
+            self._durable("save_best_final")
             self.best_loss = min(self.best_loss, valid_mse)
         self._ckpt_wait()  # fit() returns with its checkpoints written
 
@@ -595,8 +704,11 @@ class Trainer:
         logger.info("Start to test.")
         self._ckpt_wait()  # best/ may still be in the writer's hands
         model = self._new_model()
-        ckpt.restore_best(model_path, model)
-        mse = self._evaluate(self._loader(test_data), model.to(self.device))
+        best = os.path.join(model_path, "best")
+        tree = self._primary_read(f"restore_best from {model_path}", ckpt.restore_pytree,
+                                  best, params_to_jax(model.state_dict()))
+        model.load_state_dict(params_from_jax(tree))
+        mse = self._evaluate(self._loader(test_data), self._place(model))
         logger.info(f"Test end, test mse is {mse:.6f}")
         self._metric("test", test_mse=mse)
         return mse
