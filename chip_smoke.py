@@ -146,16 +146,26 @@
    step of both (correctness, not scaling); then a world of one on NCCL at
    ``--steps_per_dispatch 4``: its all-reduce captured in the graph, the
    bits of the run without a process group.
+14c. ROADMAP A8, pretraining (``pretraining_phase``): on a seeded corpus
+   of 3,200 sentences, ``python -m umpr_tpu_torch.train_embeddings``,
+   ``-m umpr_tpu_torch.pretrain.abae`` and ``-m
+   umpr_tpu_torch.pretrain.rnet`` through their mains at their default
+   widths with 2 epochs (the R-Net CLI's steps: 1,024 pairs, K1-K4 once a
+   step, no plain version, no K9); one epoch of the R-Net pretrainer card
+   against CPU (losses and R-Net leaves within 1e-4); the saved R-Net into
+   a UMPR-R Trainer through ``--rnet_pretrained`` (the "Loaded" line, the
+   bits); ms of an R-Net, an ABAE and a skip-gram step.
 15. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
    ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line,
    ``{"streaming_build": ...}``, ``{"bf16": ...}``, ``{"bf16_paths":
-   ...}``, ``{"export": ...}``, ``{"parallel": ...}`` and a
-   ``{"kernels": [...]}`` line
+   ...}``, ``{"export": ...}``, ``{"parallel": ...}``, ``{"pretraining":
+   ...}`` and a ``{"kernels": [...]}`` line
    (launches: each kernel's main path -- the full-UMPR run for K1-K6, the
    long-history training for K7/K8, the input-gradient run for K9, bf16
    UMPR-R training for the bf16 K1-K4 rows, bf16 full UMPR with the fused
    pool for the bf16 K5/K6 rows, the bf16 input gradient for K9's -- and
-   the other runs' beside them, the remat step's among them), then, as
+   the other runs' beside them, the remat step's and the R-Net
+   pretraining CLI's, ``launches_rnet_pretraining``, among them), then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
@@ -2789,7 +2799,7 @@ def train_phase(device_name, work="train", flags=(), corpus=None):
     model, opt = trainer.model, trainer.opt
     dev_batch = to_device(batch, trainer.device)
     step_ms = time_cuda(lambda: train_step(model, opt, dev_batch, 1e-3),
-                        iters=10 if long_history else 20)
+                        iters=5 if long_history else 10)
     print(f"training on {device_name}: {step_ms:.3f} ms per B={B} train step "
           f"({B / step_ms * 1e3:.1f} samples/s, CUDA events, back to back); "
           f"fit + test {main_s / steps * 1e3:.1f} ms per train step, "
@@ -2978,11 +2988,11 @@ def full_train_phase(device_name):
     step = lambda: train_step(model, opt, batch, 1e-3, trainer.dropout_generator(0))
     # the Trainer pins cuDNN to deterministic algorithms (bit-exact
     # resume); its cost, in turns within this call
-    step_ms = time_cuda(step, iters=10)
+    step_ms = time_cuda(step, iters=5)
     torch.backends.cudnn.deterministic = False
-    free_ms = time_cuda(step, iters=10)
+    free_ms = time_cuda(step, iters=5)
     torch.backends.cudnn.deterministic = True
-    again_ms = time_cuda(step, iters=10)
+    again_ms = time_cuda(step, iters=5)
     print(f"full UMPR training on {device_name}: {step_ms:.3f} ms per B={B} train step "
           f"({B / step_ms * 1e3:.1f} samples/s, CUDA events, back to back) with "
           f"cudnn.deterministic True, as the Trainer sets it (again after: "
@@ -2990,7 +3000,7 @@ def full_train_phase(device_name):
           f"test {main_s / steps * 1e3:.1f} ms per train step, evaluations, "
           f"checkpoints and dataset builds included (host clock); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    device_breakdown(step, "full UMPR train step", steps=5, top=14)
+    device_breakdown(step, "full UMPR train step", steps=3, top=14)
     return launches
 
 
@@ -3152,11 +3162,11 @@ def full_serve_phase(device_name, work=WORK / "full_serve"):
                            cfg.max_ui_sent_count, cfg.max_sent_length)
     forward = lambda: predictor.model(batch)
     with torch.inference_mode():
-        fwd_ms = time_cuda(forward, iters=10)
+        fwd_ms = time_cuda(forward, iters=5)
         torch.backends.cudnn.deterministic = True
-        pinned_ms = time_cuda(forward, iters=10)
+        pinned_ms = time_cuda(forward, iters=5)
         torch.backends.cudnn.deterministic = False
-        again_ms = time_cuda(forward, iters=10)
+        again_ms = time_cuda(forward, iters=5)
     print(f"full UMPR serving on {device_name}: predict_dataset {walls['bank']:.3f} ms "
           f"per B={B} batch with the bank, {walls['streaming']:.3f} ms streaming photos "
           f"(host clock, {len(full_ds)} samples, photos decoded and cached); device "
@@ -3164,7 +3174,7 @@ def full_serve_phase(device_name, work=WORK / "full_serve"):
           f"events; again after: {again_ms:.3f}), {pinned_ms:.3f} ms with "
           f"cudnn.deterministic True")
     with torch.inference_mode():
-        device_breakdown(forward, "full UMPR forward", steps=5, top=12)
+        device_breakdown(forward, "full UMPR forward", steps=3, top=12)
     return launches
 
 
@@ -3461,7 +3471,7 @@ def graph_step_ms(trainer, ds, k=DISPATCH_K):
     chunk = _stack([next(loader) for _ in range(k)], trainer.device)
     multi = MultiTrainStep(trainer.model, trainer.opt)
     fn = lambda: multi(chunk, [None] * k)
-    ms = time_cuda(fn, iters=10) / k
+    ms = time_cuda(fn, iters=5) / k
     busy, wall = idle_share(fn)
     return ms, (None if busy is None else busy / k), wall / k
 
@@ -3641,7 +3651,6 @@ def rnet_pretrained_phase(device_name):
     """--rnet_pretrained on the card and on the CPU: both R-Nets hold the
     checkpoint's bits, and the card's predictions of one batch agree with
     the CPU's within E2E_TOL."""
-    import logging
     from umpr_tpu_torch.convert import params_to_jax
     from umpr_tpu_torch.train.trainer import Trainer
     root = WORK / "rnet"
@@ -3658,19 +3667,14 @@ def rnet_pretrained_phase(device_name):
     valid = build_dataset(str(root / "valid.csv"), str(root / "photos.json"),
                           str(root / "photos"), w2v, cfg)
     batch = next(iter(BatchLoader(valid, cfg.batch_size)))
-    lines = []
-    handler = logging.Handler()
-    handler.emit = lambda record: lines.append(record.getMessage())
-    logger = logging.getLogger("rnet-pretrained")
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
     preds, held = {}, {}
-    for run, dev in (("cpu", "cpu"), ("card", Config.device)):
-        t = Trainer(Config(base + ["--device", dev]), logger, w2v)
-        rnet = t.model.review_net.rnet.state_dict()
-        held[run] = all(torch.equal(rnet[k].cpu(), v) for k, v in donor.state_dict().items())
-        with torch.no_grad():
-            preds[run] = t.model(to_device(batch, t.device))[0].cpu()
+    with log_lines("rnet-pretrained") as (lines, logger):
+        for run, dev in (("cpu", "cpu"), ("card", Config.device)):
+            t = Trainer(Config(base + ["--device", dev]), logger, w2v)
+            rnet = t.model.review_net.rnet.state_dict()
+            held[run] = all(torch.equal(rnet[k].cpu(), v) for k, v in donor.state_dict().items())
+            with torch.no_grad():
+                preds[run] = t.model(to_device(batch, t.device))[0].cpu()
     err = (preds["card"] - preds["cpu"]).abs().max().item()
     loaded = sum("Loaded R-Net pre-trained weights from" in line for line in lines)
     print(f"--rnet_pretrained on {device_name}: loaded {loaded} times (CPU and card), the "
@@ -3681,6 +3685,186 @@ def rnet_pretrained_phase(device_name):
         raise AssertionError("--rnet_pretrained: card and CPU disagree")
     return {"max_abs_diff": err}
 
+
+
+PRETRAIN_SENTENCES = 3200  # >= 3,000: mine_pairs gives 6 batches of 1,024 pairs an epoch
+PRETRAIN_BATCH = 1024  # the R-Net CLI's default batch of pairs (2,048 GRU rows)
+PRETRAIN_RTOL = 1e-4  # card against CPU: each step's loss, each R-Net leaf in l2
+
+
+def write_pretrain_corpus(root, n=PRETRAIN_SENTENCES, seed=0):
+    """A seeded corpus for the pretrainers: n sentences of 6-14 words, each
+    from one of 8 topics of 40 words (320 words, each about 100 times, all
+    above min_count 10): ``train.txt`` (a sentence a line, the ABAE CLI's
+    input) and ``train.csv`` (reviews of 4 sentences joined by '. ', the
+    input of the R-Net CLI and of train_embeddings)."""
+    rng = np.random.default_rng(seed)
+    topics = [[f"t{t}w{i}" for i in range(40)] for t in range(8)]
+    sents = [" ".join(rng.choice(topics[rng.integers(8)], size=rng.integers(6, 15)))
+             for _ in range(n)]
+    counts = pd.Series(" ".join(sents).split()).value_counts()
+    if len(counts) != 320 or counts.min() < 10:
+        raise AssertionError(f"pretraining corpus: {len(counts)} words, the rarest "
+                             f"{counts.min()} times")
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "train.txt").write_text("\n".join(sents) + "\n")
+    pd.DataFrame([{"userID": f"U{i % 50}", "itemID": f"I{i % 40}",
+                   "review": ". ".join(sents[i:i + 4]), "rating": float(i % 5 + 1)}
+                  for i in range(0, n, 4)]).to_csv(root / "train.csv", index=False)
+
+
+@contextlib.contextmanager
+def log_lines(name="chip-smoke"):
+    """(lines, logger): the messages logged while the block runs, caught
+    by a handler on the root logger, which every logger propagates to (the
+    port's CLIs' among them), and the logger `name` at INFO, for a caller
+    that asks for a logger (a Trainer)."""
+    import logging
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    logging.getLogger().addHandler(handler)
+    try:
+        yield lines, logger
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def pretraining_phase(device_name, device="cuda"):
+    """ROADMAP A8 on the card: the JAX-shaped pipeline at its default widths
+    (skip-gram E = 50, 14 aspects, H = 64, L = 20, 1,024 pairs a batch),
+    with 2 epochs: ``python -m umpr_tpu_torch.train_embeddings``, ``-m
+    umpr_tpu_torch.pretrain.abae`` (E = 200, train.txt) and ``-m
+    umpr_tpu_torch.pretrain.rnet`` (train.csv; its own skip-gram and its
+    own 15-epoch ABAE at E = 50, as the CLI hard-codes), through their
+    mains.  Launches of the R-Net CLI: K1-K4 once a step, no plain version,
+    no K9 (the table is frozen), no other kernel.  One epoch of the R-Net
+    pretrainer on the card against the same epoch on the CPU, from the
+    same weights and pairs (each step's loss, each R-Net leaf within
+    PRETRAIN_RTOL); the saved R-Net through ``--rnet_pretrained`` of a
+    UMPR-R Trainer on the card (the "Loaded" line, the bits).  Then the ms
+    of one step of each pretrainer (CUDA events over back-to-back steps,
+    the host included, and device ms under torch.profiler) and each CLI's
+    wall seconds.  `device` other than cuda rehearses the phase elsewhere.
+    """
+    from umpr_tpu_torch import train_embeddings
+    from umpr_tpu_torch.convert import params_from_jax, params_to_jax
+    from umpr_tpu_torch.pretrain import abae, rnet, train_sentences, word2vec_train
+    from umpr_tpu_torch.train.optim import Adam
+    from umpr_tpu_torch.train.trainer import Trainer
+    work = WORK / "pretrain"
+    if work.exists():
+        shutil.rmtree(work)
+    write_pretrain_corpus(work)
+    glove, save_rnet = work / "glove.txt", work / "rnet"
+    out = {"cli_wall_s": {}}
+
+    def cli(name, main, argv):
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        out["cli_wall_s"][name] = time.perf_counter() - t0
+
+    on = ["--device", device]
+    cli("train_embeddings", train_embeddings.main,
+        on + ["--data_dir", str(work), "--out", str(glove)])
+    cli("pretrain.abae", abae.main, on + ["--data_dir", str(work), "--train_epochs", "2",
+                                          "--save_path", str(work / "abae")])
+    with log_lines() as (lines, _), main_path_counts() as (launches, plain_calls):
+        cli("pretrain.rnet", rnet.main, on + ["--data_dir", str(work), "--train_epochs", "2",
+                                              "--save_ABAE", str(work / "abae_rnet"),
+                                              "--save_rnet", str(save_rnet)])
+    mined = re.compile(r"Start to train R net\. \((\d+) pairs")
+    n_pairs = [int(m.group(1)) for m in map(mined.search, lines) if m]
+    steps = 2 * (n_pairs[0] // PRETRAIN_BATCH) if n_pairs else 0
+    out.update(pairs=n_pairs[0] if n_pairs else None, steps=steps, launches=dict(launches),
+               launches_bf16={k.__name__: k.launches_bf16 for m in (gru_cuda, pool_cuda)
+                              for k in m.KERNELS})
+    gru = FORWARD + GRU_BACKWARD
+    print(f"pretraining CLIs on {device_name}: {out['cli_wall_s']} s (host clock); the R-Net "
+          f"CLI mined {out['pairs']} pairs, {steps} steps of {PRETRAIN_BATCH}, launches "
+          f"{launches}, plain versions on CUDA tensors {plain_calls[0]}")
+    if not (steps >= 8 and all(launches[k] == steps for k in gru) and plain_calls[0] == 0
+            and not any(v for k, v in launches.items() if k not in gru)
+            and not any(out["launches_bf16"].values())):
+        raise AssertionError("the R-Net pretraining steps did not run K1-K4 once each "
+                             "(and nothing else) on the card")
+
+    # one epoch, card against CPU, from the same weights on the same pairs
+    t0 = time.perf_counter()
+    w2v = Word2vec(str(glove))
+    model = abae.init_abae(0, w2v.embedding, 14, kmeans=False, device="cpu")
+    ckpt.restore_module(str(work / "abae_rnet"), model)
+    data = abae.sentences_to_ids(w2v, train_sentences(str(work)), 20)
+    s1, s2, labels = rnet.mine_pairs(data, abae.abae_predict(model, data),
+                                     np.random.default_rng(0))
+    runs = {}
+    for run, dev in (("cpu", "cpu"), ("card", device)):
+        losses = []
+        m = rnet.train_pairs(w2v.embedding, s1, s2, labels, np.random.default_rng(0),
+                             train_epochs=1, device=dev, losses=losses)
+        runs[run] = losses, {k: v.cpu() for k, v in m.rnet.state_dict().items()}
+    (cpu_loss, cpu_rnet), (card_loss, card_rnet) = runs["cpu"], runs["card"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+    leaf_gap = {k: _l2_rel(card_rnet[k], v, 1e-30) for k, v in cpu_rnet.items()}
+    out.update(card_vs_cpu_loss_rel=loss_gap, card_vs_cpu_rnet_l2_rel=max(leaf_gap.values()),
+               epoch_steps=len(card_loss))
+    print(f"R-Net pretraining, one epoch of {len(card_loss)} steps on {device_name} against "
+          f"the CPU: loss max rel gap {loss_gap:.3e}, R-Net leaves max l2 rel gap "
+          f"{max(leaf_gap.values()):.3e} (tolerance {PRETRAIN_RTOL:.0e}): {leaf_gap}")
+    if not (len(card_loss) == len(cpu_loss) == len(s1) // PRETRAIN_BATCH
+            and loss_gap <= PRETRAIN_RTOL and max(leaf_gap.values()) <= PRETRAIN_RTOL):
+        raise AssertionError("R-Net pretraining: card and CPU disagree")
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+
+    # the saved R-Net warm-starts UMPR-R on the card
+    with log_lines("pretrained-rnet") as (lines, logger):
+        cfg = Config(on + ["--review_net_only", "True", "--data_dir", str(work),
+                           "--word2vec_file", str(glove), "--rnet_pretrained", str(save_rnet)])
+        trainer = Trainer(cfg, logger, w2v)
+    held = trainer.model.review_net.rnet.state_dict()
+    saved = ckpt.restore_pytree(str(save_rnet), params_to_jax(held))
+    bits = all(torch.equal(held[k].cpu(), v) for k, v in params_from_jax(saved).items())
+    loaded = sum(f'Loaded R-Net pre-trained weights from "{save_rnet}"' in s for s in lines)
+    print(f"--rnet_pretrained {save_rnet} on {device_name}: loaded {loaded} time(s), the "
+          f"checkpoint's bits held: {bits}")
+    if not (loaded == 1 and bits):
+        raise AssertionError("the pretrained R-Net did not load into UMPR-R on the card")
+    del trainer
+
+    # one step of each pretrainer at the CLIs' shapes
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    g = torch.Generator().manual_seed(1)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = np.arange(PRETRAIN_BATCH)
+    net = rnet.PretrainRNet(w2v.embedding, 64, torch.Generator().manual_seed(0)).to(dev)
+    net_opt = make_optimizer(net, 1e-3, 0.01)
+    pairs = {"s1": put(s1[rows]), "l1": put(rnet.sentence_lengths(s1[rows])),
+             "s2": put(s2[rows]), "l2": put(rnet.sentence_lengths(s2[rows])),
+             "y": put(labels[rows])}
+    ab = abae.init_abae(0, torch.randn((len(w2v), 200), generator=g).numpy(), 14,
+                        kmeans=False, device=dev)
+    ab_opt = Adam(ab.named_parameters(), 0.0, 1e-3)
+    ids = put(data).long()
+    pos, neg = ids[:512], ids[torch.randint(len(data), (512, 20), generator=g).to(dev)]
+    sg = word2vec_train.SkipGram(len(w2v) - 3, 50, g).to(dev)
+    sg_opt = Adam(sg.named_parameters(), 0.0, 2e-3)
+    c, o, n = (torch.randint(len(w2v) - 3, shape, generator=g).to(dev)
+               for shape in ((8192,), (8192,), (8192, 5)))
+    steps_fn = {"rnet": lambda: rnet.rnet_step(net, net_opt, pairs),
+                "abae": lambda: abae.abae_step(ab, ab_opt, pos, neg, 0.1),
+                "skipgram": lambda: word2vec_train.skipgram_step(sg, sg_opt, c, o, n)}
+    out["step"] = {k: {"ms": time_cuda(fn, iters=10), "device_ms": device_ms(fn, steps=5)}
+                   for k, fn in steps_fn.items()}
+    out["steps_s"] = time.perf_counter() - t0
+    print(f"pretraining steps on {device_name} (ms: CUDA events over 10 back-to-back steps; "
+          f"device_ms: torch.profiler): R-Net at {PRETRAIN_BATCH} pairs (2,048 rows, L = 20, "
+          f"E = 50, H = 64), ABAE at 512 sentences x 20 negatives (E = 200, 14 aspects), "
+          f"skip-gram at 8,192 pairs x 5 negatives (E = 50): {out['step']}")
+    return out
 
 
 A5_K = 4  # the graphs' k in the resident-corpus runs
@@ -3795,7 +3979,7 @@ def a5_step_times(device_name, runs):
     for k in (1, A5_K):
         # in turns: streaming, resident, resident, streaming
         for mode in ("streaming", "resident", "resident", "streaming"):
-            out[f"{mode}_k{k}"]["ms"].append(time_cuda(fns[f"{mode}_k{k}"], iters=10) / k)
+            out[f"{mode}_k{k}"]["ms"].append(time_cuda(fns[f"{mode}_k{k}"], iters=5) / k)
     for name, fn in fns.items():
         busy, wall = idle_share(fn)
         per = A5_K if name.endswith(f"k{A5_K}") else 1
@@ -4564,7 +4748,7 @@ def bf16_phase(device_name):
     for m in models.values():
         m.train()
     out["umpr_r_step_k1"] = _turns(
-        {n: (lambda n=n: train_step(models[n], opts[n], batch, 1e-3)) for n in models}, 20)
+        {n: (lambda n=n: train_step(models[n], opts[n], batch, 1e-3)) for n in models}, 10)
     out[f"umpr_r_step_k{DISPATCH_K}"] = {}
     for n in ("float32", "bfloat16", "bfloat16", "float32"):
         ms, busy, wall = graph_step_ms(trainers[n], ds)
@@ -4574,7 +4758,7 @@ def bf16_phase(device_name):
         for m in models.values():
             m.eval()
         out["umpr_r_serving_forward"] = _turns(
-            {n: (lambda n=n: _predict_forward(models[n], batch)) for n in models}, 20)
+            {n: (lambda n=n: _predict_forward(models[n], batch)) for n in models}, 10)
     gap = (preds["bfloat16"] - preds["float32"]).abs().max().item()
     out["umpr_r_pred_gap"] = gap
     print(f"UMPR-R on {device_name}, bf16 against f32 (CUDA events, in turns): {out}")
@@ -5097,7 +5281,7 @@ def bf16_paths_phase(device_name):
             m.eval()
         preds = {f: m(batch)[0].float() for f, m in models.items()}
         res["forward"] = _turns({f"fused_{f}": (lambda f=f: _predict_forward(models[f], batch))
-                                 for f in (True, False)}, 5)
+                                 for f in (True, False)}, 3)
     res["pred_gap_fused_vs_composite"] = (preds[True] - preds[False]).abs().max().item()
     print(f"full UMPR bf16 at {px} px on {device_name}, --vgg_fused_pool True against False "
           f"(CUDA events, in turns, cudnn.deterministic): {res}")
@@ -5139,7 +5323,7 @@ def bf16_paths_phase(device_name):
             m.eval()
         preds = {n: _predict_forward(m, batch).float() for n, m in models.items()}
         res["forward"] = _turns({n: (lambda n=n: _predict_forward(models[n], batch))
-                                 for n in models}, 5)
+                                 for n in models}, 3)
     res["pred_gap"] = (preds["bfloat16"] - preds["float32"]).abs().max().item()
     print(f"long-history UMPR-R bf16 on {device_name} against f32 (CUDA events, in "
           f"turns): {res}")
@@ -5161,7 +5345,7 @@ def bf16_paths_phase(device_name):
     batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size))), trainer.device)
     models, opts = _twins(trainer, ("float32", "bfloat16"))
     res = {"train_step_k1": _turns({n: (lambda n=n: train_step(models[n], opts[n], batch))
-                                    for n in models}, 10)}
+                                    for n in models}, 5)}
     res[f"train_step_k{DISPATCH_K}"] = {}
     for n in ("float32", "bfloat16", "bfloat16", "float32"):
         twin = SimpleNamespace(model=models[n], opt=opts[n], config=cfg, device=trainer.device)
@@ -5241,7 +5425,7 @@ def export_phase(device_name):
             gap = (got - want).abs().max().item()
             with torch.inference_mode():
                 ms = _turns({"artifact": lambda: predict(params, inputs),
-                             "predictor_model": lambda: model(batch)}, 5)
+                             "predictor_model": lambda: model(batch)}, 2)
             res[dt] = {"gap": gap, "export_s": export_s, "device": meta["device"],
                        "artifact_bytes": Path(path).stat().st_size, **ms}
             print(f"export {kind} {dt} on {device_name}: exported in {export_s:.1f} s "
@@ -5272,7 +5456,7 @@ def export_phase(device_name):
 
 
 PARALLEL_TIMEOUT = 300  # seconds that a world of parallel_phase may take
-PARALLEL_STEP_ITERS = 10  # back-to-back train steps timed in each run
+PARALLEL_STEP_ITERS = 5  # back-to-back train steps timed in each run
 
 
 def start_procs(cmds, outs, cwds=None, env=None, timeout=PARALLEL_TIMEOUT):
@@ -5698,6 +5882,8 @@ def main():
     exported = phase("export", export_phase, card)
     # ROADMAP A7: data-parallel ranks through main, on the one card
     parallel = phase("parallel", parallel_phase, card)
+    # ROADMAP A8: the pretrainers' CLIs; the R-Net pretraining steps run K1-K4
+    pretraining = phase("pretraining", pretraining_phase, card)
     for k in kernels:
         k["launches_umpr_r_training_k4"] = dispatch["umpr_r_training"]["launches_on_card"][
             k["name"]]
@@ -5723,6 +5909,10 @@ def main():
         for run, counts in bf16_path_launches.items():
             k[f"launches_bf16_{run}_training"] = counts[base]
     kernels += bf16_kernels
+    for k in kernels:
+        base = k["name"].removesuffix("_bf16")
+        k["launches_rnet_pretraining"] = (pretraining["launches"][k["name"]] if base == k["name"]
+                                          else pretraining["launches_bf16"][base])
     print(f"phase seconds: {seconds}")
     print(json.dumps({"resume_bit_equal": resumed}))
     print(json.dumps({"steps_per_dispatch": dispatch}))
@@ -5732,6 +5922,8 @@ def main():
     print(json.dumps({"bf16_paths": bf16_paths}))
     print(json.dumps({"export": exported}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"pretraining": {k: v for k, v in pretraining.items()
+                                      if k not in ("launches", "launches_bf16")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

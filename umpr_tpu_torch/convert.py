@@ -18,6 +18,17 @@ The mapping, by parameter path:
 
 Gate order [r | z | n] is the same on both sides.
 
+The pretrainers' trees (umpr_tpu_torch/pretrain) carry across by the same
+rules, in both directions, from the modules' state-dict names:
+
+- ABAE ``{embedding, M, fc{kernel, bias}, aspect}``: ``embedding.weight``
+  (trainable there), ``M`` (used as ``einsum("bld,de,be")``: no
+  transpose), ``fc`` a Linear, ``aspect`` as it is;
+- ``PretrainRNet`` ``{embedding, rnet{gru, M}, linear{kernel, bias}}``:
+  the frozen table, UMPR's RNet, a Linear head; the saved R-Net is the
+  ``rnet`` subtree alone;
+- the skip-gram tables ``{in, out}``: parameters named ``in`` and ``out``.
+
 Adam's state maps the same way (``adam_to_jax`` / ``adam_from_jax``): the
 port's Adam (train/optim.py) keeps ``exp_avg`` and ``exp_avg_sq`` per
 parameter and one device step count, optax one ``ScaleByAdamState(count,
