@@ -137,7 +137,21 @@
    within 0.08); then ``python -m umpr_tpu_torch.export`` on the card for
    UMPR-R and full UMPR at 224 px, f32 and bf16, each artifact against
    the Predictor's model (1e-4 in f32, 0.08 in bf16) and timed beside
-   it, and a UMPR-R artifact traced on the CPU moved to the card (1e-5).
+   it, and a UMPR-R artifact traced on the CPU moved to the card (1e-5);
+   then long-history UMPR-R (P = 8192; ``export_long_history``), f32 at
+   B = 64 and bf16 at B = 32: K7/K8 as custom ops in the graph, launched
+   once each by the artifact's forward (no plain version, no other
+   kernel), against the Predictor's model on the kernel path and timed
+   beside it, the f32 forward by kernel; the attention through the custom
+   ops against the ctypes wrappers (the same bits, in turns); the f32
+   artifact traced on the CPU, moved to the card (1e-5).
+14a. ROADMAP A9, data prep (``data_prep_phase``): a seeded raw Amazon
+   dump (``.json.gz``) and metadata through ``python -m
+   umpr_tpu_torch.text.preprocess`` and the manifest's photos through
+   ``python -m umpr_tpu_torch.data.download`` from a local HTTP server
+   (subprocesses: this machine has neither sklearn nor nltk), the
+   prepared files built by build_dataset and one batch scored by a
+   full-UMPR Predictor at 224 px on the card.
 14b. ROADMAP A7, data parallelism (``parallel_phase``): UMPR-R through
    ``umpr_tpu_torch.main`` as two gloo ranks sharing the card (each rank a
    ``chip_smoke.py --rank_run`` process writing to files, every wait
@@ -158,14 +172,16 @@
 15. Print each phase's seconds, a ``{"resume_bit_equal": ...}`` line, a
    ``{"steps_per_dispatch": ...}`` line, an ``{"a5_runtime": ...}`` line,
    ``{"streaming_build": ...}``, ``{"bf16": ...}``, ``{"bf16_paths":
-   ...}``, ``{"export": ...}``, ``{"parallel": ...}``, ``{"pretraining":
-   ...}`` and a ``{"kernels": [...]}`` line
+   ...}``, ``{"export": ...}``, ``{"data_prep": ...}``, ``{"parallel":
+   ...}``, ``{"pretraining": ...}`` and a ``{"kernels": [...]}`` line
    (launches: each kernel's main path -- the full-UMPR run for K1-K6, the
    long-history training for K7/K8, the input-gradient run for K9, bf16
    UMPR-R training for the bf16 K1-K4 rows, bf16 full UMPR with the fused
    pool for the bf16 K5/K6 rows, the bf16 input gradient for K9's -- and
-   the other runs' beside them, the remat step's and the R-Net
-   pretraining CLI's, ``launches_rnet_pretraining``, among them), then, as
+   the other runs' beside them, the remat step's, the R-Net pretraining
+   CLI's, ``launches_rnet_pretraining``, and for K7/K8 the long-history
+   f32 artifact's forward, ``launches_long_history_export``, among them),
+   then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the last line.  Without a
@@ -214,6 +230,7 @@ import time
 import urllib.request
 import zlib
 from pathlib import Path
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -2686,13 +2703,13 @@ def serve_phase(device_name, work=WORK, flags=(), corpus=None):
     batch["pad_maxima"] = (cfg.max_sent_count, cfg.max_sent_length,
                            cfg.max_ui_sent_count, cfg.max_sent_length)
     with torch.inference_mode():
-        fwd_ms = time_cuda(lambda: predictor.model(batch))
+        fwd_ms = time_cuda(lambda: predictor.model(batch), iters=10)
     print(f"serving on {device_name}: predict_dataset {wall / n_b * 1e3:.3f} ms "
           f"per B={cfg.batch_size} batch ({len(full_ds) / wall:.1f} samples/s, host "
           f"clock, {len(full_ds)} samples); device forward {fwd_ms:.3f} ms per batch "
           f"({cfg.batch_size / fwd_ms * 1e3:.1f} samples/s, CUDA events)")
     with torch.inference_mode():
-        device_breakdown(lambda: predictor.model(batch), "forward")
+        device_breakdown(lambda: predictor.model(batch), "forward", steps=5)
     return launches
 
 
@@ -5452,7 +5469,296 @@ def export_phase(device_name):
     if not gap <= 1e-5:
         raise AssertionError("the CPU artifact moved to the card disagrees with the card's")
     out["cpu_artifact_on_card_gap"] = gap
+    del predict, params, inputs, got, card, moved, moved_params
+    torch.cuda.empty_cache()
+    out["long_history"] = export_long_history(device_name, work / "long")
     return out
+
+
+CUSTOM_OPS = ["umpr_tpu_torch::affinity_finish", "umpr_tpu_torch::affinity_tiles"]
+
+
+# (dtype, batch size) of the long-history artifacts: bf16 at B = 32 (still
+# above the threshold), since the f32 part alone adds over 60 s to the phase
+LONG_EXPORTS = (("float32", 64), ("bfloat16", 32))
+
+
+def export_long_history(device_name, work, exports=LONG_EXPORTS):
+    """ROADMAP A6's remainder: long-history UMPR-R (LONG_FLAGS, P = 8192)
+    through ``python -m umpr_tpu_torch.export`` on the card, at each of
+    `exports`' dtype and batch size, its graph holding K7/K8's custom ops.
+    Each artifact's forward of a loader batch against the f32 Predictor's
+    model on the kernel path (EXPORT_TOL), with K7 and K8 launched once each by it and
+    no other kernel and no plain version on the card; the artifact timed
+    against the Predictor's model in the artifact's dtype, in turns, and
+    the f32 artifact's device time by kernel (the bi-GRU scan's share).
+    The attention alone through the custom ops against AffinityAttention
+    (the ctypes wrappers), in turns, the same bits.  Then the f32 artifact
+    traced on the CPU (no forward there), moved to the card by
+    load_predict, against the card's export within 1e-5."""
+    from umpr_tpu_torch import export
+    glove, csv, _ = write_corpus(work, seed=0, **LONG_CORPUS)
+    w2v = Word2vec(str(glove))
+    argv = ["--review_net_only", "True", *LONG_FLAGS, "--data_dir", str(work),
+            "--word2vec_file", str(glove), "--model_path", str(work / "umpr_r")]
+    cfg = Config(argv)
+    if not kernel_attention(cfg):
+        raise AssertionError("the long-history config does not take the kernel route")
+    base = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                torch.Generator().manual_seed(cfg.seed))
+    with torch.no_grad():
+        base.linear_fusion.bias.fill_(3.0)  # above the ReLU: the predictions compare
+    ckpt.save_best(str(work / "umpr_r"), base)
+    del base
+    predictor = serve.Predictor(cfg, w2v, str(work / "umpr_r"))
+    ds = build_dataset(str(csv), str(work / "photos.json"), str(work / "photos"), w2v, cfg)
+    out = {}
+    for dt, B in exports:
+        P = cfg.max_sent_count * cfg.max_sent_length
+        if not B * P * P * 4 > attention.TILED_BYTES_THRESHOLD:
+            raise AssertionError(f"B = {B} does not take the kernel route")
+        batch = to_device(next(iter(BatchLoader(ds, B))), predictor.device)
+        with torch.inference_mode():
+            want = predictor.model(batch)[0]
+        model = predictor.model
+        if dt != "float32":
+            model = _twin(model, compute_dtype=dt).eval()
+        path = str(work / f"long_{dt}.pt2")
+        t0 = time.perf_counter()
+        export.main(argv + ["--compute_dtype", dt, "--batch_size", str(B), "--output", path])
+        export_s = time.perf_counter() - t0
+        meta = json.load(open(path + ".json"))
+        predict, params = export.load_predict(path)
+        inputs = {k: batch[k] for k in meta["input_keys"]}
+        with main_path_counts() as (launches, plain_calls):
+            got = predict(params, inputs)
+            torch.cuda.synchronize()
+        gap = (got - want).abs().max().item()
+        with torch.inference_mode():
+            ms = _turns({"artifact": lambda: predict(params, inputs),
+                         "predictor_model": lambda: model(batch)}, 2)
+        res = {"batch_size": B, "gap": gap, "export_s": export_s,
+               "custom_ops": meta["custom_ops"],
+               "launches": {k: v for k, v in launches.items() if v},
+               "plain_calls_on_card": plain_calls[0], **ms}
+        print(f"export long-history UMPR-R {dt} at B = {B} on {device_name}: exported in "
+              f"{export_s:.1f} s (host clock), custom ops {meta['custom_ops']}; one forward "
+              f"launched {res['launches']}, plain versions on the card "
+              f"{plain_calls[0]}; max |artifact - Predictor f32| {gap:.3e} (tolerance "
+              f"{EXPORT_TOL[dt]}); forward ms artifact {ms['artifact']['ms']:.3f}, the "
+              f"Predictor's model in {dt} {ms['predictor_model']['ms']:.3f} (CUDA events, "
+              "in turns)")
+        if not (meta["custom_ops"] == CUSTOM_OPS and gap <= EXPORT_TOL[dt]
+                and res["launches"] == {"affinity_tiles": 1, "affinity_finish": 1}
+                and plain_calls[0] == 0):
+            raise AssertionError(f"the long-history {dt} artifact: {res}")
+        if dt == "float32":
+            split = device_split(lambda: predict(params, inputs), steps=3)
+            k7k8 = sum(t for k, t in split.items()
+                       if re.search(r"\baffinity_(tiles|finish)\w*\s*[(<]", k))
+            total = sum(split.values())
+            res["device_ms"] = total or None
+            res["device_ms_k7_k8"] = k7k8 if split else None
+            print(f"  the f32 artifact's forward by kernel (torch.profiler): "
+                  + (f"{total:.3f} ms on the device, K7 + K8 {k7k8:.3f}, the rest (the "
+                     f"bi-GRU scan, embedding, S-Net, head) {total - k7k8:.3f}"
+                     if split else "not measured"))
+            card = (predict, params, inputs, got)
+        out[dt] = res
+        del model, batch
+    # the attention alone: the custom ops against the ctypes wrappers
+    g = torch.Generator(device=predictor.device).manual_seed(4)
+    B, P, D = ATT_SHAPE
+    U, I = (torch.randn(B, P, D, generator=g, device=predictor.device) for _ in range(2))
+    M = torch.randn(D, D, generator=g, device=predictor.device) * 0.005
+    exists = torch.rand(P, generator=g, device=predictor.device) < 0.9
+    with torch.inference_mode():
+        a = attention.affinity_attention_ops(U, I, M, exists)
+        b = attention.AffinityAttention.apply(U, I, M, exists)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        route = _turns({"custom_ops": lambda: attention.affinity_attention_ops(U, I, M, exists),
+                        "ctypes_wrappers": lambda: attention.AffinityAttention.apply(
+                            U, I, M, exists)}, 3)
+    out["attention_route"] = {"same_bits": same, **route}
+    print(f"  attention forward at {ATT_SHAPE}: custom ops {route['custom_ops']['ms']:.3f} ms, "
+          f"ctypes wrappers (AffinityAttention) {route['ctypes_wrappers']['ms']:.3f} ms (CUDA "
+          f"events, in turns); the same bits: {same}")
+    if not same:
+        raise AssertionError("the custom-op attention route differs from AffinityAttention")
+    del U, I, M, a, b
+    predict, params, inputs, got = card
+    path = str(work / "long_cpu.pt2")
+    t0 = time.perf_counter()
+    export.main(argv + ["--device", "cpu", "--output", path])
+    cpu_s = time.perf_counter() - t0
+    moved, moved_params = export.load_predict(path, got.device)
+    with main_path_counts() as (launches, plain_calls):
+        gap = (moved(moved_params, inputs) - got).abs().max().item()
+    print(f"  traced on the CPU in {cpu_s:.1f} s, moved to the card: max |moved - card's "
+          f"own export| {gap:.3e} (tolerance 1e-5), launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if not (gap <= 1e-5 and launches["affinity_tiles"] == 1 and plain_calls[0] == 0):
+        raise AssertionError("the CPU long-history artifact moved to the card disagrees")
+    out["cpu_artifact_on_card_gap"] = gap
+    out["launches"] = {k: out["float32"]["launches"].get(k, 0) for k in ATTENTION}
+    del predictor, predict, params, moved, moved_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_raw_amazon(root, base_url, seed=0, users=40, items=16, per_user=8, vocab=2000,
+                     dim=50):
+    """A seeded raw Amazon dump (python-literal dicts, gzipped; mixed case,
+    punctuation and contractions for the cleaning to work on, an empty
+    review the preprocessor drops), its metadata (every item but I0 with an
+    imUrl on `base_url`, and an item nobody reviewed) and glove.txt.
+    Returns (glove, reviews path, meta path)."""
+    import gzip
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(vocab)]
+    vecs = rng.standard_normal((vocab, dim)).astype(np.float32) * 0.4
+    with open(root / "glove.txt", "w") as f:
+        for w, v in zip(words, vecs):
+            f.write(w + " " + " ".join(f"{x:.6f}" for x in v) + "\n")
+    seps = [" ", " ", " ", ", ", "! ", " (", ") ", "'s ", " - "]
+
+    def sentence():
+        toks = rng.choice(words, size=rng.integers(4, 26))
+        return "".join((str(t).upper() if rng.random() < 0.2 else str(t))
+                       + str(rng.choice(seps)) for t in toks).strip()
+
+    with gzip.open(root / "reviews.json.gz", "wt", encoding="utf-8") as f:
+        for u in range(users):
+            for it in rng.choice(items, size=per_user, replace=False):
+                text = ". ".join(sentence() for _ in range(rng.integers(2, 8))) + "."
+                f.write(repr({"reviewerID": f"U{u}", "asin": f"I{it}", "reviewText": text,
+                              "overall": float(rng.integers(1, 6))}) + "\n")
+        f.write(repr({"reviewerID": "U0", "asin": "I1", "reviewText": "",
+                      "overall": 3.0}) + "\n")
+    with open(root / "meta.json", "w") as f:
+        for it in range(items + 1):
+            item = {"asin": f"I{it}", "title": f"item {it}"}
+            if it:
+                item["imUrl"] = f"{base_url}/I{it}.jpg"
+            f.write(repr(item) + "\n")
+    return root / "glove.txt", root / "reviews.json.gz", root / "meta.json"
+
+
+def seeded_jpeg_bytes(name):
+    """JPEG-framed bytes (SOI ... EOI) seeded by `name`: what the
+    downloader checks; the card's machine has no decoder (seeded_photo)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    return b"\xff\xd8\xff\xe0" + rng.integers(0, 256, 4096, dtype=np.uint8).tobytes() + \
+        b"\xff\xd9"
+
+
+def _cli(module, *args):
+    """python -m `module` args in a subprocess from the checkout's root:
+    (its stdout, its host-clock seconds), or raise with its output."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", module, *map(str, args)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        raise RuntimeError(f"{module} exited {run.returncode}:\n{run.stdout}\n{run.stderr}")
+    return run.stdout, time.perf_counter() - t0
+
+
+def data_prep_phase(device_name):
+    """ROADMAP A9 (layer L0): a seeded raw Amazon dump and its metadata
+    through ``python -m umpr_tpu_torch.text.preprocess`` and the manifest's
+    photos through ``python -m umpr_tpu_torch.data.download`` from a local
+    HTTP server, both as subprocesses (this machine has neither sklearn nor
+    nltk); the files they write built by build_dataset, and one batch of
+    the train split scored by a full-UMPR Predictor (224 px) on the card:
+    K1/K2 launched, no plain version, finite and varied predictions."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    use_seeded_photos()
+    work = WORK / "data_prep"
+    if work.exists():
+        shutil.rmtree(work)
+    hits = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_GET(self):
+            hits.append(self.path)
+            body = seeded_jpeg_bytes(self.path)
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    data = work / "data"
+    argv = ["--review_net_only", "False", "--data_dir", str(data), "--word2vec_file",
+            str(work / "raw" / "glove.txt"), "--model_path", str(work / "full_umpr"),
+            "--seed", "2"]
+    cfg = Config(argv)
+    try:
+        glove, raw, meta = write_raw_amazon(work / "raw",
+                                            f"http://127.0.0.1:{srv.server_address[1]}")
+        w2v = Word2vec(str(glove))
+        with ThreadPoolExecutor(1) as pool:  # the preprocessor runs while the model is made
+            pre = pool.submit(_cli, "umpr_tpu_torch.text.preprocess", "--data_path", raw,
+                              "--meta_path", meta, "--save_dir", data)
+            base = UMPR(ModelDims.from_config(cfg), w2v.embedding,
+                        torch.Generator().manual_seed(cfg.seed))
+            with torch.no_grad():
+                base.linear_fusion.bias.fill_(3.0)
+            ckpt.save_best(str(work / "full_umpr"), base)
+            del base
+            pre, pre_s = pre.result()
+        down, down_s = _cli("umpr_tpu_torch.data.download", "--photos_json",
+                            data / "photos.json")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    manifest = pd.read_json(data / "photos.json", orient="records", lines=True)
+    files = {p.stem: p.read_bytes() for p in (data / "photos").glob("*.jpg")}
+    saved = [ln for ln in pre.splitlines() if ln.startswith("#### Saved")]
+    done = [ln for ln in down.splitlines() if ln.startswith("done:")]
+    print(f"data_prep on {device_name}: preprocess {pre_s:.1f} s ({'; '.join(saved)}), "
+          f"download {down_s:.1f} s ({done[0] if done else 'no done: line'}), "
+          f"{len(hits)} requests")
+    want_files = {pid: seeded_jpeg_bytes(f"/{bid}.jpg")
+                  for pid, bid in zip(manifest["photo_id"], manifest["business_id"])}
+    # every reviewed item but I0 has an imUrl
+    if not (len(manifest) >= 14 and set(manifest["business_id"]) <= {f"I{i}" for i in
+                                                                     range(1, 16)}
+            and files == want_files and len(hits) == len(manifest)
+            and done and done[0].startswith(f"done: {len(manifest)} ok, 0 failed")):
+        raise AssertionError("the downloader did not fetch the manifest's photos")
+    splits = {name: build_dataset(str(data / f"{name}.csv"), str(data / "photos.json"),
+                                  str(data / "photos"), w2v, cfg)
+              for name in ("train", "valid", "test")}
+    sizes = {name: len(ds.ratings) for name, ds in splits.items()}
+    paths = [p for p in splits["train"].photo_paths.ravel() if p]
+    if not (sizes["train"] >= cfg.batch_size and paths
+            and all(Path(p).stem in files for p in paths)):
+        raise AssertionError(f"the prepared splits do not build: {sizes}")
+    predictor = serve.Predictor(cfg, w2v, str(work / "full_umpr"))
+    with main_path_counts() as (launches, plain_calls):
+        preds, rows = predictor.predict_dataset(subset(splits["train"], cfg.batch_size))
+        torch.cuda.synchronize()
+    preds = np.asarray(preds)
+    res = {"preprocess_s": pre_s, "download_s": down_s, "split_sizes": sizes,
+           "photos": len(files), "pred_std": float(preds.std()),
+           "launches": {k: v for k, v in launches.items() if v},
+           "plain_calls_on_card": plain_calls[0]}
+    print(f"  splits {sizes}; one full-UMPR Predictor batch on the card: {len(preds)} "
+          f"predictions, std {res['pred_std']:.4f}, launches {res['launches']}, plain "
+          f"versions on the card {plain_calls[0]}")
+    if not (len(preds) == cfg.batch_size and np.isfinite(preds).all()
+            and res["pred_std"] > MIN_SPREAD and plain_calls[0] == 0
+            and all(launches[k] > 0 for k in FORWARD)):
+        raise AssertionError(f"the prepared corpus did not serve: {res}")
+    del predictor
+    torch.cuda.empty_cache()
+    return res
 
 
 PARALLEL_TIMEOUT = 300  # seconds that a world of parallel_phase may take
@@ -5880,6 +6186,9 @@ def main():
     # route, the bf16 scan) and A6 (export)
     bf16_path_launches, bf16_paths = phase("bf16 paths", bf16_paths_phase, card)
     exported = phase("export", export_phase, card)
+    # ROADMAP A9: the offline preprocessor and the photo downloader feed a
+    # full-UMPR Predictor
+    prepared = phase("data_prep", data_prep_phase, card)
     # ROADMAP A7: data-parallel ranks through main, on the one card
     parallel = phase("parallel", parallel_phase, card)
     # ROADMAP A8: the pretrainers' CLIs; the R-Net pretraining steps run K1-K4
@@ -5894,6 +6203,9 @@ def main():
         k["launches_full_umpr_remat_step"] = a5["remat_launches"][k["name"]]
         if k["name"] in ATTENTION:  # the bf16 route runs them on widened inputs
             k["launches_long_history_bf16_training"] = bf16_path_launches["long_history"][
+                k["name"]]
+            # one forward of the long-history f32 artifact (its custom ops)
+            k["launches_long_history_export"] = exported["long_history"]["launches"][
                 k["name"]]
     # each bf16 variant's main path: bf16 UMPR-R training (K1-K4), bf16 full
     # UMPR training with the fused pool (K5/K6), the bf16 input gradient (K9)
@@ -5921,6 +6233,7 @@ def main():
     print(json.dumps({"bf16": {k: v for k, v in bf16.items() if k != "launches_bf16"}}))
     print(json.dumps({"bf16_paths": bf16_paths}))
     print(json.dumps({"export": exported}))
+    print(json.dumps({"data_prep": prepared}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"pretraining": {k: v for k, v in pretraining.items()
                                       if k not in ("launches", "launches_bf16")}}))

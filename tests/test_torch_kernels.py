@@ -892,6 +892,60 @@ def test_affinity_attention_grads_on_the_card_match_the_cpu(cuda):
         assert torch.equal(a, b)
 
 
+def _no_plain(*args):
+    raise AssertionError("a custom op on CUDA tensors reached a plain version")
+
+
+@pytest.mark.parametrize("B,P,D", [(2, 300, 128), (1, 8192, 128), (3, 77, 200), (2, 1003, 16)])
+def test_affinity_custom_ops_launch_the_kernels(cuda, monkeypatch, B, P, D):
+    """torch.ops.umpr_tpu_torch.affinity_tiles / affinity_finish on CUDA
+    tensors: each launches its kernel once (never a plain version), gives
+    the wrapper's bits, and agrees with the plain versions as
+    test_affinity_kernels_match_plain holds the wrappers."""
+    from umpr_tpu_torch.ops import attention_cuda as ac
+    U, I, M, exists = (t.to(cuda) for t in _attention_inputs(B, P, D, "rand"))
+    T = I @ M
+    with monkeypatch.context() as m:
+        m.setattr(ac, "affinity_tiles_ref", _no_plain)
+        m.setattr(ac, "affinity_finish_ref", _no_plain)
+        before = (ac.affinity_tiles.launches, ac.affinity_finish.launches)
+        parts = torch.ops.umpr_tpu_torch.affinity_tiles(T, U, exists)
+        out = torch.ops.umpr_tpu_torch.affinity_finish(parts[0], parts[1], parts[2], exists,
+                                                       U, I)
+        torch.cuda.synchronize()
+        assert (ac.affinity_tiles.launches, ac.affinity_finish.launches) == (
+            before[0] + 1, before[1] + 1)
+    want = ac.affinity_tiles(T, U, exists)
+    want_out = ac.affinity_finish(want[0], want[1], want[2], exists, U, I)
+    for a, b in zip((*parts, *out), (*want, *want_out)):
+        _same(a, b)
+    ref = ac.affinity_tiles_ref(T, U, exists)
+    for got, r in zip(parts[::2], ref[::2]):
+        torch.testing.assert_close(got, r, rtol=1e-5, atol=1e-6)
+    for got, r in zip(parts[1::2], ref[1::2]):
+        assert torch.equal(got, r)
+    ref_out = ac.affinity_finish_ref(parts[0], parts[1], parts[2], exists, U, I)
+    for got, r in zip(out[:4], ref_out[:4]):
+        scale = r.abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(got / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_export_attention_route_gives_the_kernel_path_bits(cuda, monkeypatch, dtype):
+    """The kernel-free model's forward-only route (custom ops) above the
+    threshold gives AffinityAttention's forward bits on the card."""
+    from umpr_tpu_torch.ops import attention
+    monkeypatch.setattr(attention, "TILED_BYTES_THRESHOLD", 1)
+    U, I, M, exists = (t.to(cuda) for t in _attention_inputs(2, 1000, 128, "rand", seed=3))
+    U, I, M = (t.to(dtype) for t in (U, I, M))
+    with torch.no_grad():
+        got = attention.affinity_attention(U, I, M, exists, use_kernels=False)
+        want = attention.AffinityAttention.apply(U, I, M, exists)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _same(a, b)
+
+
 def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     from umpr_tpu_torch.ops import attention_cuda as ac
     T = torch.randn(2, 10, 8, device=cuda)

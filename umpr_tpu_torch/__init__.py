@@ -8,12 +8,18 @@ vocabulary, dataset build, loader) is its own copy.
 
 Ported so far: UMPR-R and full UMPR serving (``python -m
 umpr_tpu_torch.serve``) and training (``python -m umpr_tpu_torch.main``),
-export, the pretrainers (``python -m umpr_tpu_torch.train_embeddings``,
-``-m umpr_tpu_torch.pretrain.abae``, ``-m umpr_tpu_torch.pretrain.rnet``)
-and the VGG16 weight converter (``python -m umpr_tpu_torch.convert_vgg16``).
-ROADMAP.md lists what comes next.
+export (``python -m umpr_tpu_torch.export``, the long-history route
+included), the pretrainers (``python -m umpr_tpu_torch.train_embeddings``,
+``-m umpr_tpu_torch.pretrain.abae``, ``-m umpr_tpu_torch.pretrain.rnet``),
+the VGG16 weight converter (``python -m umpr_tpu_torch.convert_vgg16``) and
+the offline data prep: the preprocessor (``python -m
+umpr_tpu_torch.text.preprocess``, raw dumps to train/valid/test.csv and
+photos.json) and the photo downloader (``python -m
+umpr_tpu_torch.data.download``), host code that needs neither sklearn nor
+nltk.  ROADMAP.md lists what comes next.
 
-Entry points run on the card.  ``--device cpu`` is the only way onto the
-CPU (the tests use it); there the kernel wrappers run their plain PyTorch
-versions.
+Entry points that compute on tensors run on the card.  ``--device cpu``
+is the only way onto the CPU (the tests use it); there the kernel
+wrappers run their plain PyTorch versions.  The data-prep CLIs and the
+VGG16 converter are host code and take no device.
 """

@@ -3,11 +3,23 @@
 
 The artifact is the forward graph of the kernel-free model
 (``ModelDims.use_kernels`` False, the JAX package's ``from_config(config,
-use_pallas=False)``): ``bigru_scan`` for the bi-GRU, the composite
-attention and the composite pool.  So, like the JAX package's StableHLO
-artifact, it is served by any process with torch installed: no
-umpr_tpu_torch model code and no CUDA kernel of the port is needed to
-load and run it.
+use_pallas=False)``): ``bigru_scan`` for the bi-GRU, the composite pool
+and, below the long-history threshold (batch_size * P^2 * 4 bytes of
+attention, ``ops.attention.TILED_BYTES_THRESHOLD``), the composite
+attention.  Such an artifact is kernel-free: like the JAX package's
+StableHLO artifact, it is served by any process with torch installed, and
+no umpr_tpu_torch code is needed to load and run it.
+
+Above the threshold the JAX package bakes its tiled Pallas kernel into the
+artifact, and the port bakes in K7/K8 as the custom ops
+``umpr_tpu_torch::affinity_tiles`` / ``affinity_finish``
+(``ops.attention.affinity_attention_ops``; the composite would hold a 17
+GB (B, P, P) tensor at (64, 8192)).  A long-history artifact therefore
+needs umpr_tpu_torch importable where it is loaded, as the JAX artifact
+needs Pallas: ``load_predict`` registers the ops.  On the card they launch
+the kernels; on the CPU they run the plain versions.  The metadata's
+``"custom_ops"`` names the custom ops in the graph (``[]`` below the
+threshold).
 
     # export (shapes are static; one artifact per batch spec)
     python -m umpr_tpu_torch.export --model_path model/<run> --output umpr.pt2 \\
@@ -27,12 +39,6 @@ match.  The program is traced on ``--device`` (default cuda);
 ``torch.export.passes.move_to_device_pass``, so one artifact serves the
 CPU and the card: the port's form of the JAX package's ``--platforms``,
 and the port has no such flag.
-
-The long-history route (batch_size * P^2 * 4 bytes above the attention
-threshold) raises: the JAX package bakes its tiled Pallas kernel into such
-an artifact, while the port's K7/K8 are ctypes calls that torch.export
-cannot trace, and the composite would hold a 17 GB (B, P, P) tensor at
-(64, 8192).
 """
 
 from __future__ import annotations
@@ -47,8 +53,9 @@ from torch import nn
 from umpr_tpu_torch.convert import params_from_jax, params_to_jax
 from umpr_tpu_torch.models.umpr import UMPR, ModelDims
 from umpr_tpu_torch.ops import attention
+from umpr_tpu_torch.ops import attention_cuda  # noqa: F401  (registers K7/K8's custom ops)
 
-LONG_HISTORY = "ROADMAP A6, export of the long-history route"
+CUSTOM_OP_NAMESPACE = "umpr_tpu_torch"
 
 
 def batch_spec(config, dims: ModelDims):
@@ -100,14 +107,17 @@ class _Predict(nn.Module):
 
 
 def check_exportable(config):
-    """Raise where the JAX package would bake a Pallas kernel into the
-    artifact (the long-history attention route, ROADMAP A6)."""
+    """Raise where the model itself raises: past the P ceiling that the
+    long-history attention route shares with the JAX package's tiled
+    kernel."""
     P = config.max_sent_count * config.max_sent_length
-    if config.batch_size * P * P * 4 > attention.TILED_BYTES_THRESHOLD:
+    D = 2 * config.gru_size
+    if (config.batch_size * P * P * 4 > attention.TILED_BYTES_THRESHOLD
+            and P > attention.max_tiled_p(D)):
         raise NotImplementedError(
-            f"export: batch_size {config.batch_size} at P = {P} takes the "
-            "long-history attention route, whose kernels torch.export cannot "
-            f"trace ({LONG_HISTORY})")
+            f"export: P = {P} exceeds the long-history attention route's ceiling "
+            f"(~{attention.max_tiled_p(D)} at D = {D}); reduce "
+            "max_sent_count/max_sent_length")
 
 
 def export_predict(model, spec, device):
@@ -123,6 +133,14 @@ def export_predict(model, spec, device):
                                       (params, example_batch(spec, device)), strict=False)
     program.example_inputs = None  # torch.export.save would write the weights with them
     return program
+
+
+def custom_ops(program):
+    """The sorted names of the port's custom ops in the program's graph
+    (``namespace::name``)."""
+    targets = (node.target for node in program.graph.nodes if node.op == "call_function")
+    return sorted({t.name().split(".")[0] for t in targets
+                   if getattr(t, "namespace", None) == CUSTOM_OP_NAMESPACE})
 
 
 def _key_part(k):
@@ -164,13 +182,14 @@ def _unflatten(flat):
 def save_artifact(path, program, params, meta=None):
     """Artifact = <path> (torch.export.save) + <path>.params.npz (the
     parameters in the JAX layout, path-keyed as the JAX package's sidecar)
-    + <path>.json (metadata).  `params`: the model's state dict."""
+    + <path>.json (metadata, with ``"custom_ops"``).  `params`: the
+    model's state dict."""
     torch.export.save(program, path)
     tree = params_to_jax({n: t.detach().cpu() for n, t in params.items()})
     np.savez(path + ".params.npz", **{k: np.asarray(v, np.float32)
                                       for k, v in _flatten(tree)})
     with open(path + ".json", "w") as f:
-        json.dump(meta or {}, f, indent=2)
+        json.dump({**(meta or {}), "custom_ops": custom_ops(program)}, f, indent=2)
 
 
 def load_params(path, device="cpu"):
@@ -198,7 +217,9 @@ def load_predict(path, device=None):
     ``torch.export.passes.move_to_device_pass``.  params is the port's
     state dict on that device; batch a dict of tensors (or arrays) holding
     the artifact's spec (other keys are ignored), moved there at each
-    call."""
+    call.  A long-history artifact's custom ops were registered when this
+    module imported ``ops.attention_cuda``; they dispatch on their
+    tensors' device."""
     program = torch.export.load(path)
     device = torch.device(device) if device is not None else program_device(program)
     if program_device(program) != device:

@@ -20,6 +20,7 @@ class RNet(nn.Module):
         self.gru = BiGRU(emb_size, gru_size, generator)
         # learned affinity bilinear form M (2u, 2u), torch.randn init
         self.M = nn.Parameter(randn((2 * gru_size, 2 * gru_size), generator))
+        self.use_kernels = True  # False: the kernel-free routes of export
 
     def forward(self, both_emb, u_lengths, i_lengths, exists, attention_pallas=None):
         """both_emb: (2B, S, L, E), user histories stacked over item
@@ -37,7 +38,8 @@ class RNet(nn.Module):
         y_pos, y_sent = bigru_split(self.gru, both_emb.reshape(B2 * S, L, E),
                                     both_len, S)
         soft_u, soft_i, atte_u, atte_i = affinity_attention(
-            y_pos[:B], y_pos[B:], self.M, exists.reshape(S * L), bool(attention_pallas))
+            y_pos[:B], y_pos[B:], self.M, exists.reshape(S * L), bool(attention_pallas),
+            self.use_kernels)
         return y_sent, soft_u, soft_i, atte_u, atte_i
 
 

@@ -34,7 +34,7 @@ from torch import nn
 
 from umpr_tpu_torch.models.control_net import ControlNet
 from umpr_tpu_torch.models.layers import linear
-from umpr_tpu_torch.models.review_net import ReviewNet
+from umpr_tpu_torch.models.review_net import ReviewNet, RNet
 from umpr_tpu_torch.models.visual_net import VisualNet
 from umpr_tpu_torch.ops import masking
 from umpr_tpu_torch.ops.gru import BiGRU
@@ -62,7 +62,8 @@ class ModelDims:
     # False: the kernel-free model of export, the JAX package's
     # from_config(config, use_pallas=False): bigru_scan for the bi-GRU,
     # the composite pool (vgg_fused_pool ignored) and, below the
-    # long-history threshold, the composite attention
+    # long-history threshold, the composite attention; above it K7/K8's
+    # custom ops, forward only (ops/attention.py affinity_attention_ops)
     use_kernels: bool = True
 
     @classmethod
@@ -106,7 +107,7 @@ class UMPR(nn.Module):
             fusion_in += 2 * dims.view_size
         self.linear_fusion = linear(fusion_in, 1, generator=generator)
         for m in self.modules():
-            if isinstance(m, BiGRU):
+            if isinstance(m, (BiGRU, RNet)):
                 m.use_kernels = dims.use_kernels
 
     def dropout_shapes(self, batch):

@@ -31,6 +31,14 @@ column-tiled B9) and, with ``use_pallas``, when D % 128 == 0 and P fits the
 whole-tile B10.  It raises where the JAX package raises (its tiled kernel's
 P ceiling), so both packages accept the same configs.  On the CPU the
 kernel path runs the kernels' plain versions.
+
+The kernel-free model of export (``use_kernels`` False) takes the same
+kernels above the threshold, as the JAX package's ``use_pallas=False``
+model takes B9 there, but through ``affinity_attention_ops``: the forward
+alone, through K7/K8's ``torch.library`` custom ops, which
+``torch.export`` traces into the artifact (a ctypes call takes a data
+pointer, which a traced tensor does not have).  Below the threshold that
+model takes the composite, and its artifact holds no kernel.
 """
 
 from __future__ import annotations
@@ -54,8 +62,10 @@ def max_tiled_p(D):
     return (90 << 20) // (4 * (2 * Dp + 8 * 128)) // 128 * 128
 
 
-def affinity_attention(gru_u, gru_i, M, exists, use_pallas=False):
-    """gru_u/gru_i: (B, P, D); M: (D, D); exists: (P,) bool.
+def affinity_attention(gru_u, gru_i, M, exists, use_pallas=False, use_kernels=True):
+    """gru_u/gru_i: (B, P, D); M: (D, D); exists: (P,) bool; use_kernels
+    False: the kernel-free model's routes (no backward above the
+    threshold).
 
     Returns soft_u, soft_i (B, P) and atte_u, atte_i (B, D)."""
     B, P, D = gru_u.shape
@@ -66,6 +76,8 @@ def affinity_attention(gru_u, gru_i, M, exists, use_pallas=False):
                 f"package's tiled kernel (~{max_tiled_p(D)} at D={D}), which "
                 "the port keeps so that both accept the same configs; reduce "
                 "max_sent_count/max_sent_length")
+        if not use_kernels:
+            return affinity_attention_ops(gru_u, gru_i, M, exists)
         return AffinityAttention.apply(gru_u, gru_i, M, exists)
     if use_pallas and D % 128 == 0 and -(-P // 128) * 128 <= MAX_KERNEL_P:
         return AffinityAttention.apply(gru_u, gru_i, M, exists)
@@ -82,6 +94,20 @@ def affinity_attention_composite(gru_u, gru_i, M, exists):
     atte_u = torch.einsum("bpe,bp->be", gru_u, soft_u)
     atte_i = torch.einsum("bpe,bp->be", gru_i, soft_i)
     return soft_u, soft_i, atte_u, atte_i
+
+
+def affinity_attention_ops(gru_u, gru_i, M, exists):
+    """The kernel path's forward through K7/K8's custom ops, for
+    ``torch.export``: AffinityAttention.forward's function (widened to f32,
+    T = gru_i @ M, the four outputs rounded to the inputs' dtype), and no
+    backward.  Nothing (B, P, P)-shaped is formed."""
+    dtype = gru_u.dtype
+    U, I, M = (t.float().contiguous() for t in (gru_u, gru_i, M))
+    T = torch.matmul(I, M)
+    col_val, col_idx, rowmax, _ = torch.ops.umpr_tpu_torch.affinity_tiles(T, U, exists)
+    soft_u, soft_i, atte_u, atte_i, _, _ = torch.ops.umpr_tpu_torch.affinity_finish(
+        col_val, col_idx, rowmax, exists, U, I)
+    return tuple(t.to(dtype) for t in (soft_u, soft_i, atte_u, atte_i))
 
 
 def _softmax_vjp(soft, dsoft):

@@ -32,6 +32,16 @@ back.  On a non-CPU device the wrappers raise on an input that requires
 grad: ``ops.attention.AffinityAttention`` calls them on detached tensors
 and gives the graph its backward.  ``<wrapper>.launches`` counts kernel
 launches.
+
+Both kernels are also ``torch.library`` custom ops,
+``torch.ops.umpr_tpu_torch.affinity_tiles`` and ``.affinity_finish``, for
+the one caller that runs under ``torch.export``: the forward-only
+long-history route of the kernel-free model
+(``ops.attention.affinity_attention_ops``), which export.py bakes into an
+artifact.  On CUDA tensors an op is the wrapper (it launches the kernel
+and counts it), on CPU tensors the plain version; its fake
+implementation gives a trace the outputs' shapes and dtypes.  They are
+registered when this module is imported, and nothing is compiled then.
 """
 
 from __future__ import annotations
@@ -216,3 +226,43 @@ KERNELS = (affinity_tiles, affinity_finish)
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+
+
+_TILES_SCHEMA = "(Tensor T, Tensor U, Tensor exists) -> (Tensor, Tensor, Tensor, Tensor)"
+_FINISH_SCHEMA = ("(Tensor col_val, Tensor col_idx, Tensor row_val, Tensor exists, Tensor U, "
+                  "Tensor I) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+@torch.library.custom_op("umpr_tpu_torch::affinity_tiles", mutates_args=(),
+                         device_types="cpu", schema=_TILES_SCHEMA)
+def affinity_tiles_op(T, U, exists):
+    """K7 as a custom op (see the module docstring)."""
+    return affinity_tiles_ref(T, U, exists)
+
+
+affinity_tiles_op.register_kernel("cuda")(affinity_tiles)
+
+
+@affinity_tiles_op.register_fake
+def _(T, U, exists):
+    B, P, _ = T.shape
+    R = -(-P // ROW_TILE)
+    return (T.new_empty(B, R, P), T.new_empty(B, R, P, dtype=torch.int32),
+            T.new_empty(B, P), T.new_empty(B, P, dtype=torch.int32))
+
+
+@torch.library.custom_op("umpr_tpu_torch::affinity_finish", mutates_args=(),
+                         device_types="cpu", schema=_FINISH_SCHEMA)
+def affinity_finish_op(col_val, col_idx, row_val, exists, U, I):
+    """K8 as a custom op (see the module docstring)."""
+    return affinity_finish_ref(col_val, col_idx, row_val, exists, U, I)
+
+
+affinity_finish_op.register_kernel("cuda")(affinity_finish)
+
+
+@affinity_finish_op.register_fake
+def _(col_val, col_idx, row_val, exists, U, I):
+    B, P, D = U.shape
+    return (*(U.new_empty(B, P) for _ in range(2)), *(U.new_empty(B, D) for _ in range(2)),
+            U.new_empty(B, P), U.new_empty(B, P, dtype=torch.int32))
